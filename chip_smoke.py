@@ -7,19 +7,31 @@ CUDA card, and imports nothing of jax or of the JAX package. Phases, one
 finding per line:
 
 1. card and build: ``nvidia-smi`` name and power limit; ``nvcc`` builds the
-   stream+collide kernels from ``src/repro_torch/kernels/lbm_collide/csrc``.
+   stencil and ghost-fill kernels from
+   ``src/repro_torch/kernels/lbm_collide/csrc``; ``-Xptxas -v`` lines and,
+   for every instantiation (f32/f64 x D3Q19/D3Q27 x BGK/TRT stencils,
+   copy/fine/values fills), registers, local (spill) bytes, shared memory
+   and theoretical occupancy. The f32 D3Q19 TRT stencil must keep at least
+   50 % occupancy; at that register cap it may keep a few words in local
+   memory, and no other instantiation may.
 2. main path, the "full cavity": ``AMRLBM(LidDrivenCavityConfig(...)).run``
    on the hand-written kernels, D3Q19 TRT f32, 32^3 cells a block (34^3
    with the ghost layer), 4^3 roots, up to level 2, 12 coarse steps with
-   AMR every 4, first in ``fused`` mode (every level has a ghost fill, so
-   every step goes through the halo kernel), then in ``arena`` mode (the
-   stencil kernel). Launch counts are zeroed just before each run and read
-   just after. Prints blocks per level, peak device memory, coarse steps/s,
-   MLUPS, mass drift, and the fused run's steady-state transfers.
+   AMR every 4, first in ``fused`` mode (every level's ghost fill from its
+   sources, then every level's stencil, each substep), then in ``arena``
+   mode (the stencil kernel). Launch counts are zeroed just before each run
+   and read just after. Prints blocks per level, peak device memory, coarse
+   steps/s, MLUPS, mass drift, the fused run's steady-state transfers, and
+   the ``torch.profiler`` breakdown of a steady fused step, which must hold
+   no index gather, no ``cat`` and one fill launch per (level, segment) a
+   substep.
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
-   cavity), plus small D3Q27 / BGK / f64 / odd-extent cases; max error,
-   kernel time, plain time and the bound.
+   cavity): the stencil at B = 64; the level-2 fill from its sources plus
+   the stencil; the padded-slab form once. Then small D3Q27 / BGK / f64 /
+   odd-extent cases for the stencil and every fill segment kind (``same``,
+   ``coarse``, ``fine``) in f32/f64 x D3Q19/D3Q27. Max error, kernel time,
+   plain time and the bound.
 4. cross-check at a smaller depth: ``restack``, ``arena`` and ``fused`` on
    the kernels and ``fused`` on the plain versions grow the same forest and
    agree on the interior fields.
@@ -31,6 +43,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +73,9 @@ CROSS_CHECK = dict(cells_per_block=(32, 32, 32), root_grid=(2, 2, 2), max_level=
 KERNEL1_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:212"
 KERNEL2_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:248"
 KERNEL_SOURCE = "src/repro_torch/kernels/lbm_collide/csrc/lbm_collide.cu"
+# local memory a thread of the register-capped f32 D3Q19 stencil may use
+# (ptxas keeps 16-24 bytes there at 64 registers)
+CAPPED_STENCIL_LOCAL_BYTES = 32
 
 
 def check(cond: bool, what: str) -> None:
@@ -104,8 +120,9 @@ def flops_per_fluid_cell(Q: int, collision: str) -> int:
 
 def stencil_bound_ms(f: torch.Tensor, mask: torch.Tensor, collision: str, extra_bytes: int = 0):
     """Least time for the stencil on these inputs: the larger of its bytes
-    (read f and mask once, write f once) over HBM bandwidth and its fp32
-    operations on this mask's fluid cells over the fp32 peak."""
+    (read f and mask once, write f once, plus ``extra_bytes``) over HBM
+    bandwidth and its fp32 operations on this mask's fluid cells over the
+    fp32 peak."""
     B, Q = f.shape[:2]
     nbytes = 2 * f.numel() * f.element_size() + mask.numel() * mask.element_size() + extra_bytes
     fluid = int((mask == 0).sum())
@@ -114,8 +131,47 @@ def stencil_bound_ms(f: torch.Tensor, mask: torch.Tensor, collision: str, extra_
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fill_bytes(tables, Q: int, itemsize: int) -> int:
+    """Bytes a from-sources fill must move: per row its source values (8
+    cells for a fine row), its Q written values and its int32 indices
+    (dst slot, dst cell, src slot, and 1 or 8 src cells)."""
+    total = 0
+    for t in tables:
+        k = 8 if t.kind == "fine" else 1
+        total += t.dst_slot.numel() * (Q * itemsize * (k + 1) + 4 * (3 + k))
+    return total
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def small_forest(cells):
+    """Two roots, one refined twice along its lowest-id block: a forest whose
+    superstep fills hold ``same``, ``coarse`` and ``fine`` segments. Returns
+    the forest, its field registry and an arena bound to it."""
+    from repro_torch.core import (
+        AMRPipeline, Comm, ForestGeometry, LevelArena, SFCBalancer, make_uniform_forest,
+    )
+    from repro_torch.lbm.grid import LBMBlockSpec, make_lbm_fields
+
+    reg = make_lbm_fields(LBMBlockSpec(cells=cells))
+    forest = make_uniform_forest(ForestGeometry(root_grid=(2, 1, 1), max_level=6), 1, level=0)
+
+    def seed(forest):
+        for b in forest.all_blocks():
+            b.data["pdf"] = np.zeros(reg.block_shape("pdf"), np.float32)
+            b.data["mask"] = np.zeros(reg.block_shape("mask"), np.int32)
+
+    seed(forest)
+    pipe = AMRPipeline(balancer=SFCBalancer(), registry=reg)
+    for level in range(2):
+        pick = min(b.bid for b in forest.all_blocks() if b.level == level)
+        forest, _ = pipe.run_cycle(forest, Comm(1), lambda r, blocks, pick=pick, to=level + 1: {pick: to})
+        seed(forest)
+    arena = LevelArena(reg)
+    arena.adopt(forest)
+    return forest, reg, arena
 
 
 def main() -> int:
@@ -125,6 +181,8 @@ def main() -> int:
 
     from repro_torch.kernels.lbm_collide import build as kbuild
     from repro_torch.kernels.lbm_collide.lbm_collide import (
+        kernel_attributes,
+        lbm_halo_fill,
         lbm_stream_collide,
         lbm_stream_collide_halo,
     )
@@ -132,10 +190,12 @@ def main() -> int:
         _concat_vals,
         _lower_fill_gathers,
         _pad_fill_layout,
+        fill_tables,
     )
     from repro_torch.kernels.lbm_collide.ref import (
         collision_coeffs,
-        stream_collide_halo_ref,
+        halo_fill_ref,
+        stream_collide_coeffs,
         stream_collide_ref,
     )
     from repro_torch.lbm.criteria import macroscopic
@@ -143,6 +203,7 @@ def main() -> int:
     from repro_torch.lbm.halo import compile_ghost_plan, lower_halo_fill
     from repro_torch.lbm.lattice import D3Q19, D3Q27, omega_for_level
 
+    counters = (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)
     card = card_line()
     say("card:", card)
     say(
@@ -150,16 +211,34 @@ def main() -> int:
         "device", torch.cuda.get_device_name(0), "count", torch.cuda.device_count(),
     )
 
-    # -- 1. build -------------------------------------------------------------
+    # -- 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     lib_path, log = kbuild.build()
     kbuild.load_library()
     say(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s (one nvcc, sm_90a)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            say("  ptxas:", line.strip())
+    if log:
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                say("  ptxas:", line.strip())
+        check(bool(re.search(r"bytes spill stores", log)), "ptxas reported its spills")
+    attrs = kernel_attributes()
+    for r in attrs:
+        say(f"  kernel {r['kernel']:7s} {r['variant']:6s} {r['dtype']} Q={r['Q']}: "
+            f"{r['registers']} registers, {r['local_bytes']} local (spill) bytes, {r['shared_bytes']} shared bytes, "
+            f"{r['ctas_per_sm']} CTAs of 256 per SM, occupancy {r['occupancy']:.1%}")
+    # the f32 D3Q19 stencils are capped at 64 registers (4 CTAs of 256 threads,
+    # 50 % occupancy) and keep a few words in local memory; nothing else may
+    for r in attrs:
+        capped = r["kernel"] == "stencil" and r["dtype"] == "f32" and r["Q"] == 19
+        limit = CAPPED_STENCIL_LOCAL_BYTES if capped else 0
+        check(r["local_bytes"] <= limit, f"local memory within {limit} bytes: {r}")
+    main_stencil = next(r for r in attrs if r["kernel"] == "stencil" and r["variant"] == "trt"
+                        and r["dtype"] == "f32" and r["Q"] == 19)
+    check(main_stencil["occupancy"] >= 0.5, "the f32 D3Q19 TRT stencil keeps 50 % occupancy")
+    main_fills = [r for r in attrs if r["kernel"] == "fill" and r["dtype"] == "f32" and r["Q"] == 19
+                  and r["variant"] in ("copy", "fine")]
 
-    # -- 2. main path: the full cavity, fused (kernel 2) and arena (kernel 1) --
+    # -- 2. main path: the full cavity, fused and arena --------------------------
     def drive_cavity(mode: str):
         """``AMRLBM(cfg).run(12, amr_interval=4)``, unrolled so each coarse
         step and AMR event is timed; launch counts zeroed just before and
@@ -169,8 +248,8 @@ def main() -> int:
             json.dumps({k: v for k, v in vars(cfg).items() if k != "obstacle_fn"}))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        lbm_stream_collide.launches = 0
-        lbm_stream_collide_halo.launches = 0
+        for fn in counters:
+            fn.launches = 0
         t_main = time.perf_counter()
         sim = AMRLBM(cfg)
         check(sim.device.type == "cuda", "the main path runs on the card")
@@ -195,10 +274,7 @@ def main() -> int:
         mass1 = sim.total_mass()
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t_main
-        launches = {
-            "lbm_stream_collide": lbm_stream_collide.launches,
-            "lbm_stream_collide_halo": lbm_stream_collide_halo.launches,
-        }
+        launches = {fn.__name__: fn.launches for fn in counters}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # steady state: steps 10 and 11 (step 9 follows the second AMR event:
         # in fused mode it uploads and builds the superstep; step 12 is
@@ -236,17 +312,14 @@ def main() -> int:
             check(bool(np.isfinite(sim.spec.interior(b.data["pdf"])).all()), "finite interior pdfs")
         return sim, launches
 
-    # fused runs every level through the halo kernel (every level of a
-    # multi-block forest has a ghost fill); kernel 1 carries arena/restack
+    # fused: every level's fill from its sources, then every level's stencil;
+    # arena: the stencil alone, with a host round trip every substep
     sim, fused_launches = drive_cavity("fused")
-    check(fused_launches["lbm_stream_collide_halo"] > 0, "the halo kernel launched on the fused path")
+    check(fused_launches["lbm_halo_fill"] > 0, "the fill kernel launched on the fused path")
+    check(fused_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the fused path")
     _arena_sim, arena_launches = drive_cavity("arena")
     check(arena_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the arena path")
     del _arena_sim
-    launches = {
-        "lbm_stream_collide": arena_launches["lbm_stream_collide"],
-        "lbm_stream_collide_halo": fused_launches["lbm_stream_collide_halo"],
-    }
     cfg = sim.cfg
     res = sim.arena.device()
 
@@ -255,6 +328,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     sim.advance(1)  # the superstep is rebuilt after the last AMR event
+    fill_segments = sim.engine._fused_program()[0].fill_segments
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -270,8 +344,14 @@ def main() -> int:
         f"{wall_ms:.3f} ms wall, idle share {1 - busy_ms / wall_ms:.1%}")
     for name, ms, count in rows[:10]:
         say(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<5d} {name[:110]}")
+    banned = [r[0] for r in rows if re.search(r"index|gather|scatter|cat", r[0], re.IGNORECASE)]
+    check(not banned, f"no index gather, scatter or cat in the steady fused step: {banned}")
+    fills_seen = sum(r[2] for r in rows if "halo_fill_kernel" in r[0])
+    say(f"[fused] fill launches in 2 steady coarse steps: {fills_seen} "
+        f"(one per (active level, segment) a substep: {2 * fill_segments})")
+    check(fills_seen == 2 * fill_segments, "one fill launch per (active level, segment) a substep")
 
-    # -- 3. kernels against their plain versions, main-path shapes -------------
+    # -- 3. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
     levels = sim.arena.levels()
     lmax = levels[-1]
@@ -296,47 +376,96 @@ def main() -> int:
     say(f"lbm_stream_collide D3Q19 TRT f32 B=64 34^3 (real cavity state, finest level first): max |err| {k1_err:.3e}, "
         f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound {k1_bound_ms:.4f} ms ({k1_by}), "
         f"{k1_bound_ms / k1_ms:.1%} of bound")
+    del f64b, m64b
 
-    # kernel 2: the finest level's fill from a real compiled plan of the cavity
+    # the halo step: real compiled fills of the cavity (every level of the
+    # pattern that activates all levels), from their sources
     slots = {l: sim.arena.slots(l) for l in levels}
     plan = compile_ghost_plan(sim.forest, sim.fields, slots, fields=("pdf",), levels=set(levels))
     index = {l: i for i, l in enumerate(levels)}
-    fill = lower_halo_fill(plan)[lmax]
-    f_fine, m_fine = bufs[index[lmax]], masks[index[lmax]]
-    vals = _concat_vals(bufs, _lower_fill_gathers(fill, index, f_fine.device))
-    entry, cell, valid = _pad_fill_layout(fill.dst_slot, fill.dst_cell, f_fine.shape[0], f_fine.shape[2:])
-    entry_t = torch.as_tensor(entry, dtype=torch.long, device="cuda")
-    cell_t = torch.as_tensor(cell, device="cuda")
-    valid_t = torch.as_tensor(valid, device="cuda")
-    hv = vals[entry_t].contiguous()
-    B2, P = cell.shape
-    kw = kw_l[lmax]
+    fills = lower_halo_fill(plan)
+    tables = {l: fill_tables(f, index, "cuda") for l, f in fills.items()}
+    check({t.kind for ts in tables.values() for t in ts} == {"same", "coarse", "fine"},
+          "the cavity's fills hold every segment kind")
+
+    def run_fill(fill_fn, l, work):
+        for t in tables[l]:
+            fill_fn(work[index[l]], work[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+
+    for l in levels:  # every level's fill, kernel against plain, bitwise in practice
+        got, want = list(bufs), list(bufs)
+        got[index[l]], want[index[l]] = bufs[index[l]].clone(), bufs[index[l]].clone()
+        run_fill(lbm_halo_fill, l, got)
+        run_fill(halo_fill_ref, l, want)
+        torch.cuda.synchronize()
+        err = max_err(got[index[l]], want[index[l]])
+        torch.testing.assert_close(got[index[l]], want[index[l]], **TOL[torch.float32])
+        say(f"lbm_halo_fill level {l}: segments "
+            f"{[(t.kind, t.dst_slot.numel()) for t in tables[l]]}: max |err| {err:.3e}")
+    del got, want
+
+    i2 = index[lmax]
+    f_fine, m_fine = bufs[i2], masks[i2]
+    B2 = f_fine.shape[0]
+    rows2 = fills[lmax].num_cells
+    work = list(bufs)
+    work[i2] = f_fine.clone()  # the fill writes its destination's ghost ring in place
+
+    def halo_step():
+        run_fill(lbm_halo_fill, lmax, work)
+        return lbm_stream_collide(work[i2], m_fine, **kw)
+
     coeffs = collision_coeffs(kw["omega"], lattice=lattice, u_wall=cfg.u_lid,
                               collision=cfg.collision, dtype=np.float32)
-    b_idx, p_idx = valid_t.nonzero(as_tuple=True)
-    flat_vals, flat_cell = hv[b_idx, p_idx], cell_t[b_idx, p_idx].long()
+    plain_work = list(bufs)
 
-    def plain2():
-        return stream_collide_halo_ref(f_fine, flat_vals, b_idx, flat_cell, coeffs,
-                                       mask=m_fine, lattice=lattice, collision=cfg.collision)
+    def plain_halo_step():
+        plain_work[i2] = f_fine.clone()
+        run_fill(halo_fill_ref, lmax, plain_work)
+        return stream_collide_coeffs(plain_work[i2], m_fine, coeffs, lattice=lattice, collision=cfg.collision)
 
-    want = plain2()
-    f_work = f_fine.clone()  # the kernel fills its input's ghost ring in place
-    got = lbm_stream_collide_halo(f_work, m_fine, hv, cell_t, valid_t, **kw)
+    got, want = halo_step(), plain_halo_step()
     torch.cuda.synchronize()
     k2_err = max_err(got, want)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
-    del got, want
-    k2_ms = time_ms(lambda: lbm_stream_collide_halo(f_work, m_fine, hv, cell_t, valid_t, **kw), iters=30)
-    k2_plain_ms = time_ms(plain2, iters=5, warmup=1)
-    slab_bytes = hv.numel() * hv.element_size() + cell_t.numel() * 4 + valid_t.numel()
-    k2_bound_ms, k2_by = stencil_bound_ms(f_fine, m_fine, cfg.collision, extra_bytes=slab_bytes)
-    say(f"lbm_stream_collide_halo D3Q19 TRT f32 level {lmax} B={B2} P={P} (real cavity fill, "
-        f"{int(valid.sum())} ghost rows): max |err| {k2_err:.3e}, kernel {k2_ms:.4f} ms, "
-        f"plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_by}), {k2_bound_ms / k2_ms:.1%} of bound")
-    del f_work, hv, vals, flat_vals
+    del got
+    fill_ms = time_ms(lambda: run_fill(lbm_halo_fill, lmax, work), iters=30)
+    sten2_ms = time_ms(lambda: lbm_stream_collide(work[i2], m_fine, **kw), iters=30)
+    k2_ms = time_ms(halo_step, iters=30)
+    k2_plain_ms = time_ms(plain_halo_step, iters=3, warmup=1)
+    fbytes = fill_bytes(tables[lmax], lattice.Q, f_fine.element_size())
+    fill_bound_ms = fbytes / HBM_BYTES_PER_S * 1e3
+    sten2_bound_ms, _ = stencil_bound_ms(f_fine, m_fine, cfg.collision)
+    k2_bound_ms, k2_by = fill_bound_ms + sten2_bound_ms, "bytes"
+    say(f"lbm_halo_fill level {lmax} from sources ({rows2} ghost rows, {len(tables[lmax])} launches): "
+        f"{fill_ms:.4f} ms, bound {fill_bound_ms:.4f} ms ({fbytes / 1e9:.4f} GB), "
+        f"{fill_bound_ms / fill_ms:.1%} of bound")
+    say(f"lbm_stream_collide level {lmax} B={B2}: {sten2_ms:.4f} ms, bound {sten2_bound_ms:.4f} ms, "
+        f"{sten2_bound_ms / sten2_ms:.1%} of bound")
+    say(f"halo step level {lmax} (fill from sources + stencil), D3Q19 TRT f32 B={B2}: max |err| {k2_err:.3e}, "
+        f"kernels {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_by}), "
+        f"{k2_bound_ms / k2_ms:.1%} of bound")
 
-    # small cases: D3Q27, BGK, f64, odd extents
+    # the slab form once (the Pallas halo kernel's interface): same fill
+    vals = _concat_vals(bufs, _lower_fill_gathers(fills[lmax], index, f_fine.device))
+    entry, cell, valid = _pad_fill_layout(fills[lmax].dst_slot, fills[lmax].dst_cell, B2, f_fine.shape[2:])
+    hv = vals[torch.as_tensor(entry, dtype=torch.long, device="cuda")].contiguous()
+    cell_t, valid_t = torch.as_tensor(cell, device="cuda"), torch.as_tensor(valid, device="cuda")
+    f_slab = f_fine.clone()
+    got = lbm_stream_collide_halo(f_slab, m_fine, hv, cell_t, valid_t, **kw)
+    torch.cuda.synchronize()
+    slab_err = max_err(got, want)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    del got, want
+    slab_ms = time_ms(lambda: lbm_stream_collide_halo(f_slab, m_fine, hv, cell_t, valid_t, **kw), iters=30)
+    slab_bytes = hv.numel() * hv.element_size() + cell_t.numel() * 4 + valid_t.numel()
+    slab_bound_ms, _ = stencil_bound_ms(f_fine, m_fine, cfg.collision, extra_bytes=slab_bytes)
+    say(f"lbm_stream_collide_halo (slab form) level {lmax} B={B2} P={cell.shape[1]}: max |err| {slab_err:.3e}, "
+        f"{slab_ms:.4f} ms, bound {slab_bound_ms:.4f} ms (bytes, with the slab), "
+        f"{slab_bound_ms / slab_ms:.1%} of bound")
+    del f_slab, hv, vals, work, plain_work
+
+    # small cases: stencil and slab form at D3Q27 / BGK / f64 / odd extents
     rng = np.random.default_rng(0)
     for lat, coll, dtype, shape in (
         (D3Q27, "bgk", torch.float32, (18, 18, 18)),
@@ -344,6 +473,7 @@ def main() -> int:
         (D3Q19, "bgk", torch.float64, (16, 16, 16)),
         (D3Q19, "trt", torch.float64, (9, 11, 7)),
         (D3Q19, "trt", torch.float32, (33, 17, 35)),
+        (D3Q27, "trt", torch.float64, (5, 3, 300)),
     ):
         B = 4
         w = torch.as_tensor(lat.w, dtype=dtype)[None, :, None, None, None]
@@ -356,7 +486,7 @@ def main() -> int:
         torch.cuda.synchronize()
         err1 = max_err(got, want)
         torch.testing.assert_close(got, want, **TOL[dtype])
-        # kernel 2 on a random ghost-ring fill of each block
+        # the slab form on a random ghost-ring fill of each block
         X, Y, Z = shape
         ring = np.flatnonzero(np.pad(np.zeros((X - 2, Y - 2, Z - 2), bool), 1, constant_values=True))
         slots_ = np.repeat(np.arange(B), 5 + np.arange(B))
@@ -370,7 +500,37 @@ def main() -> int:
         err2 = max_err(got.cpu(), want)
         torch.testing.assert_close(got.cpu(), want, **TOL[dtype])
         say(f"small case {lat.name} {coll} {str(dtype)[6:]} B={B} {shape}: "
-            f"max |err| stencil {err1:.3e}, halo {err2:.3e}")
+            f"max |err| stencil {err1:.3e}, slab form {err2:.3e}")
+
+    # small cases: the fill from sources, every segment kind, f32/f64 x D3Q19/D3Q27
+    forest_s, reg_s, arena_s = small_forest((6, 4, 8))
+    levels_s = arena_s.levels()
+    index_s = {l: i for i, l in enumerate(levels_s)}
+    fills_s = lower_halo_fill(compile_ghost_plan(
+        forest_s, reg_s, {l: arena_s.slots(l) for l in levels_s}, fields=("pdf",)))
+    tables_s = {l: fill_tables(f, index_s, "cuda") for l, f in fills_s.items()}
+    kinds = {t.kind for ts in tables_s.values() for t in ts}
+    check(kinds == {"same", "coarse", "fine"}, f"the small forest's fills hold every kind: {kinds}")
+    for lat in (D3Q19, D3Q27):
+        for dtype in (torch.float32, torch.float64):
+            sbufs = [
+                torch.as_tensor(0.05 + 0.01 * rng.standard_normal(
+                    (arena_s.num_blocks(l), lat.Q, *arena_s.buffer(l, "pdf").shape[2:])), dtype=dtype).cuda()
+                for l in levels_s
+            ]
+            worst = 0.0
+            for l, ts in tables_s.items():
+                for t in ts:
+                    got, want = list(sbufs), list(sbufs)
+                    got[index_s[l]], want[index_s[l]] = sbufs[index_s[l]].clone(), sbufs[index_s[l]].clone()
+                    args = (t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+                    lbm_halo_fill(got[index_s[l]], got[t.src], *args)
+                    halo_fill_ref(want[index_s[l]], want[t.src], *args)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got[index_s[l]], want[index_s[l]], **TOL[dtype])
+                    worst = max(worst, max_err(got[index_s[l]], want[index_s[l]]))
+            say(f"small case fill {lat.name} {str(dtype)[6:]} (same/coarse/fine segments of a "
+                f"{len(levels_s)}-level forest): max |err| {worst:.3e}")
 
     # -- 4. cross-check at a smaller depth ----------------------------------------
     runs = {}
@@ -403,11 +563,20 @@ def main() -> int:
     # -- 5. the kernels line and the result -------------------------------------
     kernels = [
         dict(name="lbm_stream_collide", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
-             launches=launches["lbm_stream_collide"], max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by, library_ms=None),
+             launches=fused_launches["lbm_stream_collide"], max_abs_err=k1_err, ms=k1_ms,
+             plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by, library_ms=None,
+             registers=main_stencil["registers"], spills=main_stencil["local_bytes"],
+             occupancy=main_stencil["occupancy"], shape="B=64 34^3 D3Q19 TRT f32"),
+        # the halo kernel's work on the card: the from-sources fill of every
+        # segment (launches: lbm_halo_fill) followed by the stencil
         dict(name="lbm_stream_collide_halo", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=launches["lbm_stream_collide_halo"], max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None),
+             launches=fused_launches["lbm_halo_fill"], max_abs_err=k2_err, ms=k2_ms,
+             plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None,
+             registers=max(r["registers"] for r in main_fills),
+             spills=max(r["local_bytes"] for r in main_fills),
+             entry="lbm_halo_fill (from sources) then lbm_stream_collide",
+             shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32",
+             fill_ms=fill_ms, fill_bound_ms=fill_bound_ms, slab_form_ms=slab_ms),
     ]
     say("card:", card_line())
     print(json.dumps({"kernels": kernels}))

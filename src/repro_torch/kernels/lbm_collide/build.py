@@ -37,12 +37,13 @@ _SIGNATURES = {
     "lbm_stream_collide": (
         _I, _I, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _D, _D, _P, _P,
     ),
-    # dtype, Q, trt, f, mask, halo_vals, halo_cell, halo_valid, P, out,
-    # B, X, Y, Z, om_a, om_b, lid, stream
-    "lbm_stream_collide_halo": (
-        _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-        ctypes.c_longlong, _I, _I, _I, _D, _D, _P, _P,
+    # dtype, Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot,
+    # src_cell, valid, stream
+    "lbm_halo_fill": (
+        _I, _I, _I, _P, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P,
     ),
+    # which, dtype, Q, variant, out (int[5])
+    "lbm_kernel_attrs": (_I, _I, _I, _I, _P),
 }
 
 

@@ -1,41 +1,63 @@
-// Fused D3Q19/D3Q27 stream+collide for Hopper (sm_90a), written by hand.
+// Fused D3Q19/D3Q27 stream+collide and the ghost fill for Hopper (sm_90a),
+// written by hand.
 //
 // Replaces the two Pallas TPU kernels of the JAX package:
-//   * lbm_stream_collide       <- repro/kernels/lbm_collide/lbm_collide.py
-//                                 lbm_stream_collide_pallas (_kernel ->
-//                                 _stream_collide_body)
-//   * lbm_stream_collide_halo  <- lbm_stream_collide_halo_pallas (_halo_kernel)
+//   * stream_collide_kernel <- repro/kernels/lbm_collide/lbm_collide.py
+//                              lbm_stream_collide_pallas (_kernel ->
+//                              _stream_collide_body)
+//   * halo_fill_kernel, then stream_collide_kernel
+//                           <- lbm_stream_collide_halo_pallas (_halo_kernel)
 //
-// What bounds it: bytes. Per cell the stencil reads Q pdfs and one int32
+// What bounds both: bytes. Per cell the stencil reads Q pdfs and one int32
 // cell type and writes Q pdfs, about 4 flops per byte moved, far below the
-// H100's ratio of peak flops to HBM bandwidth (about 20 for fp32). So the
-// only number that matters is how close the kernel comes to moving each
-// byte once at 3.35 TB/s.
+// H100's ratio of peak flops to HBM bandwidth (about 20 for fp32). The fill
+// copies (or, for a fine source, averages 8 cells into) one ghost cell's Q
+// values. So the only number that matters is how close each comes to moving
+// each byte once at 3.35 TB/s.
 //
-// Design (a first, simple kernel; tiling is later work):
-//   * One thread per cell, a 1-D grid over B*X*Y*Z with Z innermost, so the
-//     Q-plane reads and writes of a warp touch consecutive addresses.
-//   * The TPU kernel kept a whole 34^3 block (about 3 MB) resident in VMEM
-//     for one grid step; a CTA has at most 227 KB of shared memory, so here
-//     neighbours are pulled straight from global memory and L1/L2 serve the
-//     reuse between the 19/27 overlapping reads.
-//   * Source indices wrap inside the block, as jnp.roll does: the ghost ring
-//     is stream-collided too, with wrapped values, exactly like the oracle.
+// Stencil design:
+//   * A 3-D grid: one CTA per (z/y tile of one x-plane, x, block b), threads
+//     over (z, y) with z innermost. A tile spans the whole z extent when it
+//     can, so a CTA's rows are contiguous in memory and a warp's q-plane
+//     accesses are too. No thread divides: the CTA's tile origin costs one
+//     uniform division.
+//   * The CTA stages its mask tile with the one-cell ring (3 x (TY+2) x
+//     (TZ+2) cells) in shared memory as uint8, wrapped at the block edge as
+//     jnp.roll wraps. Each direction reads its source's type from there.
+//   * The pulled source index wraps inside the block, so it is always valid:
+//     the Q pulled loads f_q(x - c_q) are issued first, without condition,
+//     all in flight together with the loads of the CTA's mask tile, which
+//     the thread then stages. Where a source is not fluid (its type read
+//     from shared memory), the bounce-back value f_opp(q)(x) is loaded in
+//     place of the pulled one. No pdf load depends on another global load.
+//   * Few registers stay live while the loads are in flight: an offset is a
+//     CTA-uniform part plus one wrap correction an axis, and outputs go
+//     through a pointer bumped one q-plane a direction. __launch_bounds__
+//     caps the f32 D3Q19 stencil at 64 registers, 4 CTAs of 256 threads
+//     (50 % occupancy) on an SM.
 //   * rho and u are summed in registers in the fixed q order of the Pallas
 //     body; feq is recomputed per direction instead of being stored.
-//   * Non-fluid cells copy their input.
+//     Non-fluid cells copy their input. The ghost ring is stream-collided
+//     too, with wrapped values, exactly like the oracle.
 //   * The lattice tables live in __constant__ memory. The collision
 //     coefficients (om, or om_p/om_m, and the lid vector) arrive as kernel
 //     arguments, already rounded to the working type on the host.
-//   * 64-bit offsets throughout: a full-cavity level of about 600 blocks of
-//     34^3 D3Q19 cells holds about 4.5e8 elements.
 //
-// The halo variant is two launches on one stream: a fill kernel (one thread
-// per (block, pad row)) writes the exchanged ghost values into the ghost
-// ring of the *input* buffer, then the stencil above runs. On the TPU one
-// grid step owned a whole block and could fill and read in one program; on
-// the GPU a block spans many CTAs, and a fill racing a neighbour's read
-// would be wrong, so the launch boundary orders them.
+// Fill design: the TPU kernel took a padded (B, P, Q) slab of ghost values
+// a block, because one grid step owned one block. On the card that slab is
+// pure traffic, so the fill reads its sources directly:
+//   * one thread per ghost row, rows sorted by (dst slot, dst cell) on the
+//     host, so for each q a warp's loads and stores fall on neighbouring
+//     cells of one q-plane; index arrays are int32;
+//   * "copy" rows (same-level and coarse sources) copy one cell's Q values,
+//     "fine" rows sum the 8 octet cells in canonical order and multiply by
+//     1/8 with round-to-nearest intrinsics (nothing contracted or
+//     reordered: bitwise the plain version's arithmetic), "values" rows read
+//     a row of an (N, Q) array (the slab interface);
+//   * it writes into the ghost ring of the destination buffer in place. A
+//     fill racing a stencil's read would be wrong, so the launch boundary
+//     orders them; fill targets are ghost cells and fill sources interior
+//     cells, so fills of several levels never read what another wrote.
 //
 // C interface: plain functions taking raw pointers and the CUDA stream,
 // returning cudaGetLastError() as an int, loaded from Python with ctypes.
@@ -49,18 +71,25 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kFluid = 0;
 constexpr int kLid = 2;
+// mask tile bytes: 3 x (TY+2) x (TZ+2) with TY*TZ <= kThreads is largest at
+// TY = 1, TZ = 256 (or the reverse): 3 x 3 x 258
+constexpr int kMaskTile = 3 * (kThreads + 2 * (kThreads + 1) + 4);
+// mask rows a stencil thread stages through registers (3 * (TY + 2) rows
+// over TY threads: 4 for the 34^3 blocks' TY = 7)
+constexpr int kStagedRows = 4;
+constexpr int kFillCopy = 0;
+constexpr int kFillFine = 1;
+constexpr int kFillValues = 2;
 
 // D3Q27 velocities; D3Q19 is its first 19 entries. The ordering pairs each
 // direction q >= 1 with its opposite: opposite(q) = q + 1 for odd q, q - 1
-// for even q (the TRT loop below relies on that pairing).
+// for even q (opposite_of and the TRT loop below rely on that pairing).
 __constant__ int c_cx[27] = {0, 1, -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1,
                              -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1, -1};
 __constant__ int c_cy[27] = {0, 0, 0, 1, -1, 0, 0, 1, -1, -1, 1, 0, 0, 0,
                              0, 1, -1, 1, -1, 1, -1, 1, -1, -1, 1, -1, 1};
 __constant__ int c_cz[27] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0, 1, -1, -1,
                              1, 1, -1, -1, 1, 1, -1, -1, 1, 1, -1, -1, 1};
-__constant__ int c_opp[27] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14,
-                              13, 16, 15, 18, 17, 20, 19, 22, 21, 24, 23, 26, 25};
 __constant__ double c_w19[19] = {
     1.0 / 3.0,  1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0,
     1.0 / 18.0, 1.0 / 18.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
@@ -74,6 +103,20 @@ __constant__ double c_w27[27] = {
     1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0,
     1.0 / 216.0, 1.0 / 216.0};
 
+// The opposite of direction q, as a compile-time index so that register
+// arrays indexed by it stay in registers.
+__host__ __device__ constexpr int opposite_of(int q) {
+  return q == 0 ? 0 : ((q & 1) ? q + 1 : q - 1);
+}
+
+// Least CTAs of kThreads threads an SM must hold: 4 (50 % occupancy, 64
+// registers a thread) for the f32 D3Q19 stencil of the main path; the wider
+// D3Q27 and f64 instantiations keep the registers they need instead.
+template <typename T, int Q>
+constexpr int stencil_min_ctas() {
+  return sizeof(T) == 4 ? (Q == 19 ? 4 : 2) : 1;
+}
+
 // Collision coefficients, passed by value: BGK uses om_a = om; TRT uses
 // om_a = om_p, om_b = om_m. lid[q] = 6 w_q (c_q . u_wall).
 template <typename T, int Q>
@@ -83,6 +126,9 @@ struct Coefs {
   T om_b;
 };
 
+// i in [-n, 2n): one period either way. A neighbour of a cell of the block,
+// and a cell of a mask tile (TY <= Y and TZ <= Z, so a tile and its ring
+// overhang the block by at most one period), are both in range.
 __device__ __forceinline__ int wrap(int i, int n) {
   i += (i < 0) ? n : 0;
   return i - ((i >= n) ? n : 0);
@@ -105,46 +151,110 @@ __device__ __forceinline__ T trt(T fq, T fo, T feq, T feo, T om_p, T om_m) {
   return fq - om_p * (f_p - fe_p) - om_m * (f_m - fe_m);
 }
 
+// blockDim = (TZ, TY); grid = (tiles_y * tiles_z, X, B).
 template <typename T, int Q, bool TRT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
     stream_collide_kernel(const T* __restrict__ f, const int32_t* __restrict__ mask,
-                          T* __restrict__ out, int64_t total, int X, int Y, int Z,
+                          T* __restrict__ out, int X, int Y, int Z, int tiles_z,
                           Coefs<T, Q> k) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t n = static_cast<int64_t>(X) * Y * Z;
-  const int64_t b = idx / n;
-  // one block's cell count fits 32 bits (the wrapper checks): only the
-  // block index needs a 64-bit divide
-  const int cell = static_cast<int>(idx - b * n);
-  const int z = cell % Z;
-  const int xy = cell / Z;
-  const int y = xy % Y;
-  const int x = xy / Y;
+  __shared__ uint8_t tile[kMaskTile];
+  const int TZ = blockDim.x;
+  const int TY = blockDim.y;
+  const int ty_tile = blockIdx.x / tiles_z;  // uniform over the CTA
+  const int z0 = (blockIdx.x - ty_tile * tiles_z) * TZ;
+  const int y0 = ty_tile * TY;
+  const int x = blockIdx.y;
+  const int n = X * Y * Z;  // the wrapper checks that it fits 31 bits
+  const int64_t b = blockIdx.z;
   const T* __restrict__ fb = f + b * Q * n;
   const int32_t* __restrict__ mb = mask + b * n;
   T* __restrict__ ob = out + b * Q * n;
 
-  if (mb[cell] != kFluid) {
+  const int y = y0 + threadIdx.y;
+  const int z = z0 + threadIdx.x;
+  const bool inside = y < Y && z < Z;  // a tile may overhang the block
+  const int cell = (x * Y + y) * Z + z;
+  const T* __restrict__ fc = fb + cell;
+
+  // the wrapped mask tile: planes x-1, x, x+1, rows y0-1 .. y0+TY, columns
+  // z0-1 .. z0+TZ. Thread (tz, ty) stages rows ty, ty + TY, ... and columns
+  // tz and tz + TZ. The loads of its first kStagedRows rows are issued now,
+  // into registers, so they are in flight together with the pdf loads below.
+  const int SZ = TZ + 2;
+  const int SY = TY + 2;
+  int staged[kStagedRows][2];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) ob[q * n + cell] = fb[q * n + cell];
+  for (int j = 0; j < kStagedRows; ++j) {
+    const int r = threadIdx.y + j * TY;
+    const int dx = (r >= SY) + (r >= 2 * SY);
+    const int32_t* __restrict__ row =
+        mb + (wrap(x + dx - 1, X) * Y + wrap(y0 + (r - dx * SY) - 1, Y)) * Z;
+    const bool live = r < 3 * SY;
+    staged[j][0] = live ? row[wrap(z0 + threadIdx.x - 1, Z)] : 0;
+    staged[j][1] = (live && threadIdx.x + TZ < SZ) ? row[wrap(z0 + threadIdx.x + TZ - 1, Z)] : 0;
+  }
+
+  // pull streaming, first half: the Q pulled values f_q(x - c_q), issued
+  // right behind the mask-tile loads. The wrap keeps every source inside
+  // the block, so
+  // none of them waits on a condition or on another load, and their
+  // latency overlaps the mask staging.
+  const int YZ = Y * Z;
+  // one wrap correction an axis: + a period on the low edge (where c = +1
+  // pulls from below 0), - a period on the high edge (extents are >= 2)
+  const int wx = (x == 0) ? n : ((x == X - 1) ? -n : 0);
+  const int wy = (y == 0) ? YZ : ((y == Y - 1) ? -YZ : 0);
+  const int wz = (z == 0) ? Z : ((z == Z - 1) ? -Z : 0);
+  T fin[Q];
+  if (inside) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int cx = c_cx[q], cy = c_cy[q], cz = c_cz[q];
+      fin[q] = fc[q * n - (cx * YZ + cy * Z + cz) + (cx * wx > 0 ? wx : 0) + (cy * wy > 0 ? wy : 0) +
+                  (cz * wz > 0 ? wz : 0)];
+    }
+  }
+
+  // store the staged rows. Columns beyond the two staged ones (TZ = 1) and
+  // rows beyond kStagedRows (tiles of few rows) are loaded and stored here.
+  auto stage_direct = [&](int r, int c_begin) {
+    const int dx = r / SY;
+    const int32_t* __restrict__ row =
+        mb + (wrap(x + dx - 1, X) * Y + wrap(y0 + (r - dx * SY) - 1, Y)) * Z;
+    for (int c = c_begin; c < SZ; c += TZ) tile[r * SZ + c] = static_cast<uint8_t>(row[wrap(z0 + c - 1, Z)]);
+  };
+#pragma unroll
+  for (int j = 0; j < kStagedRows; ++j) {
+    const int r = threadIdx.y + j * TY;
+    if (r < 3 * SY) {
+      tile[r * SZ + threadIdx.x] = static_cast<uint8_t>(staged[j][0]);
+      if (threadIdx.x + TZ < SZ) tile[r * SZ + threadIdx.x + TZ] = static_cast<uint8_t>(staged[j][1]);
+      if (threadIdx.x + 2 * TZ < SZ) stage_direct(r, threadIdx.x + 2 * TZ);
+    }
+  }
+  for (int r = threadIdx.y + kStagedRows * TY; r < 3 * SY; r += TY) stage_direct(r, threadIdx.x);
+  __syncthreads();
+  if (!inside) return;
+
+  // outputs go through a pointer bumped by one q-plane a direction, so no
+  // store address stays live
+  T* __restrict__ o = ob + cell;
+  const int centre = (SY + threadIdx.y + 1) * SZ + threadIdx.x + 1;
+  if (tile[centre] != kFluid) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q, o += n) *o = fc[q * n];
     return;
   }
 
-  // pull streaming with halfway bounce-back (lid: velocity bounce-back)
-  T fin[Q];
+  // second half: halfway bounce-back (lid: velocity bounce-back) where the
+  // source is not fluid. Its type comes from shared memory, so the
+  // bounce-back loads f_opp(q)(x) depend on no global load either.
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
-    const int xs = wrap(x - c_cx[q], X);
-    const int ys = wrap(y - c_cy[q], Y);
-    const int zs = wrap(z - c_cz[q], Z);
-    const int src = (xs * Y + ys) * Z + zs;
-    const int ms = mb[src];
-    if (ms == kFluid) {
-      fin[q] = fb[q * n + src];
-    } else {
-      const T v = fb[c_opp[q] * n + cell];
-      fin[q] = (ms == kLid) ? v + k.lid[q] : v;
+    const int ms = tile[centre - (c_cx[q] * SY + c_cy[q]) * SZ - c_cz[q]];
+    if (ms != kFluid) {
+      fin[q] = fc[opposite_of(q) * n];  // replaces the dead pulled value
+      if (ms == kLid) fin[q] = fin[q] + k.lid[q];
     }
   }
 
@@ -168,71 +278,124 @@ __global__ void __launch_bounds__(kThreads)
   if (!TRT) {
     const T om = k.om_a;
 #pragma unroll
-    for (int q = 0; q < Q; ++q) {
+    for (int q = 0; q < Q; ++q, o += n) {
       const T fe = equilibrium<T, Q>(q, rho, ux, uy, uz, usq);
-      ob[q * n + cell] = fin[q] + om * (fe - fin[q]);
+      *o = fin[q] + om * (fe - fin[q]);
     }
   } else {
     const T om_p = k.om_a;
     const T om_m = k.om_b;
     const T fe0 = equilibrium<T, Q>(0, rho, ux, uy, uz, usq);
-    ob[cell] = trt(fin[0], fin[0], fe0, fe0, om_p, om_m);
+    *o = trt(fin[0], fin[0], fe0, fe0, om_p, om_m);
+    o += n;
 #pragma unroll
     for (int q = 1; q < Q; q += 2) {
-      const int r = q + 1;  // opposite(q)
+      const int r = opposite_of(q);  // q + 1
       const T fe_q = equilibrium<T, Q>(q, rho, ux, uy, uz, usq);
       const T fe_r = equilibrium<T, Q>(r, rho, ux, uy, uz, usq);
-      ob[q * n + cell] = trt(fin[q], fin[r], fe_q, fe_r, om_p, om_m);
-      ob[r * n + cell] = trt(fin[r], fin[q], fe_r, fe_q, om_p, om_m);
+      *o = trt(fin[q], fin[r], fe_q, fe_r, om_p, om_m);
+      o += n;
+      *o = trt(fin[r], fin[q], fe_r, fe_q, om_p, om_m);
+      o += n;
     }
   }
 }
 
-// Write the valid rows of the padded (B, P, Q) ghost slab into the flat
-// cells halo_cell[b, p] of block b of f, in place. Invalid (pad) rows are
-// skipped: the Pallas kernel wrote the centre cell's own value back there.
-template <typename T, int Q>
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// Fill `rows` ghost cells of dst (B_dst, Q, n) in place: row i writes cell
+// dst_cell[i] of block dst_slot[i]. Its value comes, by KIND, from cell
+// src_cell[i] of block src_slot[i] of src (copy), from the mean of the 8
+// cells src_cell[i, 0..7] of block src_slot[i] (fine), or from row i of an
+// (N, Q) array src, skipped where valid[i] is 0 (values). dst and src may be
+// the same buffer: sources are interior cells, targets ghost cells, so no
+// location is both read and written.
+template <typename T, int Q, int KIND>
 __global__ void __launch_bounds__(kThreads)
-    halo_fill_kernel(T* __restrict__ f, const T* __restrict__ vals,
-                     const int32_t* __restrict__ cell, const uint8_t* __restrict__ valid,
-                     int64_t rows, int P, int64_t n) {
+    halo_fill_kernel(T* __restrict__ dst, const T* __restrict__ src, int64_t rows, int n,
+                     const int32_t* __restrict__ dst_slot, const int32_t* __restrict__ dst_cell,
+                     const int32_t* __restrict__ src_slot, const int32_t* __restrict__ src_cell,
+                     const uint8_t* __restrict__ valid) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= rows || !valid[row]) return;
-  const int64_t b = row / P;
-  T* __restrict__ fb = f + b * Q * n + cell[row];
-  const T* __restrict__ v = vals + row * Q;
+  if (row >= rows) return;
+  if (KIND == kFillValues && !valid[row]) return;
+  T* __restrict__ d = dst + static_cast<int64_t>(dst_slot[row]) * Q * n + dst_cell[row];
+  if (KIND == kFillCopy) {
+    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n + src_cell[row];
 #pragma unroll
-  for (int q = 0; q < Q; ++q) fb[q * n] = v[q];
+    for (int q = 0; q < Q; ++q) d[q * n] = s[q * n];
+  } else if (KIND == kFillFine) {
+    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n;
+    const int* __restrict__ oct = src_cell + row * 8;
+    const int c0 = oct[0], c1 = oct[1], c2 = oct[2], c3 = oct[3];
+    const int c4 = oct[4], c5 = oct[5], c6 = oct[6], c7 = oct[7];
+    // one q at a time: 8 loads in flight a thread, and no spills at Q = 27
+#pragma unroll 1
+    for (int q = 0; q < Q; ++q) {
+      const T* __restrict__ sq = s + q * n;
+      T acc = sq[c0];  // the canonical octet order, summed in that order
+      acc = add_rn(acc, sq[c1]);
+      acc = add_rn(acc, sq[c2]);
+      acc = add_rn(acc, sq[c3]);
+      acc = add_rn(acc, sq[c4]);
+      acc = add_rn(acc, sq[c5]);
+      acc = add_rn(acc, sq[c6]);
+      acc = add_rn(acc, sq[c7]);
+      d[q * n] = mul_rn(acc, T(0.125));
+    }
+  } else {
+    const T* __restrict__ s = src + row * Q;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) d[q * n] = s[q];
+  }
 }
 
-int64_t grid_for(int64_t items) { return (items + kThreads - 1) / kThreads; }
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T, int Q, bool TRT>
-cudaError_t launch_stencil(const void* f, const void* mask, void* out, int64_t B, int X,
-                           int Y, int Z, double om_a, double om_b, const double* lid,
+cudaError_t launch_stencil(const void* f, const void* mask, void* out, int64_t B, int X, int Y,
+                           int Z, double om_a, double om_b, const double* lid,
                            cudaStream_t stream) {
   Coefs<T, Q> k;
   for (int q = 0; q < Q; ++q) k.lid[q] = static_cast<T>(lid[q]);
   k.om_a = static_cast<T>(om_a);
   k.om_b = static_cast<T>(om_b);
-  const int64_t total = B * X * Y * Z;
-  const int64_t grid = grid_for(total);
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  stream_collide_kernel<T, Q, TRT><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out),
-      total, X, Y, Z, k);
-  return cudaGetLastError();
+  // z tiles as wide as Z allows, then as many y rows as fit; both balanced
+  // so the last tile overhangs the block as little as it can
+  const int tiles_z = ceil_div(Z, kThreads);
+  const int TZ = ceil_div(Z, tiles_z);
+  int TY = kThreads / TZ < Y ? kThreads / TZ : Y;
+  const int tiles_y = ceil_div(Y, TY);
+  TY = ceil_div(Y, tiles_y);
+  const int64_t n = static_cast<int64_t>(X) * Y * Z;
+  constexpr int64_t kMaxGridZ = 65535;
+  if (X > 65535) return cudaErrorInvalidConfiguration;
+  for (int64_t b0 = 0; b0 < B; b0 += kMaxGridZ) {
+    const int64_t nb = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
+    const dim3 grid(tiles_y * tiles_z, X, static_cast<unsigned>(nb));
+    stream_collide_kernel<T, Q, TRT><<<grid, dim3(TZ, TY), 0, stream>>>(
+        static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
+        static_cast<T*>(out) + b0 * Q * n, X, Y, Z, tiles_z, k);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
-template <typename T, int Q>
-cudaError_t launch_fill(void* f, const void* vals, const void* cell, const void* valid,
-                        int64_t B, int P, int64_t n, cudaStream_t stream) {
-  const int64_t rows = B * P;
-  const int64_t grid = grid_for(rows);
+template <typename T, int Q, int KIND>
+cudaError_t launch_fill(void* dst, const void* src, int64_t rows, int n, const void* dst_slot,
+                        const void* dst_cell, const void* src_slot, const void* src_cell,
+                        const void* valid, cudaStream_t stream) {
+  const int64_t grid = (rows + kThreads - 1) / kThreads;
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  halo_fill_kernel<T, Q><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      static_cast<T*>(f), static_cast<const T*>(vals), static_cast<const int32_t*>(cell),
-      static_cast<const uint8_t*>(valid), rows, P, n);
+  halo_fill_kernel<T, Q, KIND><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+      static_cast<T*>(dst), static_cast<const T*>(src), rows, n,
+      static_cast<const int32_t*>(dst_slot), static_cast<const int32_t*>(dst_cell),
+      static_cast<const int32_t*>(src_slot), static_cast<const int32_t*>(src_cell),
+      static_cast<const uint8_t*>(valid));
   return cudaGetLastError();
 }
 
@@ -247,11 +410,52 @@ cudaError_t dispatch_stencil(int Q, int trt, const void* f, const void* mask, vo
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int Q>
+cudaError_t dispatch_fill_kind(int kind, void* dst, const void* src, int64_t rows, int n,
+                               const void* ds, const void* dc, const void* ss, const void* sc,
+                               const void* valid, cudaStream_t s) {
+  if (kind == kFillCopy) return launch_fill<T, Q, kFillCopy>(dst, src, rows, n, ds, dc, ss, sc, valid, s);
+  if (kind == kFillFine) return launch_fill<T, Q, kFillFine>(dst, src, rows, n, ds, dc, ss, sc, valid, s);
+  if (kind == kFillValues) return launch_fill<T, Q, kFillValues>(dst, src, rows, n, ds, dc, ss, sc, valid, s);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-cudaError_t dispatch_fill(int Q, void* f, const void* vals, const void* cell, const void* valid,
-                          int64_t B, int P, int64_t n, cudaStream_t s) {
-  if (Q == 19) return launch_fill<T, 19>(f, vals, cell, valid, B, P, n, s);
-  if (Q == 27) return launch_fill<T, 27>(f, vals, cell, valid, B, P, n, s);
+cudaError_t dispatch_fill(int Q, int kind, void* dst, const void* src, int64_t rows, int n,
+                          const void* ds, const void* dc, const void* ss, const void* sc,
+                          const void* valid, cudaStream_t s) {
+  if (Q == 19) return dispatch_fill_kind<T, 19>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, s);
+  if (Q == 27) return dispatch_fill_kind<T, 27>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, s);
+  return cudaErrorInvalidValue;
+}
+
+// Registers, local (spill) bytes, static shared bytes and resident CTAs of
+// kThreads threads per SM of one kernel instantiation.
+template <typename K>
+cudaError_t attrs_of(K kernel, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = ctas;
+  out[4] = kThreads;
+  return cudaSuccess;
+}
+
+template <typename T, int Q>
+cudaError_t attrs_q(int which, int variant, int* out) {
+  if (which == 0) {
+    return variant ? attrs_of(stream_collide_kernel<T, Q, true>, out)
+                   : attrs_of(stream_collide_kernel<T, Q, false>, out);
+  }
+  if (variant == kFillCopy) return attrs_of(halo_fill_kernel<T, Q, kFillCopy>, out);
+  if (variant == kFillFine) return attrs_of(halo_fill_kernel<T, Q, kFillFine>, out);
+  if (variant == kFillValues) return attrs_of(halo_fill_kernel<T, Q, kFillValues>, out);
   return cudaErrorInvalidValue;
 }
 
@@ -270,22 +474,27 @@ extern "C" int lbm_stream_collide(int dtype, int Q, int trt, const void* f, cons
   return cudaErrorInvalidValue;
 }
 
-// The halo variant: fill the ghost slab into f in place, then the stencil.
-// halo_vals (B, P, Q) of f's dtype, halo_cell (B, P) int32, halo_valid
-// (B, P) bool (one byte each).
-extern "C" int lbm_stream_collide_halo(int dtype, int Q, int trt, void* f, const void* mask,
-                                       const void* halo_vals, const void* halo_cell,
-                                       const void* halo_valid, int P, void* out, long long B,
-                                       int X, int Y, int Z, double om_a, double om_b,
-                                       const double* lid, void* stream) {
+// The ghost fill, in place into dst. kind: 0 = copy (same-level and coarse
+// sources; src_slot, src_cell (rows,)), 1 = fine (src_slot (rows,), src_cell
+// (rows, 8)), 2 = values (src an (rows, Q) array; valid (rows,) bytes). All
+// index arrays int32; n = cells of one block.
+extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* src,
+                             long long rows, int n, const void* dst_slot, const void* dst_cell,
+                             const void* src_slot, const void* src_cell, const void* valid,
+                             void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const int64_t n = static_cast<int64_t>(X) * Y * Z;
-  if (B * n == 0) return cudaSuccess;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (P > 0) {
-    if (dtype == 0) err = dispatch_fill<float>(Q, f, halo_vals, halo_cell, halo_valid, B, P, n, s);
-    if (dtype == 1) err = dispatch_fill<double>(Q, f, halo_vals, halo_cell, halo_valid, B, P, n, s);
-    if (err != cudaSuccess) return err;
-  }
-  return lbm_stream_collide(dtype, Q, trt, f, mask, out, B, X, Y, Z, om_a, om_b, lid, stream);
+  if (rows == 0) return cudaSuccess;
+  if (dtype == 0) return dispatch_fill<float>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, s);
+  if (dtype == 1) return dispatch_fill<double>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, s);
+  return cudaErrorInvalidValue;
+}
+
+// which: 0 = stencil (variant = trt), 1 = fill (variant = kind). out[5]:
+// registers, local bytes, static shared bytes, CTAs per SM, threads per CTA.
+extern "C" int lbm_kernel_attrs(int which, int dtype, int Q, int variant, int* out) {
+  if (dtype == 0 && Q == 19) return attrs_q<float, 19>(which, variant, out);
+  if (dtype == 0 && Q == 27) return attrs_q<float, 27>(which, variant, out);
+  if (dtype == 1 && Q == 19) return attrs_q<double, 19>(which, variant, out);
+  if (dtype == 1 && Q == 27) return attrs_q<double, 27>(which, variant, out);
+  return cudaErrorInvalidValue;
 }

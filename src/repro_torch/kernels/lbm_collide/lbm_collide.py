@@ -1,4 +1,5 @@
-"""Hand-written CUDA stream+collide kernels for Hopper, and their wrappers.
+"""Hand-written CUDA stream+collide and ghost-fill kernels for Hopper, and
+their wrappers.
 
 Each wrapper launches its kernel from ``csrc/lbm_collide.cu`` for a CUDA
 tensor and takes its plain PyTorch version (:mod:`.ref`) only when the
@@ -9,28 +10,36 @@ launched raises; nothing falls back.
   ``lbm_stream_collide_pallas`` (``repro/kernels/lbm_collide/lbm_collide.py``,
   ``_kernel`` -> ``_stream_collide_body``). Bound: bytes. Per cell it must
   read Q pdfs and one int32 cell type and write Q pdfs; at about 4 flops per
-  byte it is far below the card's flop-to-byte ratio. Design: one thread per
-  cell over a 1-D grid of ``B*X*Y*Z`` with Z innermost (coalesced q-planes),
-  neighbours pulled from global memory with the block-local wrap of
-  ``jnp.roll``, moments summed in registers in the Pallas body's fixed q
-  order, BGK or TRT with host-rounded coefficients as kernel arguments.
-  The TPU kernel's whole-block-in-VMEM layout (3 MB a block) does not fit a
-  CTA's 227 KB of shared memory and is not imitated.
+  byte it is far below the card's flop-to-byte ratio. Design: one CTA per
+  (z/y tile of an x-plane, x, block) with z innermost (coalesced q-planes);
+  each thread issues its Q pulled pdf loads (the block-local wrap keeps
+  them in bounds) without condition, together with the loads of the CTA's
+  wrapped mask tile, which it stages in shared memory as bytes; where a
+  source is not fluid it then loads the bounce-back value. No pdf load
+  waits on another global load, and 64 registers keep 50 % occupancy.
+  Moments summed in registers in the Pallas body's fixed q order; BGK or
+  TRT with host-rounded coefficients as kernel arguments. The TPU kernel's whole-block-in-VMEM layout (3 MB a
+  block) does not fit a CTA's 227 KB of shared memory and is not imitated.
+* :func:`lbm_halo_fill` is the ghost fill of the main path: one segment of
+  a level's merged fill, read straight from the source level's buffer
+  (``same``/``coarse``: one cell; ``fine``: the mean of an octet) and
+  written into the destination's ghost ring in place. Bound: bytes, each
+  row's source values, its Q written values and its int32 indices. Rows
+  are sorted by (dst slot, dst cell), one thread a row, so for each q a
+  warp touches neighbouring cells of one q-plane.
 * :func:`lbm_stream_collide_halo` replaces ``lbm_stream_collide_halo_pallas``
-  (``_halo_kernel``). Bound: bytes, those of the stencil plus the padded
-  ghost slab (``P*(Q*s + 5)`` bytes a block). Design: two launches on one
-  stream, a fill kernel writing the slab's valid rows into the ghost ring of
-  ``f`` *in place*, then the stencil. On the TPU one grid step owned a whole
-  block; here a block spans many CTAs, so the launch boundary orders the
-  fill before any neighbour read. The caller must treat ``f`` as consumed:
-  the superstep that uses this gathers every fill value before any level
-  steps, and fill targets are ghost cells while fill sources are interior
-  cells, so the in-place write is never read by a later gather.
+  (``_halo_kernel``) at its interface: the padded (B, P, Q) ghost slab.
+  Its CUDA path is the fill kernel reading the slab's valid rows, then the
+  stencil, two launches on one stream: on the TPU one grid step owned a
+  whole block; here a block spans many CTAs, so the launch boundary orders
+  the fill before any neighbour read. The caller must treat ``f`` as
+  consumed. The main path does not build the slab: it runs
+  :func:`lbm_halo_fill` for every level first, then the stencils.
 
-Both wrappers allocate their output with ``torch.empty``; the stencil pulls
-from its input, so it cannot run in place. PyTorch's caching allocator hands
-the buffer freed by the previous step to the next, which makes successive
-steps a ping-pong between two buffers per level.
+The stencil wrappers allocate their output with ``torch.empty``; the
+stencil pulls from its input, so it cannot run in place. PyTorch's caching
+allocator hands the buffer freed by the previous step to the next, which
+makes successive steps a ping-pong between two buffers per level.
 
 Launch counts: each wrapper carries a plain integer ``launches`` that it
 bumps where it launches its kernel, and nowhere else.
@@ -44,11 +53,19 @@ import numpy as np
 import torch
 
 from ...lbm.lattice import D3Q19, Lattice
-from .ref import _np_dtype, collision_coeffs, stream_collide_coeffs, stream_collide_halo_ref
+from .ref import (
+    _np_dtype,
+    collision_coeffs,
+    halo_fill_ref,
+    stream_collide_coeffs,
+    stream_collide_halo_ref,
+)
 
-__all__ = ["lbm_stream_collide", "lbm_stream_collide_halo"]
+__all__ = ["lbm_stream_collide", "lbm_stream_collide_halo", "lbm_halo_fill", "kernel_attributes"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+FILL_KINDS = {"same": 0, "coarse": 0, "fine": 1}
+_FILL_VALUES = 2
 
 
 def _kernel_args(
@@ -80,11 +97,19 @@ def _kernel_args(
     return coeffs, scal, lid
 
 
-def _check(f: torch.Tensor, mask: torch.Tensor, lattice: Lattice) -> None:
-    if f.dim() != 5 or f.shape[1] != lattice.Q:
-        raise ValueError(f"f must be (B, {lattice.Q}, X, Y, Z), got {tuple(f.shape)}")
+def _check_block_stack(f: torch.Tensor, Q: int) -> None:
+    if f.dim() != 5 or f.shape[1] != Q:
+        raise ValueError(f"a block stack must be (B, {Q}, X, Y, Z), got {tuple(f.shape)}")
     if f.dtype not in _DTYPE_CODE:
-        raise TypeError(f"f must be float32 or float64, got {f.dtype}")
+        raise TypeError(f"a block stack must be float32 or float64, got {f.dtype}")
+    if Q * f.shape[2] * f.shape[3] * f.shape[4] >= 2**31:
+        raise ValueError("one block's Q * cells must fit 31 bits")
+    if f.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {f.device}")
+
+
+def _check(f: torch.Tensor, mask: torch.Tensor, lattice: Lattice) -> None:
+    _check_block_stack(f, lattice.Q)
     B, _Q, X, Y, Z = f.shape
     if tuple(mask.shape) != (B, X, Y, Z):
         raise ValueError(f"mask shape {tuple(mask.shape)} != {(B, X, Y, Z)}")
@@ -92,10 +117,6 @@ def _check(f: torch.Tensor, mask: torch.Tensor, lattice: Lattice) -> None:
         raise TypeError(f"mask must be int32, got {mask.dtype}")
     if mask.device != f.device:
         raise ValueError(f"mask on {mask.device}, f on {f.device}")
-    if X * Y * Z >= 2**31:
-        raise ValueError("one block's cell count must fit 32 bits")
-    if f.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {f.device}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -105,6 +126,32 @@ def _raise_on(err: int, name: str) -> None:
 
 def _stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _library():
+    from .build import load_library
+
+    return load_library()
+
+
+def _check_card_operands(*tensors: torch.Tensor) -> None:
+    """What the CUDA path needs beyond ``_check``: contiguous operands, and
+    block extents of at least 2 (the stencil keeps one wrap correction an
+    axis, which needs the low and the high edge to be distinct cells)."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel's operands must be contiguous")
+    if min(tensors[0].shape[2:]) < 2:
+        raise ValueError(f"the CUDA stencil needs every block extent >= 2, got {tuple(tensors[0].shape[2:])}")
+
+
+def _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid) -> None:
+    B, Q, X, Y, Z = f.shape
+    err = lib.lbm_stream_collide(
+        _DTYPE_CODE[f.dtype], Q, trt, f.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        B, X, Y, Z, om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p),
+        _stream_ptr(f.device),
+    )
+    _raise_on(err, "lbm_stream_collide")
 
 
 def lbm_stream_collide(
@@ -132,24 +179,73 @@ def lbm_stream_collide(
     )
     if f.device.type == "cpu":
         return stream_collide_coeffs(f, mask, coeffs, lattice=lattice, collision=collision)
-    if not (f.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("f and mask must be contiguous")
-    from .build import load_library
-
-    lib = load_library()
+    _check_card_operands(f, mask)
+    lib = _library()
     out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
-    B, Q, X, Y, Z = f.shape
-    err = lib.lbm_stream_collide(
-        _DTYPE_CODE[f.dtype], Q, trt, f.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, X, Y, Z, om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p),
-        _stream_ptr(f.device),
-    )
-    _raise_on(err, "lbm_stream_collide")
+    _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid)
     lbm_stream_collide.launches += 1
     return out
 
 
 lbm_stream_collide.launches = 0
+
+
+def lbm_halo_fill(
+    dst: torch.Tensor,
+    src: torch.Tensor,
+    kind: str,
+    dst_slot: torch.Tensor,
+    dst_cell: torch.Tensor,
+    src_slot: torch.Tensor,
+    src_cell: torch.Tensor,
+) -> None:
+    """One segment of a ghost fill, read from its source level's buffer and
+    written into ``dst``'s ghost ring in place.
+
+    Args:
+      dst:      (B_dst, Q, X, Y, Z) destination level's pre-step PDFs.
+      src:      (B_src, Q, X, Y, Z) source level's pre-step PDFs (may be
+                ``dst`` itself for a same-level segment).
+      kind:     ``"same"``, ``"coarse"`` or ``"fine"``.
+      dst_slot, dst_cell: (N,) int32 target block and flat cell.
+      src_slot: (N,) int32 source block.
+      src_cell: (N,) int32 source cell, or (N, 8) for ``"fine"`` (the octet
+                in canonical order, averaged).
+    """
+    Q = dst.shape[1] if dst.dim() == 5 else -1
+    _check_block_stack(dst, Q)
+    if src.dim() != 5 or src.shape[1:] != dst.shape[1:] or src.dtype != dst.dtype:
+        raise ValueError(f"src {tuple(src.shape)} {src.dtype} does not match dst {tuple(dst.shape)} {dst.dtype}")
+    if kind not in FILL_KINDS:
+        raise ValueError(f"unknown fill segment kind {kind!r}")
+    N = dst_slot.shape[0] if dst_slot.dim() == 1 else -1
+    cell_shape = (N, 8) if kind == "fine" else (N,)
+    for name, t, shape in (
+        ("dst_slot", dst_slot, (N,)), ("dst_cell", dst_cell, (N,)),
+        ("src_slot", src_slot, (N,)), ("src_cell", src_cell, cell_shape),
+    ):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be {shape} int32, got {tuple(t.shape)} {t.dtype}")
+    operands = (dst, src, dst_slot, dst_cell, src_slot, src_cell)
+    if any(t.device != dst.device for t in operands):
+        raise ValueError("the fill's operands must lie on one device")
+    if dst.device.type == "cpu":
+        halo_fill_ref(dst, src, kind, dst_slot, dst_cell, src_slot, src_cell)
+        return
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("the fill's operands must be contiguous")
+    if N == 0:
+        return
+    err = _library().lbm_halo_fill(
+        _DTYPE_CODE[dst.dtype], Q, FILL_KINDS[kind], dst.data_ptr(), src.data_ptr(), N,
+        dst.shape[2] * dst.shape[3] * dst.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
+        src_slot.data_ptr(), src_cell.data_ptr(), None, _stream_ptr(dst.device),
+    )
+    _raise_on(err, "lbm_halo_fill")
+    lbm_halo_fill.launches += 1
+
+
+lbm_halo_fill.launches = 0
 
 
 def lbm_stream_collide_halo(
@@ -165,7 +261,8 @@ def lbm_stream_collide_halo(
     collision: str = "bgk",
     magic: float = 3.0 / 16.0,
 ) -> torch.Tensor:
-    """Ghost fill + fused stream+collide over a stack of blocks.
+    """Ghost fill from a padded slab + fused stream+collide over a stack of
+    blocks (the interface of ``lbm_stream_collide_halo_pallas``).
 
     Args:
       f:          (B, Q, X, Y, Z) post-collision PDFs. On a CUDA device the
@@ -199,22 +296,43 @@ def lbm_stream_collide_halo(
             f, halo_vals[b_idx, p_idx], b_idx, halo_cell[b_idx, p_idx].long(), coeffs,
             mask=mask, lattice=lattice, collision=collision,
         )
-    operands = (f, mask, halo_vals, halo_cell, halo_valid)
-    if not all(t.is_contiguous() for t in operands):
-        raise ValueError("f, mask and the halo operands must be contiguous")
-    from .build import load_library
-
-    lib = load_library()
-    out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
-    err = lib.lbm_stream_collide_halo(
-        _DTYPE_CODE[f.dtype], Q, trt, f.data_ptr(), mask.data_ptr(),
-        halo_vals.data_ptr(), halo_cell.data_ptr(), halo_valid.data_ptr(), P,
-        out.data_ptr(), B, X, Y, Z, om_a, om_b,
-        lid.ctypes.data_as(ctypes.c_void_p), _stream_ptr(f.device),
+    _check_card_operands(f, mask, halo_vals, halo_cell, halo_valid)
+    lib = _library()
+    # the slab's rows in order: row b * P + p fills block b
+    slot = torch.arange(B, dtype=torch.int32, device=f.device).repeat_interleave(P)
+    err = lib.lbm_halo_fill(
+        _DTYPE_CODE[f.dtype], Q, _FILL_VALUES, f.data_ptr(), halo_vals.data_ptr(), B * P,
+        X * Y * Z, slot.data_ptr(), halo_cell.data_ptr(), None, None,
+        halo_valid.data_ptr(), _stream_ptr(f.device),
     )
-    _raise_on(err, "lbm_stream_collide_halo")
+    _raise_on(err, "lbm_stream_collide_halo (fill)")
+    out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
+    _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid)
     lbm_stream_collide_halo.launches += 1
     return out
 
 
 lbm_stream_collide_halo.launches = 0
+
+
+def kernel_attributes() -> list[dict]:
+    """What the compiler made of every kernel instantiation: registers,
+    local-memory bytes (spills), static shared bytes, and resident CTAs of
+    256 threads per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Needs the card: it loads the built library."""
+    lib = _library()
+    rows = []
+    out = (ctypes.c_int * 5)()
+    variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"))]
+    variants += [("fill", 1, v, name) for v, name in ((0, "copy"), (1, "fine"), (_FILL_VALUES, "values"))]
+    for dtype, dcode in (("f32", 0), ("f64", 1)):
+        for Q in (19, 27):
+            for kernel, which, variant, name in variants:
+                _raise_on(lib.lbm_kernel_attrs(which, dcode, Q, variant, out), "lbm_kernel_attrs")
+                regs, local, shared, ctas, threads = out
+                rows.append(dict(
+                    kernel=kernel, variant=name, dtype=dtype, Q=Q, registers=regs,
+                    local_bytes=local, shared_bytes=shared, ctas_per_sm=ctas,
+                    occupancy=ctas * threads / 2048,
+                ))
+    return rows

@@ -1,4 +1,4 @@
-"""Stepping entry points around the stream+collide kernels.
+"""Stepping entry points around the stream+collide and ghost-fill kernels.
 
 Dispatches between the hand-written CUDA kernels (``backend="cuda"``, the
 default; on a CPU tensor they take their plain PyTorch versions) and the
@@ -8,20 +8,26 @@ model) are closed over, so a step takes only the block stack and the mask.
 
 The compiled superstep implements the halo-in-tile data plane: every active
 level's ghost fill is merged into one fill (:func:`~..lbm.halo.lower_halo_fill`)
-and handed to the halo-aware kernel together with the stencil
-(:func:`make_halo_stream_collide`). The gathers and scatters of the exchange
-are PyTorch index ops on the device; a coarse step is a plain Python loop
-over its ``2^lmax`` substeps with no host transfer in it.
+and run as the first phase of that level's halo step
+(:func:`make_halo_stream_collide`). On the ``cuda`` backend the fill kernel
+reads each segment's sources straight from the source level's pre-step
+buffer and writes the destination's ghost ring in place; on the ``ref``
+backend the fill values are gathered with PyTorch index ops and scattered
+into a copy. A coarse step is a plain Python loop over its ``2^lmax``
+substeps with no host transfer in it.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ...lbm.halo import lower_halo_fill
 from ...lbm.lattice import D3Q19, Lattice
-from .lbm_collide import lbm_stream_collide, lbm_stream_collide_halo
+from .lbm_collide import lbm_halo_fill, lbm_stream_collide
 from .ref import (
     _np_dtype,
     collision_coeffs,
@@ -34,6 +40,9 @@ __all__ = [
     "make_stream_collide",
     "make_arena_stream_collide",
     "make_halo_stream_collide",
+    "fill_tables",
+    "FillTable",
+    "HaloStep",
     "apply_compiled_ghost_plan",
     "make_fused_superstep",
     "BACKENDS",
@@ -107,8 +116,9 @@ def make_arena_stream_collide(
 def _pad_fill_layout(
     dst_slot: np.ndarray, dst_cell: np.ndarray, nblocks: int, dims: tuple[int, int, int]
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Repack a flat merged fill into the per-block padded slab layout the
-    halo-aware kernel consumes.
+    """Repack a flat merged fill into the per-block padded slab layout of
+    :func:`~.lbm_collide.lbm_stream_collide_halo` (the Pallas halo kernel's
+    interface; the main path does not use it).
 
     Returns ``(entry, cell, valid)``, each ``(nblocks, P)`` with ``P`` the
     max fills per block: ``entry[b, j]`` indexes the fill's concatenated
@@ -141,9 +151,85 @@ def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
 
+@dataclass(frozen=True)
+class FillTable:
+    """One segment of a level's merged fill, lowered for
+    :func:`~.lbm_collide.lbm_halo_fill`: int32 index tensors on the device,
+    rows sorted by (``dst_slot``, ``dst_cell``). ``src`` is the source
+    level's position in the superstep's buffer tuple; ``src_slot`` is
+    ``(N,)`` for every kind (a fine row's octet lies in one block) and
+    ``src_cell`` ``(N,)``, or ``(N, 8)`` for ``"fine"``."""
+
+    src: int
+    kind: str  # "same" | "fine" | "coarse"
+    dst_slot: torch.Tensor
+    dst_cell: torch.Tensor
+    src_slot: torch.Tensor
+    src_cell: torch.Tensor
+
+
+def fill_tables(fill, level_index: dict[int, int], device: torch.device | str) -> tuple[FillTable, ...]:
+    """Lower a :class:`~..lbm.halo.LevelHaloFill` into one sorted
+    :class:`FillTable` per segment (built once per superstep build)."""
+    tables = []
+    start = 0
+    for seg in fill.segments:
+        stop = start + seg.src_cell.shape[0]
+        ds, dc = fill.dst_slot[start:stop], fill.dst_cell[start:stop]
+        order = np.lexsort((dc, ds))
+        ss = seg.src_slot
+        if seg.kind == "fine":
+            assert (ss == ss[:, :1]).all(), "a fine row's octet must lie in one block"
+            ss = ss[:, 0]
+        tables.append(FillTable(
+            level_index[seg.src_level],
+            seg.kind,
+            *(
+                torch.as_tensor(np.ascontiguousarray(a[order], dtype=np.int32), device=device)
+                for a in (ds, dc, ss, seg.src_cell)
+            ),
+        ))
+        start = stop
+    assert start == fill.num_cells, (start, fill.num_cells)
+    return tuple(tables)
+
+
+def _assert_fills_disjoint(fills: dict, level_index: dict[int, int], nblocks: list[int], cells: int) -> None:
+    """The fills of one substep may run in any order, in place, before any
+    level steps only if no ghost cell is filled twice and no fill reads a
+    cell that a fill writes. Checked on the host when a branch is built."""
+    base = np.concatenate([[0], np.cumsum(np.asarray(nblocks, dtype=np.int64) * cells)])
+
+    def key(level, slot, cell):
+        return base[level_index[level]] + np.asarray(slot, np.int64) * cells + cell
+
+    if not fills:
+        return
+    tgt = np.concatenate([key(l, f.dst_slot, f.dst_cell) for l, f in fills.items()])
+    assert np.unique(tgt).size == tgt.size, "a ghost cell is filled twice"
+    written = np.zeros(int(base[-1]), dtype=bool)
+    written[tgt] = True
+    for f in fills.values():
+        for seg in f.segments:
+            src = key(seg.src_level, seg.src_slot, seg.src_cell)
+            assert not written[src.ravel()].any(), (
+                f"a fill of level {f.dst_level} reads a cell of level {seg.src_level} that a fill writes"
+            )
+
+
+@dataclass(frozen=True)
+class HaloStep:
+    """One level's halo step in two phases. ``fill(bufs)`` runs, for every
+    level that has a fill, before any level of the substep steps, and
+    returns what ``step(f, filled)`` needs to finish the level."""
+
+    fill: Callable[[list], object]
+    step: Callable[[torch.Tensor, object], torch.Tensor]
+
+
 def make_halo_stream_collide(
-    dst_slot: np.ndarray,
-    dst_cell: np.ndarray,
+    fill,
+    level_index: dict[int, int],
     *,
     mask: np.ndarray,
     omega: float,
@@ -153,17 +239,17 @@ def make_halo_stream_collide(
     magic: float = 3.0 / 16.0,
     backend: str = "cuda",
     device: torch.device | str = "cuda",
-):
-    """Build a halo-aware ``step(f, vals) -> f`` for one level's block stack:
-    the ghost fill targeting (``dst_slot``, ``dst_cell``) and the
-    stream+collide stencil run as one unit.
+) -> HaloStep:
+    """Build the halo step of one level: its merged ghost fill ``fill``
+    (a :class:`~..lbm.halo.LevelHaloFill`) and the stream+collide stencil.
 
-    ``vals`` is the ``(N, Q)`` concatenated fill values (gathered by the
-    enclosing superstep from pre-step buffers, in the merged fill's segment
-    order). On the ``cuda`` backend the values are repacked into the padded
-    per-block slab (:func:`_pad_fill_layout`) and the halo kernel fills and
-    steps; on the ``ref`` backend the fill is one merged scatter into a copy
-    of ``f`` feeding the stencil, with the streaming selectors precomputed on
+    ``level_index`` maps levels to positions in the superstep's buffer
+    tuple. On the ``cuda`` backend ``fill(bufs)`` launches
+    :func:`~.lbm_collide.lbm_halo_fill` once per segment (sources read from
+    the pre-step buffers, the destination's ghost ring written in place) and
+    ``step`` is the stencil. On the ``ref`` backend ``fill(bufs)`` gathers
+    the ``(N, Q)`` fill values and ``step`` scatters them into a copy of
+    ``f`` feeding the stencil, with the streaming selectors precomputed on
     the host (:func:`~.ref.precompute_stream_masks`).
 
     ``mask`` is the level's host ``(B, X, Y, Z)`` cell-type stack, closed
@@ -172,37 +258,38 @@ def make_halo_stream_collide(
     _check_backend(backend)
     mask = np.asarray(mask)
     device = torch.device(device)
-    nblocks = mask.shape[0]
-    dims = mask.shape[1:]
-    assert dst_cell.size > 0, "use make_stream_collide when there is no fill"
+    assert fill.num_cells > 0, "use make_stream_collide when there is no fill"
     kw = dict(omega=omega, lattice=lattice, u_wall=u_wall, collision=collision, magic=magic)
 
     if backend == "cuda":
-        entry, cell, valid = _pad_fill_layout(dst_slot, dst_cell, nblocks, dims)
-        entry_t = _index(entry, device)
-        cell_t = torch.as_tensor(cell, device=device)
-        valid_t = torch.as_tensor(valid, device=device)
+        tables = fill_tables(fill, level_index, device)
+        dst = level_index[fill.dst_level]
         mask_t = torch.as_tensor(mask, device=device)
 
-        def step(f: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-            hv = vals[entry_t]  # (B, P, Q) padded per-block slabs
-            return lbm_stream_collide_halo(f, mask_t, hv, cell_t, valid_t, **kw)
+        def fill_in_place(bufs):
+            for t in tables:
+                lbm_halo_fill(bufs[dst], bufs[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
 
-    else:
-        pm = {
-            k: torch.as_tensor(v, device=device)
-            for k, v in precompute_stream_masks(mask, lattice).items()
-        }
-        db = _index(dst_slot, device)
-        dc = _index(dst_cell, device)
+        def step(f: torch.Tensor, _filled) -> torch.Tensor:
+            return lbm_stream_collide(f, mask_t, **kw)
 
-        def step(f: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-            coeffs = collision_coeffs(**kw, dtype=_np_dtype(f.dtype))
-            return stream_collide_halo_ref(
-                f, vals, db, dc, coeffs, premask=pm, lattice=lattice, collision=collision
-            )
+        return HaloStep(fill_in_place, step)
 
-    return step
+    pm = {
+        k: torch.as_tensor(v, device=device)
+        for k, v in precompute_stream_masks(mask, lattice).items()
+    }
+    db = _index(fill.dst_slot, device)
+    dc = _index(fill.dst_cell, device)
+    gathers = _lower_fill_gathers(fill, level_index, device)
+
+    def step_ref(f: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        coeffs = collision_coeffs(**kw, dtype=_np_dtype(f.dtype))
+        return stream_collide_halo_ref(
+            f, vals, db, dc, coeffs, premask=pm, lattice=lattice, collision=collision
+        )
+
+    return HaloStep(lambda bufs: _concat_vals(bufs, gathers), step_ref)
 
 
 def _device_plan_ops(plan, level_index: dict[int, int], device: torch.device) -> list[tuple]:
@@ -297,13 +384,15 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
     therefore just ``lmax+1`` distinct *activity patterns*, each built once
     as a branch. A branch runs the halo-in-tile schedule: every active
     level's ghost fill is merged into one fill
-    (:func:`~..lbm.halo.lower_halo_fill`), all fill values are gathered up
-    front from the pre-step buffers (sources are interior cells, disjoint
-    from every fill target, so this equals the sequential per-op schedule
-    bit for bit), and each level then steps through its fused fill+stencil
-    (which on the card writes the fill into its input's ghost ring in
-    place — safe, since every gather already happened). The substeps run as
-    a plain Python loop; nothing touches the host.
+    (:func:`~..lbm.halo.lower_halo_fill`); every level's fill runs first,
+    reading the pre-step buffers, and then every level steps, finest first.
+    Sources are interior cells, targets ghost cells, and no target repeats
+    (asserted on the host when the branch is built), so this equals the
+    sequential per-op schedule bit for bit even though the ``cuda`` fill
+    writes its targets in place. The fills must all come first: a fill
+    after another level stepped would read a buffer that the caching
+    allocator may already have handed out again. The substeps run as a
+    plain Python loop; nothing touches the host.
 
     The superstep consumes its input tuple: callers rebind the result
     (``pdfs = superstep(pdfs)``) and never read the arrays they passed in.
@@ -316,43 +405,43 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
         steppers: level -> ``step(f, mask) -> f`` (from
             :func:`make_stream_collide`), used for active levels with no fill.
         masks: level -> device mask stack for that level's buffer.
-        halo_stepper_factory: ``(level, dst_slot, dst_cell) -> step(f, vals)``
+        halo_stepper_factory: ``(level, fill, level_index) -> HaloStep``
             builder (see :func:`make_halo_stream_collide`).
 
     Returns:
         ``superstep(pdfs: tuple) -> tuple`` advancing one coarse step;
         ``pdfs`` holds one (B, Q, X, Y, Z) tensor per level, ascending.
+        Its ``fill_segments`` attribute counts the fill segments a coarse
+        step runs (the ``cuda`` backend's fill launches).
     """
     levels = tuple(sorted(levels))
     index = {l: i for i, l in enumerate(levels)}
     lmax = levels[-1]
     nsub = 1 << lmax
     masks_t = tuple(masks[l] for l in levels)
-    device = masks_t[0].device
+    nblocks = [m.shape[0] for m in masks_t]
+    cells = int(np.prod(masks_t[0].shape[1:]))
 
     def make_branch(p: int):
         active = tuple(sorted((l for l in levels if l >= lmax - p), reverse=True))
         fills = lower_halo_fill(plans[p])
         assert set(fills) <= set(active), (sorted(fills), active)
-        gathers = {l: _lower_fill_gathers(f, index, device) for l, f in fills.items()}
-        hsteps = {
-            l: halo_stepper_factory(l, f.dst_slot, f.dst_cell)
-            for l, f in fills.items()
-        }
+        _assert_fills_disjoint(fills, index, nblocks, cells)
+        hsteps = {l: halo_stepper_factory(l, f, index) for l, f in fills.items()}
+        filling = [l for l in active if l in fills]  # finest first
 
         def branch(pdfs):
             bufs = list(pdfs)
-            # all fill values gather from the pre-step buffers (every source
-            # is an interior cell; every target a ghost cell — disjoint)
-            vals = {l: _concat_vals(bufs, gathers[l]) for l in fills}
+            filled = {l: hsteps[l].fill(bufs) for l in filling}
             for l in active:  # finest first
                 i = index[l]
                 if l in fills:
-                    bufs[i] = hsteps[l](bufs[i], vals[l])
+                    bufs[i] = hsteps[l].step(bufs[i], filled[l])
                 else:
                     bufs[i] = steppers[l](bufs[i], masks_t[i])
             return tuple(bufs)
 
+        branch.fill_segments = sum(len(f.segments) for f in fills.values())
         return branch
 
     branches = [make_branch(p) for p in range(lmax + 1)]
@@ -367,4 +456,5 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
             pdfs = branches[pattern[s]](pdfs)
         return pdfs
 
+    superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
     return superstep

@@ -35,6 +35,7 @@ __all__ = [
     "stream_collide_ref",
     "stream_collide_coeffs",
     "stream_collide_halo_ref",
+    "halo_fill_ref",
     "collision_coeffs",
     "precompute_stream_masks",
     "equilibrium",
@@ -251,6 +252,42 @@ def stream_collide_halo_ref(
     return stream_collide_coeffs(
         filled, mask, coeffs, lattice=lattice, collision=collision, premask=premask
     )
+
+
+def halo_fill_ref(
+    dst: torch.Tensor,
+    src: torch.Tensor,
+    kind: str,
+    dst_slot: torch.Tensor,
+    dst_cell: torch.Tensor,
+    src_slot: torch.Tensor,
+    src_cell: torch.Tensor,
+) -> None:
+    """One segment of a ghost fill read straight from its source level: the
+    plain version of ``lbm_halo_fill``, writing ``dst`` (B, Q, X, Y, Z) in
+    place.
+
+    Row ``i`` writes flat cell ``dst_cell[i]`` of block ``dst_slot[i]``.
+    For ``kind`` ``"same"`` or ``"coarse"`` its value is cell
+    ``src_cell[i]`` of block ``src_slot[i]`` of ``src``; for ``"fine"`` it
+    is the mean of the 8 cells ``src_cell[i, :]`` (canonical octet order,
+    summed in that order, then times 1/8) of block ``src_slot[i]``. This is
+    the exchange's gather (``ops._gather_vals``) followed by its merged
+    scatter, one segment at a time.
+    """
+    flat_src = src.view(src.shape[0], src.shape[1], -1)
+    sb, sc = src_slot.long(), src_cell.long()
+    if kind == "fine":
+        v = flat_src[sb[:, None], :, sc]  # (N, 8, Q)
+        acc = v[:, 0]
+        for k in range(1, 8):  # fixed-sequence sum
+            acc = acc + v[:, k]
+        vals = acc * 0.125
+    elif kind in ("same", "coarse"):
+        vals = flat_src[sb, :, sc]
+    else:
+        raise ValueError(f"unknown fill segment kind {kind!r}")
+    dst.view(dst.shape[0], dst.shape[1], -1)[dst_slot.long(), :, dst_cell.long()] = vals
 
 
 def _np_dtype(dtype: torch.dtype):

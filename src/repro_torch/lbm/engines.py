@@ -114,14 +114,14 @@ class StepEngine:
         )
 
     def _halo_stepper_factory(self, masks_host: dict[int, np.ndarray]):
-        """``(level, dst_slot, dst_cell) -> step(f, vals)`` builder for the
+        """``(level, fill, level_index) -> HaloStep`` builder for the
         halo-in-tile superstep; ``masks_host`` are host mask stacks (copied —
         the factory's constants must not alias mutable arena storage)."""
 
-        def factory(level: int, dst_slot: np.ndarray, dst_cell: np.ndarray):
+        def factory(level: int, fill, level_index: dict[int, int]):
             return make_halo_stream_collide(
-                dst_slot,
-                dst_cell,
+                fill,
+                level_index,
                 mask=masks_host[level],
                 device=self.device,
                 **self._stepper_kwargs(level),

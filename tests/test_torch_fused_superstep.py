@@ -5,7 +5,8 @@
   coarse->fine explosion included, float and int fields);
 * ``fused`` equals ``restack`` bitwise on the CPU, on both backends (the
   ``cuda`` backend takes the kernels' plain versions for CPU tensors, so
-  this pins the padded-slab halo layout end to end);
+  this pins the from-sources fill schedule end to end: every level's fill
+  in place first, then every level's stencil);
 * between AMR events the fused loop performs no host<->device transfer.
 """
 
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 
 from repro_torch.core import AMRPipeline, Comm, ForestGeometry, LevelArena, SFCBalancer, make_uniform_forest
+from repro_torch.kernels.lbm_collide import ops
 from repro_torch.kernels.lbm_collide.ops import apply_compiled_ghost_plan
 from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
 from repro_torch.lbm.grid import LBMBlockSpec, make_lbm_fields
@@ -104,6 +106,39 @@ def test_modes_match_restack_bitwise(restack, mode, backend):
             sim.spec.interior(blk.data["pdf"]), sim.spec.interior(ref[bid].data["pdf"])
         )
     assert sim.total_mass() == restack.total_mass()
+
+
+def test_fused_cuda_backend_fills_from_sources_before_any_stencil(monkeypatch):
+    """On the ``cuda`` backend a substep runs every level's from-sources fill
+    first and then the stencils; nothing gathers fill values."""
+    calls = []
+    fill, stencil = ops.lbm_halo_fill, ops.lbm_stream_collide
+
+    def spy_fill(dst, *args):
+        calls.append("fill")
+        fill(dst, *args)
+
+    def spy_stencil(f, mask, **kw):
+        calls.append("stencil")
+        return stencil(f, mask, **kw)
+
+    def no_gather(*args):
+        raise AssertionError("the cuda backend gathered fill values")
+
+    monkeypatch.setattr(ops, "lbm_halo_fill", spy_fill)
+    monkeypatch.setattr(ops, "lbm_stream_collide", spy_stencil)
+    monkeypatch.setattr(ops, "_concat_vals", no_gather)
+    sim = AMRLBM(LidDrivenCavityConfig(nranks=1, stepping_mode="fused", kernel_backend="cuda", **BASE))
+    sim.advance(2)
+    sim.adapt()
+    assert len(sim.forest.levels_in_use()) > 1
+    calls.clear()
+    fn, levels = sim.engine._fused_program()
+    sim.advance(1)
+    assert calls.count("fill") == fn.fill_segments > 0
+    # per substep: a run of fills, then a run of stencils
+    runs = [k for i, k in enumerate(calls) if i == 0 or calls[i - 1] != k]
+    assert runs == ["fill", "stencil"] * (1 << max(levels))
 
 
 def test_fused_steady_state_performs_zero_host_transfers():

@@ -14,13 +14,15 @@ import pytest
 import torch
 
 from repro_torch.kernels.lbm_collide.lbm_collide import (
+    lbm_halo_fill,
     lbm_stream_collide,
     lbm_stream_collide_halo,
 )
-from repro_torch.kernels.lbm_collide.ops import _pad_fill_layout
-from repro_torch.kernels.lbm_collide.ref import CT_LID, CT_WALL, stream_collide_ref
+from repro_torch.kernels.lbm_collide.ops import _pad_fill_layout, fill_tables
+from repro_torch.kernels.lbm_collide.ref import CT_LID, CT_WALL, halo_fill_ref, stream_collide_ref
 from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
 from repro_torch.lbm.lattice import D3Q19, D3Q27
+from torch_fill_cases import branch_fills, random_buffers, refined_forest
 
 TOL = {np.float32: dict(rtol=3e-5, atol=3e-6), np.float64: dict(rtol=1e-11, atol=1e-12)}
 
@@ -101,6 +103,54 @@ def test_cuda_kernels_match_plain_on_card(lattice, collision, dtype, shape):
     torch.cuda.synchronize()
     assert lbm_stream_collide_halo.launches == n0 + 1
     torch.testing.assert_close(got.cpu(), want, **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "lattice, collision, dtype, shape",
+    [
+        (D3Q19, "trt", np.float32, (34, 34, 34)),
+        (D3Q19, "trt", np.float32, (33, 17, 35)),
+        (D3Q27, "bgk", np.float64, (9, 11, 7)),
+    ],
+    ids=["34-cube", "33x17x35", "9x11x7"],
+)
+def test_stencil_tiles_cover_every_extent_on_card(lattice, collision, dtype, shape):
+    _require_card()
+    rng = np.random.default_rng(5)
+    f, mask = _random_state(rng, 2, lattice, shape, dtype)
+    kw = dict(omega=1.6, lattice=lattice, collision=collision, u_wall=(0.05, 0.0, 0.01))
+    fd, md = torch.from_numpy(f).cuda(), torch.from_numpy(mask).cuda()
+    got = lbm_stream_collide(fd, md, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, stream_collide_ref(fd, md, **kw), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lattice", [D3Q19, D3Q27], ids=["d3q19", "d3q27"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_fill_kernel_matches_plain_on_card(lattice, dtype):
+    """Every segment of every branch of a three-level forest (``same``,
+    ``coarse`` and ``fine`` segments), kernel against plain version."""
+    _require_card()
+    forest, reg, arena = refined_forest(cells=(6, 4, 8))
+    index = {l: i for i, l in enumerate(arena.levels())}
+    bufs = random_buffers(np.random.default_rng(2), arena, lattice.Q, dtype, device="cuda")
+    kinds = set()
+    for fills in branch_fills(forest, reg, {l: arena.slots(l) for l in arena.levels()}):
+        for l, fill in fills.items():
+            for t in fill_tables(fill, index, "cuda"):
+                kinds.add(t.kind)
+                args = (t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+                got, want = bufs[index[l]].clone(), bufs[index[l]].clone()
+                src = got if t.src == index[l] else bufs[t.src]
+                n0 = lbm_halo_fill.launches
+                lbm_halo_fill(got, src, *args)
+                torch.cuda.synchronize()
+                assert lbm_halo_fill.launches == n0 + 1
+                halo_fill_ref(want, want if t.src == index[l] else bufs[t.src], *args)
+                torch.testing.assert_close(got, want, **TOL[dtype])
+    assert kinds == {"same", "coarse", "fine"}
 
 
 @pytest.mark.gpu

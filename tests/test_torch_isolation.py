@@ -129,12 +129,13 @@ def test_cuda_lattice_tables_match_the_lattice():
     src = (PORT / "kernels" / "lbm_collide" / "csrc" / "lbm_collide.cu").read_text()
     for axis, name in enumerate(("c_cx", "c_cy", "c_cz")):
         assert [int(v) for v in _cu_table(src, name)] == D3Q27.c[:, axis].tolist()
-    opp = [int(v) for v in _cu_table(src, "c_opp")]
-    assert opp == D3Q27.opposite.tolist()
-    assert opp[:19] == D3Q19.opposite.tolist()
     np.testing.assert_array_equal(D3Q19.c, D3Q27.c[:19])
-    # the TRT loop pairs q with q + 1 for odd q
-    assert all(opp[q] == (q + 1 if q % 2 else q - 1) for q in range(1, 27))
+    # the kernel's opposite_of (bounce-back, and the TRT loop over (q, q + 1)
+    # pairs) is q + 1 for odd q and q - 1 for even q
+    assert "return q == 0 ? 0 : ((q & 1) ? q + 1 : q - 1);" in src
+    for lat in (D3Q19, D3Q27):
+        opp = lat.opposite.tolist()
+        assert opp == [0] + [q + 1 if q % 2 else q - 1 for q in range(1, lat.Q)]
     for name, lat in (("c_w19", D3Q19), ("c_w27", D3Q27)):
         w = [float(a) / float(b) for a, b in (t.split("/") for t in _cu_table(src, name))]
         assert w == lat.w.tolist(), name

@@ -12,8 +12,7 @@ finding per line:
    for every instantiation (f32/f64 x D3Q19/D3Q27 x BGK/TRT stencils,
    copy/fine/values fills), registers, local (spill) bytes, shared memory
    and theoretical occupancy. The f32 D3Q19 TRT stencil must keep at least
-   50 % occupancy; at that register cap it may keep a few words in local
-   memory, and no other instantiation may.
+   50 % occupancy, and no instantiation may spill to local memory.
 2. main path, the "full cavity": ``AMRLBM(LidDrivenCavityConfig(...)).run``
    on the hand-written kernels, D3Q19 TRT f32, 32^3 cells a block (34^3
    with the ghost layer), 4^3 roots, up to level 2, 12 coarse steps with
@@ -24,7 +23,8 @@ finding per line:
    steps/s, MLUPS, mass drift, the fused run's steady-state transfers, and
    the ``torch.profiler`` breakdown of a steady fused step, which must hold
    no index gather, no ``cat`` and one fill launch per (level, segment) a
-   substep.
+   substep. Then the superstep's rebuild after an AMR event, timed piece by
+   piece (ghost plans, merged fills, disjointness checks, fill tables).
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
@@ -73,9 +73,9 @@ CROSS_CHECK = dict(cells_per_block=(32, 32, 32), root_grid=(2, 2, 2), max_level=
 KERNEL1_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:212"
 KERNEL2_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:248"
 KERNEL_SOURCE = "src/repro_torch/kernels/lbm_collide/csrc/lbm_collide.cu"
-# local memory a thread of the register-capped f32 D3Q19 stencil may use
-# (ptxas keeps 16-24 bytes there at 64 registers)
-CAPPED_STENCIL_LOCAL_BYTES = 32
+# the fill schedule of the main path (``make_halo_stream_collide``)
+MAIN_FILL_FORM = "per segment"
+MAIN_FILL_WRAPPER = {"per segment": "lbm_halo_fill", "per level": "lbm_halo_fill_level"}[MAIN_FILL_FORM]
 
 
 def check(cond: bool, what: str) -> None:
@@ -131,47 +131,32 @@ def stencil_bound_ms(f: torch.Tensor, mask: torch.Tensor, collision: str, extra_
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fill_bytes(tables, Q: int, itemsize: int) -> int:
-    """Bytes a from-sources fill must move: per row its source values (8
-    cells for a fine row), its Q written values and its int32 indices
-    (dst slot, dst cell, src slot, and 1 or 8 src cells)."""
-    total = 0
+def fill_traffic(tables, cells: int) -> dict:
+    """What a from-sources fill must move, each item once: its ghost rows
+    (Q values written each), the distinct source cells it reads (Q values
+    each: a coarse cell that feeds a 2x2x2 patch of fine ghost rows, or a
+    cell two octets share, counts once) and its int32 index bytes. Source
+    cells are split by whether they lie in the destination's own buffer
+    (``same`` rows) or in another level's."""
+    rows = sum(t.dst_slot.numel() for t in tables)
+    index_bytes = sum(a.numel() * a.element_size() for t in tables
+                      for a in (t.dst_slot, t.dst_cell, t.src_slot, t.src_cell))
+    keys = {}
     for t in tables:
-        k = 8 if t.kind == "fine" else 1
-        total += t.dst_slot.numel() * (Q * itemsize * (k + 1) + 4 * (3 + k))
-    return total
+        slot = t.src_slot.cpu().numpy().astype(np.int64)
+        cell = t.src_cell.cpu().numpy()
+        if cell.ndim == 2:
+            slot = np.repeat(slot, cell.shape[1])
+        keys.setdefault(t.kind == "same", []).append(slot * cells + cell.ravel())
+    # kinds read different source levels, so distinct (level, slot, cell)
+    # triples are distinct keys within each group
+    src = {own: int(np.unique(np.concatenate(k)).size) for own, k in keys.items()}
+    return dict(rows=rows, index_bytes=index_bytes, src_own=src.get(True, 0), src_other=src.get(False, 0),
+                rows_by_kind={t.kind: t.dst_slot.numel() for t in tables})
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
-
-
-def small_forest(cells):
-    """Two roots, one refined twice along its lowest-id block: a forest whose
-    superstep fills hold ``same``, ``coarse`` and ``fine`` segments. Returns
-    the forest, its field registry and an arena bound to it."""
-    from repro_torch.core import (
-        AMRPipeline, Comm, ForestGeometry, LevelArena, SFCBalancer, make_uniform_forest,
-    )
-    from repro_torch.lbm.grid import LBMBlockSpec, make_lbm_fields
-
-    reg = make_lbm_fields(LBMBlockSpec(cells=cells))
-    forest = make_uniform_forest(ForestGeometry(root_grid=(2, 1, 1), max_level=6), 1, level=0)
-
-    def seed(forest):
-        for b in forest.all_blocks():
-            b.data["pdf"] = np.zeros(reg.block_shape("pdf"), np.float32)
-            b.data["mask"] = np.zeros(reg.block_shape("mask"), np.int32)
-
-    seed(forest)
-    pipe = AMRPipeline(balancer=SFCBalancer(), registry=reg)
-    for level in range(2):
-        pick = min(b.bid for b in forest.all_blocks() if b.level == level)
-        forest, _ = pipe.run_cycle(forest, Comm(1), lambda r, blocks, pick=pick, to=level + 1: {pick: to})
-        seed(forest)
-    arena = LevelArena(reg)
-    arena.adopt(forest)
-    return forest, reg, arena
 
 
 def main() -> int:
@@ -183,13 +168,16 @@ def main() -> int:
     from repro_torch.kernels.lbm_collide.lbm_collide import (
         kernel_attributes,
         lbm_halo_fill,
+        lbm_halo_fill_level,
         lbm_stream_collide,
         lbm_stream_collide_halo,
     )
     from repro_torch.kernels.lbm_collide.ops import (
+        _assert_fills_disjoint,
         _concat_vals,
         _lower_fill_gathers,
         _pad_fill_layout,
+        _same_fill,
         fill_tables,
     )
     from repro_torch.kernels.lbm_collide.ref import (
@@ -200,10 +188,11 @@ def main() -> int:
     )
     from repro_torch.lbm.criteria import macroscopic
     from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
+    from repro_torch.lbm.forests import refined_forest
     from repro_torch.lbm.halo import compile_ghost_plan, lower_halo_fill
     from repro_torch.lbm.lattice import D3Q19, D3Q27, omega_for_level
 
-    counters = (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)
+    counters = (lbm_stream_collide, lbm_halo_fill, lbm_halo_fill_level, lbm_stream_collide_halo)
     card = card_line()
     say("card:", card)
     say(
@@ -226,17 +215,16 @@ def main() -> int:
         say(f"  kernel {r['kernel']:7s} {r['variant']:6s} {r['dtype']} Q={r['Q']}: "
             f"{r['registers']} registers, {r['local_bytes']} local (spill) bytes, {r['shared_bytes']} shared bytes, "
             f"{r['ctas_per_sm']} CTAs of 256 per SM, occupancy {r['occupancy']:.1%}")
-    # the f32 D3Q19 stencils are capped at 64 registers (4 CTAs of 256 threads,
-    # 50 % occupancy) and keep a few words in local memory; nothing else may
+    # the f32 D3Q19 stencils are capped at 64 registers (4 CTAs of 256
+    # threads, 50 % occupancy); no instantiation may spill
     for r in attrs:
-        capped = r["kernel"] == "stencil" and r["dtype"] == "f32" and r["Q"] == 19
-        limit = CAPPED_STENCIL_LOCAL_BYTES if capped else 0
-        check(r["local_bytes"] <= limit, f"local memory within {limit} bytes: {r}")
+        check(r["local_bytes"] == 0, f"no local memory: {r}")
+    check(not re.search(r"[1-9]\d* bytes spill", log or ""), "ptxas reported no spill")
     main_stencil = next(r for r in attrs if r["kernel"] == "stencil" and r["variant"] == "trt"
                         and r["dtype"] == "f32" and r["Q"] == 19)
     check(main_stencil["occupancy"] >= 0.5, "the f32 D3Q19 TRT stencil keeps 50 % occupancy")
     main_fills = [r for r in attrs if r["kernel"] == "fill" and r["dtype"] == "f32" and r["Q"] == 19
-                  and r["variant"] in ("copy", "fine")]
+                  and r["variant"] in (("copy", "fine") if MAIN_FILL_FORM == "per segment" else ("level",))]
 
     # -- 2. main path: the full cavity, fused and arena --------------------------
     def drive_cavity(mode: str):
@@ -315,7 +303,7 @@ def main() -> int:
     # fused: every level's fill from its sources, then every level's stencil;
     # arena: the stencil alone, with a host round trip every substep
     sim, fused_launches = drive_cavity("fused")
-    check(fused_launches["lbm_halo_fill"] > 0, "the fill kernel launched on the fused path")
+    check(fused_launches[MAIN_FILL_WRAPPER] > 0, "the fill kernel launched on the fused path")
     check(fused_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the fused path")
     _arena_sim, arena_launches = drive_cavity("arena")
     check(arena_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the arena path")
@@ -351,10 +339,51 @@ def main() -> int:
         f"(one per (active level, segment) a substep: {2 * fill_segments})")
     check(fills_seen == 2 * fill_segments, "one fill launch per (active level, segment) a substep")
 
-    # -- 3. kernels against their plain versions, main-path shapes ---------------
-    lattice = sim.spec.lattice
+    # the superstep's rebuild after an AMR event (host work): whole, then
+    # piece by piece on the same forest
+    eng = sim.engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._fused_fn = None
+    eng._fused_program()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     levels = sim.arena.levels()
     lmax = levels[-1]
+    index = {l: i for i, l in enumerate(levels)}
+    slots = {l: sim.arena.slots(l) for l in levels}
+    nblocks = [sim.arena.num_blocks(l) for l in levels]
+    cells = int(np.prod(sim.arena.buffer(lmax, "pdf").shape[2:]))
+    t0 = time.perf_counter()
+    plans = [compile_ghost_plan(sim.forest, sim.fields, slots, fields=("pdf",),
+                                levels={l for l in levels if l >= lmax - p}) for p in range(lmax + 1)]
+    plans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pattern_fills = [lower_halo_fill(pl) for pl in plans]
+    lower_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for fl in pattern_fills:
+        _assert_fills_disjoint(fl, index, nblocks, cells)
+    disjoint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for fl in pattern_fills:
+        for f in fl.values():
+            fill_tables(f, index, "cuda")
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    distinct = []
+    for fl in pattern_fills:
+        for l, f in fl.items():
+            if not any(l == m and _same_fill(f, g) for m, g in distinct):
+                distinct.append((l, f))
+    n_fills = sum(len(fl) for fl in pattern_fills)
+    say(f"[fused] superstep rebuild: {build_s:.3f} s. Its pieces, timed alone: ghost plans of "
+        f"{len(plans)} patterns {plans_s:.3f} s, merged fills {lower_s:.3f} s, disjointness checks "
+        f"{disjoint_s:.3f} s, fill tables of all {n_fills} (pattern, level) fills {tables_s:.3f} s "
+        f"(the build makes tables for the {len(distinct)} distinct ones)")
+
+    # -- 3. kernels against their plain versions, main-path shapes ---------------
+    lattice = sim.spec.lattice
     kw_l = {l: dict(omega=omega_for_level(cfg.omega, l), lattice=lattice,
                     u_wall=cfg.u_lid, collision=cfg.collision) for l in levels}
     bufs = [res.fetch(l, "pdf") for l in levels]
@@ -380,28 +409,41 @@ def main() -> int:
 
     # the halo step: real compiled fills of the cavity (every level of the
     # pattern that activates all levels), from their sources
-    slots = {l: sim.arena.slots(l) for l in levels}
-    plan = compile_ghost_plan(sim.forest, sim.fields, slots, fields=("pdf",), levels=set(levels))
-    index = {l: i for i, l in enumerate(levels)}
-    fills = lower_halo_fill(plan)
+    fills = pattern_fills[lmax]  # the pattern that activates every level
     tables = {l: fill_tables(f, index, "cuda") for l, f in fills.items()}
     check({t.kind for ts in tables.values() for t in ts} == {"same", "coarse", "fine"},
           "the cavity's fills hold every segment kind")
 
-    def run_fill(fill_fn, l, work):
-        for t in tables[l]:
-            fill_fn(work[index[l]], work[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+    def segment_args(l, work):
+        return [(work[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell) for t in tables[l]]
 
+    # the fill's two launch schedules: one launch per (level, segment), and
+    # one per level with a segment table; and the plain version
+    forms = {
+        "per segment": lambda l, work: [lbm_halo_fill(work[index[l]], *a) for a in segment_args(l, work)],
+        "per level": lambda l, work: lbm_halo_fill_level(work[index[l]], segment_args(l, work)),
+    }
+
+    def plain_fill(l, work):
+        for a in segment_args(l, work):
+            halo_fill_ref(work[index[l]], *a)
+
+    main_fill = forms[MAIN_FILL_FORM]
     for l in levels:  # every level's fill, kernel against plain, bitwise in practice
-        got, want = list(bufs), list(bufs)
-        got[index[l]], want[index[l]] = bufs[index[l]].clone(), bufs[index[l]].clone()
-        run_fill(lbm_halo_fill, l, got)
-        run_fill(halo_fill_ref, l, want)
-        torch.cuda.synchronize()
-        err = max_err(got[index[l]], want[index[l]])
-        torch.testing.assert_close(got[index[l]], want[index[l]], **TOL[torch.float32])
+        want = list(bufs)
+        want[index[l]] = bufs[index[l]].clone()
+        plain_fill(l, want)
+        errs = {}
+        for name, form in forms.items():
+            got = list(bufs)
+            got[index[l]] = bufs[index[l]].clone()
+            form(l, got)
+            torch.cuda.synchronize()
+            errs[name] = max_err(got[index[l]], want[index[l]])
+            torch.testing.assert_close(got[index[l]], want[index[l]], **TOL[torch.float32])
         say(f"lbm_halo_fill level {l}: segments "
-            f"{[(t.kind, t.dst_slot.numel()) for t in tables[l]]}: max |err| {err:.3e}")
+            f"{[(t.kind, t.dst_slot.numel()) for t in tables[l]]}: max |err| " +
+            ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     del got, want
 
     i2 = index[lmax]
@@ -412,7 +454,7 @@ def main() -> int:
     work[i2] = f_fine.clone()  # the fill writes its destination's ghost ring in place
 
     def halo_step():
-        run_fill(lbm_halo_fill, lmax, work)
+        main_fill(lmax, work)
         return lbm_stream_collide(work[i2], m_fine, **kw)
 
     coeffs = collision_coeffs(kw["omega"], lattice=lattice, u_wall=cfg.u_lid,
@@ -421,7 +463,7 @@ def main() -> int:
 
     def plain_halo_step():
         plain_work[i2] = f_fine.clone()
-        run_fill(halo_fill_ref, lmax, plain_work)
+        plain_fill(lmax, plain_work)
         return stream_collide_coeffs(plain_work[i2], m_fine, coeffs, lattice=lattice, collision=cfg.collision)
 
     got, want = halo_step(), plain_halo_step()
@@ -429,22 +471,50 @@ def main() -> int:
     k2_err = max_err(got, want)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
     del got
-    fill_ms = time_ms(lambda: run_fill(lbm_halo_fill, lmax, work), iters=30)
+    fill_ms = time_ms(lambda: main_fill(lmax, work), iters=30)
+    # the two schedules in turns, at level lmax and over every level's fill
+    # of the substep that activates all levels
+    every = list(bufs)
+    sched_ms = {(name, scope): [] for name in forms for scope in ("lmax", "all")}
+    for _ in range(3):
+        for name, form in forms.items():
+            sched_ms[name, "lmax"].append(time_ms(lambda: form(lmax, work), iters=20))
+            sched_ms[name, "all"].append(time_ms(lambda: [form(l, every) for l in tables], iters=20))
+    sched_launches = {("per segment", "lmax"): len(tables[lmax]), ("per level", "lmax"): 1,
+                      ("per segment", "all"): sum(len(ts) for ts in tables.values()), ("per level", "all"): len(tables)}
+    say("lbm_halo_fill schedules, min of 3 turns: " + "; ".join(
+        f"{name} {'level ' + str(lmax) if scope == 'lmax' else 'all levels'} {min(v):.4f} ms "
+        f"({sched_launches[name, scope]} launches)" for (name, scope), v in sched_ms.items())
+        + f"; main path: {MAIN_FILL_FORM}")
     sten2_ms = time_ms(lambda: lbm_stream_collide(work[i2], m_fine, **kw), iters=30)
     k2_ms = time_ms(halo_step, iters=30)
     k2_plain_ms = time_ms(plain_halo_step, iters=3, warmup=1)
-    fbytes = fill_bytes(tables[lmax], lattice.Q, f_fine.element_size())
+    # bounds, each byte once: the fill alone reads its distinct source cells
+    # and writes its rows; the halo step (fill + stencil, one function of the
+    # pre-step buffers) reads the level's buffer except the ghost rows the
+    # fill overwrites, the mask, the distinct source cells of other levels
+    # and the index tables, and writes the stepped buffer
+    cells2 = int(np.prod(f_fine.shape[2:]))
+    row_bytes = lattice.Q * f_fine.element_size()
+    tr = fill_traffic(tables[lmax], cells2)
+    check(tr["rows"] == rows2, "the fill tables cover the merged fill")
+    fbytes = (tr["rows"] + tr["src_own"] + tr["src_other"]) * row_bytes + tr["index_bytes"]
     fill_bound_ms = fbytes / HBM_BYTES_PER_S * 1e3
     sten2_bound_ms, _ = stencil_bound_ms(f_fine, m_fine, cfg.collision)
-    k2_bound_ms, k2_by = fill_bound_ms + sten2_bound_ms, "bytes"
-    say(f"lbm_halo_fill level {lmax} from sources ({rows2} ghost rows, {len(tables[lmax])} launches): "
+    k2_extra = (tr["src_other"] - tr["rows"]) * row_bytes + tr["index_bytes"]
+    k2_bound_ms, k2_by = stencil_bound_ms(f_fine, m_fine, cfg.collision, extra_bytes=k2_extra)
+    say(f"lbm_halo_fill level {lmax} rows by kind {json.dumps(tr['rows_by_kind'])}; distinct source cells: "
+        f"{tr['src_own']} in the level's own buffer, {tr['src_other']} in other levels' "
+        f"({tr['src_other'] / max(tr['rows'] - tr['rows_by_kind'].get('same', 0), 1):.3f} per coarse/fine row)")
+    say(f"lbm_halo_fill level {lmax} from sources ({rows2} ghost rows, {MAIN_FILL_FORM}): "
         f"{fill_ms:.4f} ms, bound {fill_bound_ms:.4f} ms ({fbytes / 1e9:.4f} GB), "
         f"{fill_bound_ms / fill_ms:.1%} of bound")
     say(f"lbm_stream_collide level {lmax} B={B2}: {sten2_ms:.4f} ms, bound {sten2_bound_ms:.4f} ms, "
         f"{sten2_bound_ms / sten2_ms:.1%} of bound")
     say(f"halo step level {lmax} (fill from sources + stencil), D3Q19 TRT f32 B={B2}: max |err| {k2_err:.3e}, "
-        f"kernels {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_by}), "
-        f"{k2_bound_ms / k2_ms:.1%} of bound")
+        f"kernels {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_by}; "
+        f"{k2_extra / 1e9:+.4f} GB beside the stencil's), {k2_bound_ms / k2_ms:.1%} of bound; "
+        f"shares of their own bounds: fill {fill_bound_ms / fill_ms:.1%}, stencil {sten2_bound_ms / sten2_ms:.1%}")
 
     # the slab form once (the Pallas halo kernel's interface): same fill
     vals = _concat_vals(bufs, _lower_fill_gathers(fills[lmax], index, f_fine.device))
@@ -503,7 +573,7 @@ def main() -> int:
             f"max |err| stencil {err1:.3e}, slab form {err2:.3e}")
 
     # small cases: the fill from sources, every segment kind, f32/f64 x D3Q19/D3Q27
-    forest_s, reg_s, arena_s = small_forest((6, 4, 8))
+    forest_s, reg_s, arena_s = refined_forest((6, 4, 8))
     levels_s = arena_s.levels()
     index_s = {l: i for i, l in enumerate(levels_s)}
     fills_s = lower_halo_fill(compile_ghost_plan(
@@ -570,7 +640,7 @@ def main() -> int:
         # the halo kernel's work on the card: the from-sources fill of every
         # segment (launches: lbm_halo_fill) followed by the stencil
         dict(name="lbm_stream_collide_halo", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=fused_launches["lbm_halo_fill"], max_abs_err=k2_err, ms=k2_ms,
+             launches=fused_launches[MAIN_FILL_WRAPPER], max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None,
              registers=max(r["registers"] for r in main_fills),
              spills=max(r["local_bytes"] for r in main_fills),

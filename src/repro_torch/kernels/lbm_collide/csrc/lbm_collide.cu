@@ -34,12 +34,14 @@
 //     CTA-uniform part plus one wrap correction an axis, and outputs go
 //     through a pointer bumped one q-plane a direction. __launch_bounds__
 //     caps the f32 D3Q19 stencil at 64 registers, 4 CTAs of 256 threads
-//     (50 % occupancy) on an SM.
+//     (50 % occupancy) on an SM, with nothing spilled to local memory.
 //   * rho and u are summed in registers in the fixed q order of the Pallas
 //     body; feq is recomputed per direction instead of being stored.
 //     Non-fluid cells copy their input. The ghost ring is stream-collided
 //     too, with wrapped values, exactly like the oracle.
-//   * The lattice tables live in __constant__ memory. The collision
+//   * The lattice tables are compile-time constants that fold into the
+//     unrolled loops (a table in constant memory cost a load and an
+//     int->float conversion a use, and spilled at the cap). The collision
 //     coefficients (om, or om_p/om_m, and the lid vector) arrive as kernel
 //     arguments, already rounded to the working type on the host.
 //
@@ -84,24 +86,42 @@ constexpr int kFillValues = 2;
 // D3Q27 velocities; D3Q19 is its first 19 entries. The ordering pairs each
 // direction q >= 1 with its opposite: opposite(q) = q + 1 for odd q, q - 1
 // for even q (opposite_of and the TRT loop below rely on that pairing).
-__constant__ int c_cx[27] = {0, 1, -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1,
+// The tables are compile-time constants: every use sits in a loop over q
+// that is fully unrolled, so each entry folds into the instruction that
+// uses it (a product with a velocity component becomes a copy, a negation
+// or a zero, all exact) instead of a constant-bank load and a conversion
+// held in a register.
+__device__ __forceinline__ int cx_of(int q) {
+  constexpr int c_cx[27] = {0, 1, -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1,
                              -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1, -1};
-__constant__ int c_cy[27] = {0, 0, 0, 1, -1, 0, 0, 1, -1, -1, 1, 0, 0, 0,
+  return c_cx[q];
+}
+__device__ __forceinline__ int cy_of(int q) {
+  constexpr int c_cy[27] = {0, 0, 0, 1, -1, 0, 0, 1, -1, -1, 1, 0, 0, 0,
                              0, 1, -1, 1, -1, 1, -1, 1, -1, -1, 1, -1, 1};
-__constant__ int c_cz[27] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0, 1, -1, -1,
+  return c_cy[q];
+}
+__device__ __forceinline__ int cz_of(int q) {
+  constexpr int c_cz[27] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0, 1, -1, -1,
                              1, 1, -1, -1, 1, 1, -1, -1, 1, 1, -1, -1, 1};
-__constant__ double c_w19[19] = {
+  return c_cz[q];
+}
+template <int Q>
+__device__ __forceinline__ double weight_of(int q) {
+  constexpr double c_w19[19] = {
     1.0 / 3.0,  1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0,
     1.0 / 18.0, 1.0 / 18.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
     1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
     1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0};
-__constant__ double c_w27[27] = {
+  constexpr double c_w27[27] = {
     8.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,
     2.0 / 27.0,  2.0 / 27.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,
     1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,
     1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 216.0,
     1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0,
     1.0 / 216.0, 1.0 / 216.0};
+  return Q == 19 ? c_w19[q] : c_w27[q];
+}
 
 // The opposite of direction q, as a compile-time index so that register
 // arrays indexed by it stay in registers.
@@ -136,8 +156,8 @@ __device__ __forceinline__ int wrap(int i, int n) {
 
 template <typename T, int Q>
 __device__ __forceinline__ T equilibrium(int q, T rho, T ux, T uy, T uz, T usq) {
-  const T cu = T(0) + T(c_cx[q]) * ux + T(c_cy[q]) * uy + T(c_cz[q]) * uz;
-  const T w = T(Q == 19 ? c_w19[q] : c_w27[q]);
+  const T cu = T(0) + T(cx_of(q)) * ux + T(cy_of(q)) * uy + T(cz_of(q)) * uz;
+  const T w = T(weight_of<Q>(q));
   return w * rho * (T(1) + T(3) * cu + T(4.5) * cu * cu - T(1.5) * usq);
 }
 
@@ -209,7 +229,7 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   if (inside) {
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
-      const int cx = c_cx[q], cy = c_cy[q], cz = c_cz[q];
+      const int cx = cx_of(q), cy = cy_of(q), cz = cz_of(q);
       fin[q] = fc[q * n - (cx * YZ + cy * Z + cz) + (cx * wx > 0 ? wx : 0) + (cy * wy > 0 ? wy : 0) +
                   (cz * wz > 0 ? wz : 0)];
     }
@@ -251,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   // bounce-back loads f_opp(q)(x) depend on no global load either.
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
-    const int ms = tile[centre - (c_cx[q] * SY + c_cy[q]) * SZ - c_cz[q]];
+    const int ms = tile[centre - (cx_of(q) * SY + cy_of(q)) * SZ - cz_of(q)];
     if (ms != kFluid) {
       fin[q] = fc[opposite_of(q) * n];  // replaces the dead pulled value
       if (ms == kLid) fin[q] = fin[q] + k.lid[q];
@@ -265,9 +285,9 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   T ux = T(0), uy = T(0), uz = T(0);
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
-    ux = ux + T(c_cx[q]) * fin[q];
-    uy = uy + T(c_cy[q]) * fin[q];
-    uz = uz + T(c_cz[q]) * fin[q];
+    ux = ux + T(cx_of(q)) * fin[q];
+    uy = uy + T(cy_of(q)) * fin[q];
+    uz = uz + T(cz_of(q)) * fin[q];
   }
   const T inv_rho = T(1) / rho;
   ux = ux * inv_rho;
@@ -306,30 +326,29 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-// Fill `rows` ghost cells of dst (B_dst, Q, n) in place: row i writes cell
-// dst_cell[i] of block dst_slot[i]. Its value comes, by KIND, from cell
-// src_cell[i] of block src_slot[i] of src (copy), from the mean of the 8
-// cells src_cell[i, 0..7] of block src_slot[i] (fine), or from row i of an
-// (N, Q) array src, skipped where valid[i] is 0 (values). dst and src may be
-// the same buffer: sources are interior cells, targets ghost cells, so no
+// Fill ghost row i of dst (B_dst, Q, n) in place: write cell dst_cell[i]
+// of block dst_slot[i]. Its value comes, by KIND, from cell src_cell[i] of
+// block src_slot[i] of src (copy), from the mean of the 8 cells
+// src_cell[i, 0..7] of block src_slot[i] (fine), or from row i of an (N, Q)
+// array src, skipped where valid[i] is 0 (values). dst and src may be the
+// same buffer: sources are interior cells, targets ghost cells, so no
 // location is both read and written.
 template <typename T, int Q, int KIND>
-__global__ void __launch_bounds__(kThreads)
-    halo_fill_kernel(T* __restrict__ dst, const T* __restrict__ src, int64_t rows, int n,
-                     const int32_t* __restrict__ dst_slot, const int32_t* __restrict__ dst_cell,
-                     const int32_t* __restrict__ src_slot, const int32_t* __restrict__ src_cell,
-                     const uint8_t* __restrict__ valid) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= rows) return;
-  if (KIND == kFillValues && !valid[row]) return;
-  T* __restrict__ d = dst + static_cast<int64_t>(dst_slot[row]) * Q * n + dst_cell[row];
+__device__ __forceinline__ void fill_row(T* __restrict__ dst, const T* __restrict__ src, int n, int64_t i,
+                                         const int32_t* __restrict__ dst_slot,
+                                         const int32_t* __restrict__ dst_cell,
+                                         const int32_t* __restrict__ src_slot,
+                                         const int32_t* __restrict__ src_cell,
+                                         const uint8_t* __restrict__ valid) {
+  if (KIND == kFillValues && !valid[i]) return;
+  T* __restrict__ d = dst + static_cast<int64_t>(dst_slot[i]) * Q * n + dst_cell[i];
   if (KIND == kFillCopy) {
-    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n + src_cell[row];
+    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[i]) * Q * n + src_cell[i];
 #pragma unroll
     for (int q = 0; q < Q; ++q) d[q * n] = s[q * n];
   } else if (KIND == kFillFine) {
-    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n;
-    const int* __restrict__ oct = src_cell + row * 8;
+    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[i]) * Q * n;
+    const int* __restrict__ oct = src_cell + i * 8;
     const int c0 = oct[0], c1 = oct[1], c2 = oct[2], c3 = oct[3];
     const int c4 = oct[4], c5 = oct[5], c6 = oct[6], c7 = oct[7];
     // one q at a time: 8 loads in flight a thread, and no spills at Q = 27
@@ -347,9 +366,69 @@ __global__ void __launch_bounds__(kThreads)
       d[q * n] = mul_rn(acc, T(0.125));
     }
   } else {
-    const T* __restrict__ s = src + row * Q;
+    const T* __restrict__ s = src + i * Q;
 #pragma unroll
     for (int q = 0; q < Q; ++q) d[q * n] = s[q];
+  }
+}
+
+// One segment of a fill, one thread a row.
+template <typename T, int Q, int KIND>
+__global__ void __launch_bounds__(kThreads)
+    halo_fill_kernel(T* __restrict__ dst, const T* __restrict__ src, int64_t rows, int n,
+                     const int32_t* __restrict__ dst_slot, const int32_t* __restrict__ dst_cell,
+                     const int32_t* __restrict__ src_slot, const int32_t* __restrict__ src_cell,
+                     const uint8_t* __restrict__ valid) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row < rows) fill_row<T, Q, KIND>(dst, src, n, row, dst_slot, dst_cell, src_slot, src_cell, valid);
+}
+
+// A level's whole fill in one launch: up to kMaxFillSegments copy or fine
+// segments, laid end to end. A segment starts at row `begin` of the launch;
+// unused entries start at `rows`, so no row selects them.
+constexpr int kMaxFillSegments = 4;
+
+template <typename T>
+struct FillSegment {
+  const T* src;
+  const int32_t* dst_slot;
+  const int32_t* dst_cell;
+  const int32_t* src_slot;
+  const int32_t* src_cell;
+  int64_t begin;
+  int kind;
+};
+
+template <typename T>
+struct FillPlan {
+  FillSegment<T> seg[kMaxFillSegments];
+  int64_t rows;
+};
+
+template <typename T, int Q>
+__device__ __forceinline__ void fill_segment_row(T* __restrict__ dst, int n, const FillSegment<T> g, int64_t row) {
+  const int64_t i = row - g.begin;
+  if (g.kind == kFillFine) {
+    fill_row<T, Q, kFillFine>(dst, g.src, n, i, g.dst_slot, g.dst_cell, g.src_slot, g.src_cell, nullptr);
+  } else {
+    fill_row<T, Q, kFillCopy>(dst, g.src, n, i, g.dst_slot, g.dst_cell, g.src_slot, g.src_cell, nullptr);
+  }
+}
+
+template <typename T, int Q>
+__global__ void __launch_bounds__(kThreads) halo_fill_level_kernel(T* __restrict__ dst, int n, const FillPlan<T> plan) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= plan.rows) return;
+  // the row's segment: the last one that starts at or before it. Each case
+  // names its entry at compile time, so the table stays in parameter space.
+  int s = 0;
+#pragma unroll
+  for (int j = 1; j < kMaxFillSegments; ++j) s += row >= plan.seg[j].begin;
+  switch (s) {
+    case 0: fill_segment_row<T, Q>(dst, n, plan.seg[0], row); break;
+    case 1: fill_segment_row<T, Q>(dst, n, plan.seg[1], row); break;
+    case 2: fill_segment_row<T, Q>(dst, n, plan.seg[2], row); break;
+    default: fill_segment_row<T, Q>(dst, n, plan.seg[3], row); break;
   }
 }
 
@@ -396,6 +475,32 @@ cudaError_t launch_fill(void* dst, const void* src, int64_t rows, int n, const v
       static_cast<const int32_t*>(dst_slot), static_cast<const int32_t*>(dst_cell),
       static_cast<const int32_t*>(src_slot), static_cast<const int32_t*>(src_cell),
       static_cast<const uint8_t*>(valid));
+  return cudaGetLastError();
+}
+
+template <typename T, int Q>
+cudaError_t launch_fill_level(void* dst, int n, int count, const long long* rows, const int* kinds,
+                              const void* const* srcs, const void* const* dst_slots,
+                              const void* const* dst_cells, const void* const* src_slots,
+                              const void* const* src_cells, cudaStream_t stream) {
+  if (count < 1 || count > kMaxFillSegments) return cudaErrorInvalidValue;
+  FillPlan<T> plan{};
+  int64_t begin = 0;
+  for (int s = 0; s < count; ++s) {
+    if ((kinds[s] != kFillCopy && kinds[s] != kFillFine) || rows[s] < 0) return cudaErrorInvalidValue;
+    plan.seg[s] = FillSegment<T>{static_cast<const T*>(srcs[s]),
+                                 static_cast<const int32_t*>(dst_slots[s]),
+                                 static_cast<const int32_t*>(dst_cells[s]),
+                                 static_cast<const int32_t*>(src_slots[s]),
+                                 static_cast<const int32_t*>(src_cells[s]), begin, kinds[s]};
+    begin += rows[s];
+  }
+  for (int s = count; s < kMaxFillSegments; ++s) plan.seg[s].begin = begin;
+  plan.rows = begin;
+  if (begin == 0) return cudaSuccess;
+  const int64_t grid = (begin + kThreads - 1) / kThreads;
+  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  halo_fill_level_kernel<T, Q><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(static_cast<T*>(dst), n, plan);
   return cudaGetLastError();
 }
 
@@ -449,6 +554,7 @@ cudaError_t attrs_of(K kernel, int* out) {
 
 template <typename T, int Q>
 cudaError_t attrs_q(int which, int variant, int* out) {
+  if (which == 2) return attrs_of(halo_fill_level_kernel<T, Q>, out);
   if (which == 0) {
     return variant ? attrs_of(stream_collide_kernel<T, Q, true>, out)
                    : attrs_of(stream_collide_kernel<T, Q, false>, out);
@@ -489,7 +595,23 @@ extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* 
   return cudaErrorInvalidValue;
 }
 
-// which: 0 = stencil (variant = trt), 1 = fill (variant = kind). out[5]:
+// A level's whole fill in one launch: `count` (1..4) copy (0) or fine (1)
+// segments, host arrays of one entry each: rows, kind, source buffer and
+// the int32 index arrays as in lbm_halo_fill.
+extern "C" int lbm_halo_fill_level(int dtype, int Q, void* dst, int n, int count, const long long* rows,
+                                   const int* kinds, const void* const* srcs, const void* const* ds,
+                                   const void* const* dc, const void* const* ss, const void* const* sc,
+                                   void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && Q == 19) return launch_fill_level<float, 19>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
+  if (dtype == 0 && Q == 27) return launch_fill_level<float, 27>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
+  if (dtype == 1 && Q == 19) return launch_fill_level<double, 19>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
+  if (dtype == 1 && Q == 27) return launch_fill_level<double, 27>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
+  return cudaErrorInvalidValue;
+}
+
+// which: 0 = stencil (variant = trt), 1 = fill (variant = kind), 2 = level
+// fill (variant unused). out[5]:
 // registers, local bytes, static shared bytes, CTAs per SM, threads per CTA.
 extern "C" int lbm_kernel_attrs(int which, int dtype, int Q, int variant, int* out) {
   if (dtype == 0 && Q == 19) return attrs_q<float, 19>(which, variant, out);

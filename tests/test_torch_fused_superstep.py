@@ -10,8 +10,12 @@
 * between AMR events the fused loop performs no host<->device transfer.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
+from torch_fill_cases import branch_fills, refined_forest
 
 from repro_torch.core import AMRPipeline, Comm, ForestGeometry, LevelArena, SFCBalancer, make_uniform_forest
 from repro_torch.kernels.lbm_collide import ops
@@ -159,3 +163,65 @@ def test_fused_steady_state_performs_zero_host_transfers():
     d2h = res.d2h_transfers
     sim.total_mass()  # already synced: no second download
     assert res.d2h_transfers == d2h
+
+
+@pytest.mark.parametrize("backend", ["cuda", "ref"])
+def test_patterns_with_the_same_fill_share_one_halo_step(backend):
+    """A level whose merged fill is the same in several activity patterns
+    gets its halo step (fill tables, mask) built once; the fill launches a
+    coarse step counts stay one per (active level, segment) a substep.
+    ``test_modes_match_restack_bitwise`` runs the shared steps end to end."""
+    forest, reg, arena = refined_forest()
+    levels = arena.levels()
+    slots = {l: arena.slots(l) for l in levels}
+    fills = branch_fills(forest, reg, slots)
+    total = sum(len(f) for f in fills)
+    distinct = []
+    for fl in fills:
+        for l, f in fl.items():
+            if not any(l == m and ops._same_fill(f, g) for m, g in distinct):
+                distinct.append((l, f))
+    assert len(distinct) < total, "the finest level's fill repeats across patterns"
+
+    built = []
+
+    def factory(level, fill, level_index):
+        built.append((level, fill))
+        return ops.make_halo_stream_collide(
+            fill, level_index, mask=arena.buffer(level, "mask"), omega=1.5,
+            u_wall=(0.08, 0.0, 0.0), collision="trt", backend=backend, device="cpu",
+        )
+
+    masks = {l: torch.as_tensor(arena.buffer(l, "mask")) for l in levels}
+    steppers = {l: ops.make_stream_collide(omega=1.5, collision="trt", backend=backend) for l in levels}
+    plans = {p: compile_ghost_plan(forest, reg, slots, fields=("pdf",),
+                                   levels={l for l in levels if l >= levels[-1] - p})
+             for p in range(levels[-1] + 1)}
+    fn = ops.make_fused_superstep(levels=levels, plans=plans, steppers=steppers, masks=masks,
+                                  halo_stepper_factory=factory)
+    assert len(built) == len(distinct)
+    assert fn.fill_segments == sum(
+        len(fills[p][l].segments) for p in _substep_patterns(levels[-1]) for l in fills[p]
+    )
+
+
+def _substep_patterns(lmax):
+    """Activity pattern of each substep of a coarse step (trailing zeros)."""
+    return [lmax if s == 0 else min((s & -s).bit_length() - 1, lmax) for s in range(1 << lmax)]
+
+
+def test_same_fill_tells_index_maps_apart():
+    forest, reg, arena = refined_forest()
+    slots = {l: arena.slots(l) for l in arena.levels()}
+    fills = branch_fills(forest, reg, slots)[-1]
+    f = fills[max(fills)]
+    assert ops._same_fill(f, dataclasses.replace(f, dst_cell=f.dst_cell.copy()))
+    moved = f.dst_cell.copy()
+    moved[0] += 1
+    assert not ops._same_fill(f, dataclasses.replace(f, dst_cell=moved))
+    seg = f.segments[0]
+    src = seg.src_cell.copy()
+    src.flat[0] += 1
+    other = dataclasses.replace(f, segments=(dataclasses.replace(seg, src_cell=src),) + f.segments[1:])
+    assert not ops._same_fill(f, other)
+    assert not ops._same_fill(f, dataclasses.replace(f, segments=f.segments[:-1]))

@@ -1,40 +1,18 @@
 """Forests whose ghost fills hold every segment kind, for the port's fill
 tests (imports no jax: the card tests use it too).
 
-``refined_forest`` grows a forest of two roots, refines one root and then
-one of its children, and compiles the fused superstep's ghost plan of every
-activity pattern, so each branch's merged fills carry ``same``, ``fine``
-and ``coarse`` segments.
+``refined_forest`` (from the port) grows a forest of two roots and refines
+one root and then one of its children; ``branch_fills`` compiles the fused
+superstep's ghost plan of every activity pattern, so each branch's merged
+fills carry ``same``, ``fine`` and ``coarse`` segments.
 """
 
-import numpy as np
 import torch
 
-from repro_torch.core import AMRPipeline, Comm, ForestGeometry, LevelArena, SFCBalancer, make_uniform_forest
-from repro_torch.lbm.grid import LBMBlockSpec, make_lbm_fields
+from repro_torch.lbm.forests import refined_forest
 from repro_torch.lbm.halo import compile_ghost_plan, lower_halo_fill
 
-
-def _seed(forest, reg):
-    for b in forest.all_blocks():
-        b.data["pdf"] = np.zeros(reg.block_shape("pdf"), np.float32)
-        b.data["mask"] = np.zeros(reg.block_shape("mask"), np.int32)
-
-
-def refined_forest(cells=(4, 4, 4), depth=2):
-    """(forest, registry, arena): two roots, one refined ``depth`` times
-    along its lowest-id block."""
-    reg = make_lbm_fields(LBMBlockSpec(cells=cells))
-    forest = make_uniform_forest(ForestGeometry(root_grid=(2, 1, 1), max_level=6), 1, level=0)
-    _seed(forest, reg)
-    pipe = AMRPipeline(balancer=SFCBalancer(), registry=reg)
-    for level in range(depth):
-        pick = min(b.bid for b in forest.all_blocks() if b.level == level)
-        forest, _ = pipe.run_cycle(forest, Comm(1), lambda r, blocks, pick=pick, to=level + 1: {pick: to})
-        _seed(forest, reg)
-    arena = LevelArena(reg)
-    arena.adopt(forest)
-    return forest, reg, arena
+__all__ = ["refined_forest", "branch_fills", "random_buffers"]
 
 
 def branch_fills(forest, reg, slots) -> list[dict]:

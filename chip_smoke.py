@@ -73,9 +73,6 @@ CROSS_CHECK = dict(cells_per_block=(32, 32, 32), root_grid=(2, 2, 2), max_level=
 KERNEL1_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:212"
 KERNEL2_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:248"
 KERNEL_SOURCE = "src/repro_torch/kernels/lbm_collide/csrc/lbm_collide.cu"
-# the fill schedule of the main path (``make_halo_stream_collide``)
-MAIN_FILL_FORM = "per segment"
-MAIN_FILL_WRAPPER = {"per segment": "lbm_halo_fill", "per level": "lbm_halo_fill_level"}[MAIN_FILL_FORM]
 
 
 def check(cond: bool, what: str) -> None:
@@ -134,8 +131,8 @@ def stencil_bound_ms(f: torch.Tensor, mask: torch.Tensor, collision: str, extra_
 def fill_traffic(tables, cells: int) -> dict:
     """What a from-sources fill must move, each item once: its ghost rows
     (Q values written each), the distinct source cells it reads (Q values
-    each: a coarse cell that feeds a 2x2x2 patch of fine ghost rows, or a
-    cell two octets share, counts once) and its int32 index bytes. Source
+    each: a coarse cell that feeds several fine ghost rows, or a cell that
+    two rows share, counts once) and its int32 index bytes. Source
     cells are split by whether they lie in the destination's own buffer
     (``same`` rows) or in another level's."""
     rows = sum(t.dst_slot.numel() for t in tables)
@@ -168,7 +165,6 @@ def main() -> int:
     from repro_torch.kernels.lbm_collide.lbm_collide import (
         kernel_attributes,
         lbm_halo_fill,
-        lbm_halo_fill_level,
         lbm_stream_collide,
         lbm_stream_collide_halo,
     )
@@ -192,7 +188,7 @@ def main() -> int:
     from repro_torch.lbm.halo import compile_ghost_plan, lower_halo_fill
     from repro_torch.lbm.lattice import D3Q19, D3Q27, omega_for_level
 
-    counters = (lbm_stream_collide, lbm_halo_fill, lbm_halo_fill_level, lbm_stream_collide_halo)
+    counters = (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)
     card = card_line()
     say("card:", card)
     say(
@@ -224,7 +220,7 @@ def main() -> int:
                         and r["dtype"] == "f32" and r["Q"] == 19)
     check(main_stencil["occupancy"] >= 0.5, "the f32 D3Q19 TRT stencil keeps 50 % occupancy")
     main_fills = [r for r in attrs if r["kernel"] == "fill" and r["dtype"] == "f32" and r["Q"] == 19
-                  and r["variant"] in (("copy", "fine") if MAIN_FILL_FORM == "per segment" else ("level",))]
+                  and r["variant"] in ("copy", "fine")]
 
     # -- 2. main path: the full cavity, fused and arena --------------------------
     def drive_cavity(mode: str):
@@ -303,7 +299,7 @@ def main() -> int:
     # fused: every level's fill from its sources, then every level's stencil;
     # arena: the stencil alone, with a host round trip every substep
     sim, fused_launches = drive_cavity("fused")
-    check(fused_launches[MAIN_FILL_WRAPPER] > 0, "the fill kernel launched on the fused path")
+    check(fused_launches["lbm_halo_fill"] > 0, "the fill kernel launched on the fused path")
     check(fused_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the fused path")
     _arena_sim, arena_launches = drive_cavity("arena")
     check(arena_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the arena path")
@@ -414,36 +410,20 @@ def main() -> int:
     check({t.kind for ts in tables.values() for t in ts} == {"same", "coarse", "fine"},
           "the cavity's fills hold every segment kind")
 
-    def segment_args(l, work):
-        return [(work[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell) for t in tables[l]]
+    def run_fill(fill_fn, l, work):
+        for t in tables[l]:
+            fill_fn(work[index[l]], work[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
 
-    # the fill's two launch schedules: one launch per (level, segment), and
-    # one per level with a segment table; and the plain version
-    forms = {
-        "per segment": lambda l, work: [lbm_halo_fill(work[index[l]], *a) for a in segment_args(l, work)],
-        "per level": lambda l, work: lbm_halo_fill_level(work[index[l]], segment_args(l, work)),
-    }
-
-    def plain_fill(l, work):
-        for a in segment_args(l, work):
-            halo_fill_ref(work[index[l]], *a)
-
-    main_fill = forms[MAIN_FILL_FORM]
     for l in levels:  # every level's fill, kernel against plain, bitwise in practice
-        want = list(bufs)
-        want[index[l]] = bufs[index[l]].clone()
-        plain_fill(l, want)
-        errs = {}
-        for name, form in forms.items():
-            got = list(bufs)
-            got[index[l]] = bufs[index[l]].clone()
-            form(l, got)
-            torch.cuda.synchronize()
-            errs[name] = max_err(got[index[l]], want[index[l]])
-            torch.testing.assert_close(got[index[l]], want[index[l]], **TOL[torch.float32])
+        got, want = list(bufs), list(bufs)
+        got[index[l]], want[index[l]] = bufs[index[l]].clone(), bufs[index[l]].clone()
+        run_fill(lbm_halo_fill, l, got)
+        run_fill(halo_fill_ref, l, want)
+        torch.cuda.synchronize()
+        err = max_err(got[index[l]], want[index[l]])
+        torch.testing.assert_close(got[index[l]], want[index[l]], **TOL[torch.float32])
         say(f"lbm_halo_fill level {l}: segments "
-            f"{[(t.kind, t.dst_slot.numel()) for t in tables[l]]}: max |err| " +
-            ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            f"{[(t.kind, t.dst_slot.numel()) for t in tables[l]]}: max |err| {err:.3e}")
     del got, want
 
     i2 = index[lmax]
@@ -454,7 +434,7 @@ def main() -> int:
     work[i2] = f_fine.clone()  # the fill writes its destination's ghost ring in place
 
     def halo_step():
-        main_fill(lmax, work)
+        run_fill(lbm_halo_fill, lmax, work)
         return lbm_stream_collide(work[i2], m_fine, **kw)
 
     coeffs = collision_coeffs(kw["omega"], lattice=lattice, u_wall=cfg.u_lid,
@@ -463,7 +443,7 @@ def main() -> int:
 
     def plain_halo_step():
         plain_work[i2] = f_fine.clone()
-        plain_fill(lmax, plain_work)
+        run_fill(halo_fill_ref, lmax, plain_work)
         return stream_collide_coeffs(plain_work[i2], m_fine, coeffs, lattice=lattice, collision=cfg.collision)
 
     got, want = halo_step(), plain_halo_step()
@@ -471,21 +451,7 @@ def main() -> int:
     k2_err = max_err(got, want)
     torch.testing.assert_close(got, want, **TOL[torch.float32])
     del got
-    fill_ms = time_ms(lambda: main_fill(lmax, work), iters=30)
-    # the two schedules in turns, at level lmax and over every level's fill
-    # of the substep that activates all levels
-    every = list(bufs)
-    sched_ms = {(name, scope): [] for name in forms for scope in ("lmax", "all")}
-    for _ in range(3):
-        for name, form in forms.items():
-            sched_ms[name, "lmax"].append(time_ms(lambda: form(lmax, work), iters=20))
-            sched_ms[name, "all"].append(time_ms(lambda: [form(l, every) for l in tables], iters=20))
-    sched_launches = {("per segment", "lmax"): len(tables[lmax]), ("per level", "lmax"): 1,
-                      ("per segment", "all"): sum(len(ts) for ts in tables.values()), ("per level", "all"): len(tables)}
-    say("lbm_halo_fill schedules, min of 3 turns: " + "; ".join(
-        f"{name} {'level ' + str(lmax) if scope == 'lmax' else 'all levels'} {min(v):.4f} ms "
-        f"({sched_launches[name, scope]} launches)" for (name, scope), v in sched_ms.items())
-        + f"; main path: {MAIN_FILL_FORM}")
+    fill_ms = time_ms(lambda: run_fill(lbm_halo_fill, lmax, work), iters=30)
     sten2_ms = time_ms(lambda: lbm_stream_collide(work[i2], m_fine, **kw), iters=30)
     k2_ms = time_ms(halo_step, iters=30)
     k2_plain_ms = time_ms(plain_halo_step, iters=3, warmup=1)
@@ -506,7 +472,7 @@ def main() -> int:
     say(f"lbm_halo_fill level {lmax} rows by kind {json.dumps(tr['rows_by_kind'])}; distinct source cells: "
         f"{tr['src_own']} in the level's own buffer, {tr['src_other']} in other levels' "
         f"({tr['src_other'] / max(tr['rows'] - tr['rows_by_kind'].get('same', 0), 1):.3f} per coarse/fine row)")
-    say(f"lbm_halo_fill level {lmax} from sources ({rows2} ghost rows, {MAIN_FILL_FORM}): "
+    say(f"lbm_halo_fill level {lmax} from sources ({rows2} ghost rows, {len(tables[lmax])} launches): "
         f"{fill_ms:.4f} ms, bound {fill_bound_ms:.4f} ms ({fbytes / 1e9:.4f} GB), "
         f"{fill_bound_ms / fill_ms:.1%} of bound")
     say(f"lbm_stream_collide level {lmax} B={B2}: {sten2_ms:.4f} ms, bound {sten2_bound_ms:.4f} ms, "
@@ -640,7 +606,7 @@ def main() -> int:
         # the halo kernel's work on the card: the from-sources fill of every
         # segment (launches: lbm_halo_fill) followed by the stencil
         dict(name="lbm_stream_collide_halo", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=fused_launches[MAIN_FILL_WRAPPER], max_abs_err=k2_err, ms=k2_ms,
+             launches=fused_launches["lbm_halo_fill"], max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None,
              registers=max(r["registers"] for r in main_fills),
              spills=max(r["local_bytes"] for r in main_fills),

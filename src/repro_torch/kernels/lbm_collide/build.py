@@ -42,9 +42,6 @@ _SIGNATURES = {
     "lbm_halo_fill": (
         _I, _I, _I, _P, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _P,
     ),
-    # dtype, Q, dst, n, count, rows[], kinds[], srcs[], dst_slots[],
-    # dst_cells[], src_slots[], src_cells[], stream
-    "lbm_halo_fill_level": (_I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # which, dtype, Q, variant, out (int[5])
     "lbm_kernel_attrs": (_I, _I, _I, _I, _P),
 }

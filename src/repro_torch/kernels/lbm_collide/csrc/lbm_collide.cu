@@ -39,9 +39,8 @@
 //     body; feq is recomputed per direction instead of being stored.
 //     Non-fluid cells copy their input. The ghost ring is stream-collided
 //     too, with wrapped values, exactly like the oracle.
-//   * The lattice tables are compile-time constants that fold into the
-//     unrolled loops (a table in constant memory cost a load and an
-//     int->float conversion a use, and spilled at the cap). The collision
+//   * The lattice tables are compile-time constants folded into the
+//     unrolled loops. The collision
 //     coefficients (om, or om_p/om_m, and the lid vector) arrive as kernel
 //     arguments, already rounded to the working type on the host.
 //
@@ -86,40 +85,40 @@ constexpr int kFillValues = 2;
 // D3Q27 velocities; D3Q19 is its first 19 entries. The ordering pairs each
 // direction q >= 1 with its opposite: opposite(q) = q + 1 for odd q, q - 1
 // for even q (opposite_of and the TRT loop below rely on that pairing).
-// The tables are compile-time constants: every use sits in a loop over q
-// that is fully unrolled, so each entry folds into the instruction that
-// uses it (a product with a velocity component becomes a copy, a negation
-// or a zero, all exact) instead of a constant-bank load and a conversion
-// held in a register.
+// Every use of a table sits in a fully unrolled loop over q, so each entry
+// folds into the instruction that uses it (a product with a velocity
+// component becomes a copy, a negation or a zero, all exact). Tables in
+// __constant__ memory cost a load and an int->float conversion a use, held
+// in registers, and made the f32 D3Q19 stencil spill at its 64-register cap.
 __device__ __forceinline__ int cx_of(int q) {
   constexpr int c_cx[27] = {0, 1, -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1,
-                             -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1, -1};
+                            -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1, -1};
   return c_cx[q];
 }
 __device__ __forceinline__ int cy_of(int q) {
   constexpr int c_cy[27] = {0, 0, 0, 1, -1, 0, 0, 1, -1, -1, 1, 0, 0, 0,
-                             0, 1, -1, 1, -1, 1, -1, 1, -1, -1, 1, -1, 1};
+                            0, 1, -1, 1, -1, 1, -1, 1, -1, -1, 1, -1, 1};
   return c_cy[q];
 }
 __device__ __forceinline__ int cz_of(int q) {
   constexpr int c_cz[27] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0, 1, -1, -1,
-                             1, 1, -1, -1, 1, 1, -1, -1, 1, 1, -1, -1, 1};
+                            1, 1, -1, -1, 1, 1, -1, -1, 1, 1, -1, -1, 1};
   return c_cz[q];
 }
 template <int Q>
 __device__ __forceinline__ double weight_of(int q) {
   constexpr double c_w19[19] = {
-    1.0 / 3.0,  1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0,
-    1.0 / 18.0, 1.0 / 18.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
-    1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
-    1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0};
+      1.0 / 3.0,  1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0, 1.0 / 18.0,
+      1.0 / 18.0, 1.0 / 18.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
+      1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0,
+      1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0, 1.0 / 36.0};
   constexpr double c_w27[27] = {
-    8.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,
-    2.0 / 27.0,  2.0 / 27.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,
-    1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,
-    1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 216.0,
-    1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0,
-    1.0 / 216.0, 1.0 / 216.0};
+      8.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,  2.0 / 27.0,
+      2.0 / 27.0,  2.0 / 27.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,
+      1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,
+      1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 54.0,  1.0 / 216.0,
+      1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0, 1.0 / 216.0,
+      1.0 / 216.0, 1.0 / 216.0};
   return Q == 19 ? c_w19[q] : c_w27[q];
 }
 
@@ -326,29 +325,30 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-// Fill ghost row i of dst (B_dst, Q, n) in place: write cell dst_cell[i]
-// of block dst_slot[i]. Its value comes, by KIND, from cell src_cell[i] of
-// block src_slot[i] of src (copy), from the mean of the 8 cells
-// src_cell[i, 0..7] of block src_slot[i] (fine), or from row i of an (N, Q)
-// array src, skipped where valid[i] is 0 (values). dst and src may be the
-// same buffer: sources are interior cells, targets ghost cells, so no
+// Fill `rows` ghost cells of dst (B_dst, Q, n) in place: row i writes cell
+// dst_cell[i] of block dst_slot[i]. Its value comes, by KIND, from cell
+// src_cell[i] of block src_slot[i] of src (copy), from the mean of the 8
+// cells src_cell[i, 0..7] of block src_slot[i] (fine), or from row i of an
+// (N, Q) array src, skipped where valid[i] is 0 (values). dst and src may be
+// the same buffer: sources are interior cells, targets ghost cells, so no
 // location is both read and written.
 template <typename T, int Q, int KIND>
-__device__ __forceinline__ void fill_row(T* __restrict__ dst, const T* __restrict__ src, int n, int64_t i,
-                                         const int32_t* __restrict__ dst_slot,
-                                         const int32_t* __restrict__ dst_cell,
-                                         const int32_t* __restrict__ src_slot,
-                                         const int32_t* __restrict__ src_cell,
-                                         const uint8_t* __restrict__ valid) {
-  if (KIND == kFillValues && !valid[i]) return;
-  T* __restrict__ d = dst + static_cast<int64_t>(dst_slot[i]) * Q * n + dst_cell[i];
+__global__ void __launch_bounds__(kThreads)
+    halo_fill_kernel(T* __restrict__ dst, const T* __restrict__ src, int64_t rows, int n,
+                     const int32_t* __restrict__ dst_slot, const int32_t* __restrict__ dst_cell,
+                     const int32_t* __restrict__ src_slot, const int32_t* __restrict__ src_cell,
+                     const uint8_t* __restrict__ valid) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= rows) return;
+  if (KIND == kFillValues && !valid[row]) return;
+  T* __restrict__ d = dst + static_cast<int64_t>(dst_slot[row]) * Q * n + dst_cell[row];
   if (KIND == kFillCopy) {
-    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[i]) * Q * n + src_cell[i];
+    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n + src_cell[row];
 #pragma unroll
     for (int q = 0; q < Q; ++q) d[q * n] = s[q * n];
   } else if (KIND == kFillFine) {
-    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[i]) * Q * n;
-    const int* __restrict__ oct = src_cell + i * 8;
+    const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n;
+    const int* __restrict__ oct = src_cell + row * 8;
     const int c0 = oct[0], c1 = oct[1], c2 = oct[2], c3 = oct[3];
     const int c4 = oct[4], c5 = oct[5], c6 = oct[6], c7 = oct[7];
     // one q at a time: 8 loads in flight a thread, and no spills at Q = 27
@@ -366,69 +366,9 @@ __device__ __forceinline__ void fill_row(T* __restrict__ dst, const T* __restric
       d[q * n] = mul_rn(acc, T(0.125));
     }
   } else {
-    const T* __restrict__ s = src + i * Q;
+    const T* __restrict__ s = src + row * Q;
 #pragma unroll
     for (int q = 0; q < Q; ++q) d[q * n] = s[q];
-  }
-}
-
-// One segment of a fill, one thread a row.
-template <typename T, int Q, int KIND>
-__global__ void __launch_bounds__(kThreads)
-    halo_fill_kernel(T* __restrict__ dst, const T* __restrict__ src, int64_t rows, int n,
-                     const int32_t* __restrict__ dst_slot, const int32_t* __restrict__ dst_cell,
-                     const int32_t* __restrict__ src_slot, const int32_t* __restrict__ src_cell,
-                     const uint8_t* __restrict__ valid) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row < rows) fill_row<T, Q, KIND>(dst, src, n, row, dst_slot, dst_cell, src_slot, src_cell, valid);
-}
-
-// A level's whole fill in one launch: up to kMaxFillSegments copy or fine
-// segments, laid end to end. A segment starts at row `begin` of the launch;
-// unused entries start at `rows`, so no row selects them.
-constexpr int kMaxFillSegments = 4;
-
-template <typename T>
-struct FillSegment {
-  const T* src;
-  const int32_t* dst_slot;
-  const int32_t* dst_cell;
-  const int32_t* src_slot;
-  const int32_t* src_cell;
-  int64_t begin;
-  int kind;
-};
-
-template <typename T>
-struct FillPlan {
-  FillSegment<T> seg[kMaxFillSegments];
-  int64_t rows;
-};
-
-template <typename T, int Q>
-__device__ __forceinline__ void fill_segment_row(T* __restrict__ dst, int n, const FillSegment<T> g, int64_t row) {
-  const int64_t i = row - g.begin;
-  if (g.kind == kFillFine) {
-    fill_row<T, Q, kFillFine>(dst, g.src, n, i, g.dst_slot, g.dst_cell, g.src_slot, g.src_cell, nullptr);
-  } else {
-    fill_row<T, Q, kFillCopy>(dst, g.src, n, i, g.dst_slot, g.dst_cell, g.src_slot, g.src_cell, nullptr);
-  }
-}
-
-template <typename T, int Q>
-__global__ void __launch_bounds__(kThreads) halo_fill_level_kernel(T* __restrict__ dst, int n, const FillPlan<T> plan) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (row >= plan.rows) return;
-  // the row's segment: the last one that starts at or before it. Each case
-  // names its entry at compile time, so the table stays in parameter space.
-  int s = 0;
-#pragma unroll
-  for (int j = 1; j < kMaxFillSegments; ++j) s += row >= plan.seg[j].begin;
-  switch (s) {
-    case 0: fill_segment_row<T, Q>(dst, n, plan.seg[0], row); break;
-    case 1: fill_segment_row<T, Q>(dst, n, plan.seg[1], row); break;
-    case 2: fill_segment_row<T, Q>(dst, n, plan.seg[2], row); break;
-    default: fill_segment_row<T, Q>(dst, n, plan.seg[3], row); break;
   }
 }
 
@@ -475,32 +415,6 @@ cudaError_t launch_fill(void* dst, const void* src, int64_t rows, int n, const v
       static_cast<const int32_t*>(dst_slot), static_cast<const int32_t*>(dst_cell),
       static_cast<const int32_t*>(src_slot), static_cast<const int32_t*>(src_cell),
       static_cast<const uint8_t*>(valid));
-  return cudaGetLastError();
-}
-
-template <typename T, int Q>
-cudaError_t launch_fill_level(void* dst, int n, int count, const long long* rows, const int* kinds,
-                              const void* const* srcs, const void* const* dst_slots,
-                              const void* const* dst_cells, const void* const* src_slots,
-                              const void* const* src_cells, cudaStream_t stream) {
-  if (count < 1 || count > kMaxFillSegments) return cudaErrorInvalidValue;
-  FillPlan<T> plan{};
-  int64_t begin = 0;
-  for (int s = 0; s < count; ++s) {
-    if ((kinds[s] != kFillCopy && kinds[s] != kFillFine) || rows[s] < 0) return cudaErrorInvalidValue;
-    plan.seg[s] = FillSegment<T>{static_cast<const T*>(srcs[s]),
-                                 static_cast<const int32_t*>(dst_slots[s]),
-                                 static_cast<const int32_t*>(dst_cells[s]),
-                                 static_cast<const int32_t*>(src_slots[s]),
-                                 static_cast<const int32_t*>(src_cells[s]), begin, kinds[s]};
-    begin += rows[s];
-  }
-  for (int s = count; s < kMaxFillSegments; ++s) plan.seg[s].begin = begin;
-  plan.rows = begin;
-  if (begin == 0) return cudaSuccess;
-  const int64_t grid = (begin + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  halo_fill_level_kernel<T, Q><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(static_cast<T*>(dst), n, plan);
   return cudaGetLastError();
 }
 
@@ -554,7 +468,6 @@ cudaError_t attrs_of(K kernel, int* out) {
 
 template <typename T, int Q>
 cudaError_t attrs_q(int which, int variant, int* out) {
-  if (which == 2) return attrs_of(halo_fill_level_kernel<T, Q>, out);
   if (which == 0) {
     return variant ? attrs_of(stream_collide_kernel<T, Q, true>, out)
                    : attrs_of(stream_collide_kernel<T, Q, false>, out);
@@ -595,23 +508,7 @@ extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* 
   return cudaErrorInvalidValue;
 }
 
-// A level's whole fill in one launch: `count` (1..4) copy (0) or fine (1)
-// segments, host arrays of one entry each: rows, kind, source buffer and
-// the int32 index arrays as in lbm_halo_fill.
-extern "C" int lbm_halo_fill_level(int dtype, int Q, void* dst, int n, int count, const long long* rows,
-                                   const int* kinds, const void* const* srcs, const void* const* ds,
-                                   const void* const* dc, const void* const* ss, const void* const* sc,
-                                   void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && Q == 19) return launch_fill_level<float, 19>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
-  if (dtype == 0 && Q == 27) return launch_fill_level<float, 27>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
-  if (dtype == 1 && Q == 19) return launch_fill_level<double, 19>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
-  if (dtype == 1 && Q == 27) return launch_fill_level<double, 27>(dst, n, count, rows, kinds, srcs, ds, dc, ss, sc, s);
-  return cudaErrorInvalidValue;
-}
-
-// which: 0 = stencil (variant = trt), 1 = fill (variant = kind), 2 = level
-// fill (variant unused). out[5]:
+// which: 0 = stencil (variant = trt), 1 = fill (variant = kind). out[5]:
 // registers, local bytes, static shared bytes, CTAs per SM, threads per CTA.
 extern "C" int lbm_kernel_attrs(int which, int dtype, int Q, int variant, int* out) {
   if (dtype == 0 && Q == 19) return attrs_q<float, 19>(which, variant, out);

@@ -61,18 +61,11 @@ from .ref import (
     stream_collide_halo_ref,
 )
 
-__all__ = [
-    "lbm_stream_collide",
-    "lbm_stream_collide_halo",
-    "lbm_halo_fill",
-    "lbm_halo_fill_level",
-    "kernel_attributes",
-]
+__all__ = ["lbm_stream_collide", "lbm_stream_collide_halo", "lbm_halo_fill", "kernel_attributes"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 FILL_KINDS = {"same": 0, "coarse": 0, "fine": 1}
 _FILL_VALUES = 2
-_MAX_FILL_SEGMENTS = 4  # segments of one level fill launch (kMaxFillSegments)
 
 
 def _kernel_args(
@@ -219,64 +212,6 @@ def lbm_halo_fill(
       src_cell: (N,) int32 source cell, or (N, 8) for ``"fine"`` (the octet
                 in canonical order, averaged).
     """
-    N = _check_fill_segment(dst, src, kind, dst_slot, dst_cell, src_slot, src_cell)
-    if dst.device.type == "cpu":
-        halo_fill_ref(dst, src, kind, dst_slot, dst_cell, src_slot, src_cell)
-        return
-    if N == 0:
-        return
-    err = _library().lbm_halo_fill(
-        _DTYPE_CODE[dst.dtype], dst.shape[1], FILL_KINDS[kind], dst.data_ptr(), src.data_ptr(), N,
-        dst.shape[2] * dst.shape[3] * dst.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
-        src_slot.data_ptr(), src_cell.data_ptr(), None, _stream_ptr(dst.device),
-    )
-    _raise_on(err, "lbm_halo_fill")
-    lbm_halo_fill.launches += 1
-
-
-lbm_halo_fill.launches = 0
-
-
-def lbm_halo_fill_level(dst: torch.Tensor, segments) -> None:
-    """A level's whole ghost fill, every segment in one launch (up to four
-    segments a launch): the same rows, values and order of writes as
-    :func:`lbm_halo_fill` run segment by segment.
-
-    Args:
-      dst:      (B_dst, Q, X, Y, Z) destination level's pre-step PDFs.
-      segments: ``(src, kind, dst_slot, dst_cell, src_slot, src_cell)``
-                tuples, each one argument list of :func:`lbm_halo_fill`
-                after ``dst``.
-    """
-    segments = [s for s in segments if _check_fill_segment(dst, *s) > 0]
-    if dst.device.type == "cpu":
-        for seg in segments:
-            halo_fill_ref(dst, *seg)
-        return
-    lib = _library()
-    cells = dst.shape[2] * dst.shape[3] * dst.shape[4]
-    for k in range(0, len(segments), _MAX_FILL_SEGMENTS):
-        chunk = segments[k : k + _MAX_FILL_SEGMENTS]
-        c = len(chunk)
-
-        def ptrs(j):
-            return (ctypes.c_void_p * c)(*(s[j].data_ptr() for s in chunk))
-
-        err = lib.lbm_halo_fill_level(
-            _DTYPE_CODE[dst.dtype], dst.shape[1], dst.data_ptr(), cells, c,
-            (ctypes.c_longlong * c)(*(s[2].shape[0] for s in chunk)),
-            (ctypes.c_int * c)(*(FILL_KINDS[s[1]] for s in chunk)),
-            ptrs(0), ptrs(2), ptrs(3), ptrs(4), ptrs(5), _stream_ptr(dst.device),
-        )
-        _raise_on(err, "lbm_halo_fill_level")
-        lbm_halo_fill_level.launches += 1
-
-
-lbm_halo_fill_level.launches = 0
-
-
-def _check_fill_segment(dst, src, kind, dst_slot, dst_cell, src_slot, src_cell) -> int:
-    """Validate one fill segment's operands; returns its row count."""
     Q = dst.shape[1] if dst.dim() == 5 else -1
     _check_block_stack(dst, Q)
     if src.dim() != 5 or src.shape[1:] != dst.shape[1:] or src.dtype != dst.dtype:
@@ -294,9 +229,23 @@ def _check_fill_segment(dst, src, kind, dst_slot, dst_cell, src_slot, src_cell) 
     operands = (dst, src, dst_slot, dst_cell, src_slot, src_cell)
     if any(t.device != dst.device for t in operands):
         raise ValueError("the fill's operands must lie on one device")
-    if dst.device.type != "cpu" and not all(t.is_contiguous() for t in operands):
+    if dst.device.type == "cpu":
+        halo_fill_ref(dst, src, kind, dst_slot, dst_cell, src_slot, src_cell)
+        return
+    if not all(t.is_contiguous() for t in operands):
         raise ValueError("the fill's operands must be contiguous")
-    return N
+    if N == 0:
+        return
+    err = _library().lbm_halo_fill(
+        _DTYPE_CODE[dst.dtype], Q, FILL_KINDS[kind], dst.data_ptr(), src.data_ptr(), N,
+        dst.shape[2] * dst.shape[3] * dst.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
+        src_slot.data_ptr(), src_cell.data_ptr(), None, _stream_ptr(dst.device),
+    )
+    _raise_on(err, "lbm_halo_fill")
+    lbm_halo_fill.launches += 1
+
+
+lbm_halo_fill.launches = 0
 
 
 def lbm_stream_collide_halo(
@@ -376,7 +325,6 @@ def kernel_attributes() -> list[dict]:
     out = (ctypes.c_int * 5)()
     variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"))]
     variants += [("fill", 1, v, name) for v, name in ((0, "copy"), (1, "fine"), (_FILL_VALUES, "values"))]
-    variants += [("fill", 2, 0, "level")]
     for dtype, dcode in (("f32", 0), ("f64", 1)):
         for Q in (19, 27):
             for kernel, which, variant, name in variants:

@@ -15,7 +15,6 @@ import torch
 
 from repro_torch.kernels.lbm_collide.lbm_collide import (
     lbm_halo_fill,
-    lbm_halo_fill_level,
     lbm_stream_collide,
     lbm_stream_collide_halo,
 )
@@ -152,35 +151,6 @@ def test_fill_kernel_matches_plain_on_card(lattice, dtype):
                 halo_fill_ref(want, want if t.src == index[l] else bufs[t.src], *args)
                 torch.testing.assert_close(got, want, **TOL[dtype])
     assert kinds == {"same", "coarse", "fine"}
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("lattice", [D3Q19, D3Q27], ids=["d3q19", "d3q27"])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
-def test_level_fill_kernel_matches_plain_on_card(lattice, dtype):
-    """Every level fill of every branch in one launch (its segments mixed
-    ``same``/``coarse``/``fine``), against the plain version of each
-    segment in turn; bitwise in practice."""
-    _require_card()
-    forest, reg, arena = refined_forest(cells=(6, 4, 8))
-    index = {l: i for i, l in enumerate(arena.levels())}
-    bufs = random_buffers(np.random.default_rng(3), arena, lattice.Q, dtype, device="cuda")
-    mixed = 0
-    for fills in branch_fills(forest, reg, {l: arena.slots(l) for l in arena.levels()}):
-        for l, fill in fills.items():
-            tables = fill_tables(fill, index, "cuda")
-            mixed += len({t.kind for t in tables}) > 1
-            got, want = list(bufs), list(bufs)
-            got[index[l]], want[index[l]] = bufs[index[l]].clone(), bufs[index[l]].clone()
-            n0 = lbm_halo_fill_level.launches
-            lbm_halo_fill_level(got[index[l]], [
-                (got[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell) for t in tables])
-            torch.cuda.synchronize()
-            assert lbm_halo_fill_level.launches == n0 + 1
-            for t in tables:
-                halo_fill_ref(want[index[l]], want[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
-            torch.testing.assert_close(got[index[l]], want[index[l]], **TOL[dtype])
-    assert mixed > 0
 
 
 @pytest.mark.gpu

@@ -28,7 +28,6 @@ from repro.kernels.lbm_collide.ops import _lower_fill_gathers as jax_lower_fill_
 from repro.kernels.lbm_collide.ops import fused_stream_collide
 from repro_torch.kernels.lbm_collide.lbm_collide import (
     lbm_halo_fill,
-    lbm_halo_fill_level,
     lbm_stream_collide,
     lbm_stream_collide_halo,
 )
@@ -270,33 +269,6 @@ def test_fill_from_sources_matches_gather_and_scatter(scenario, dtype):
             assert j.dtype == dtype
             np.testing.assert_allclose(g.numpy(), j, **TOL[dtype])
     assert kinds == {"same", "fine", "coarse"}
-
-
-@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
-def test_level_fill_equals_the_fill_segment_by_segment(dtype):
-    """One call per level (the segment-table launch on the card) writes the
-    same bits as one call per segment, for every branch of a three-level
-    forest; a malformed segment is refused before anything is written."""
-    forest, reg, arena = refined_forest()
-    levels = arena.levels()
-    index = {l: i for i, l in enumerate(levels)}
-    bufs = random_buffers(np.random.default_rng(4), arena, D3Q19.Q, dtype)
-    for fills in branch_fills(forest, reg, {l: arena.slots(l) for l in levels}):
-        want = _from_sources(bufs, fills, index)
-        got = [b.clone() for b in bufs]
-        for l, f in fills.items():
-            lbm_halo_fill_level(got[index[l]], [
-                (got[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
-                for t in fill_tables(f, index, "cpu")])
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g.numpy(), w.numpy())
-    t0 = fill_tables(fills[levels[-1]], index, "cpu")[0]
-    before = got[index[levels[-1]]].clone()
-    with pytest.raises(ValueError, match="unknown fill segment kind"):
-        lbm_halo_fill_level(got[index[levels[-1]]], [
-            (got[t0.src], t0.kind, t0.dst_slot, t0.dst_cell, t0.src_slot, t0.src_cell),
-            (got[t0.src], "nearest", t0.dst_slot, t0.dst_cell, t0.src_slot, t0.src_cell)])
-    np.testing.assert_array_equal(got[index[levels[-1]]].numpy(), before.numpy())
 
 
 def test_fill_tables_are_sorted_ghost_targets_from_interior_sources():

@@ -13,28 +13,44 @@ finding per line:
    copy/fine/values fills), registers, local (spill) bytes, shared memory
    and theoretical occupancy. The f32 D3Q19 TRT stencil must keep at least
    50 % occupancy, and no instantiation may spill to local memory.
-2. main path, the "full cavity": ``AMRLBM(LidDrivenCavityConfig(...)).run``
+2. main paths, the "full cavity": ``AMRLBM(LidDrivenCavityConfig(...)).run``
    on the hand-written kernels, D3Q19 TRT f32, 32^3 cells a block (34^3
-   with the ghost layer), 4^3 roots, up to level 2, 12 coarse steps with
-   AMR every 4, first in ``fused`` mode (every level's ghost fill from its
-   sources, then every level's stencil, each substep), then in ``arena``
-   mode (the stencil kernel). Launch counts are zeroed just before each run
-   and read just after. Prints blocks per level, peak device memory, coarse
-   steps/s, MLUPS, mass drift, the fused run's steady-state transfers, and
-   the ``torch.profiler`` breakdown of a steady fused step, which must hold
-   no index gather, no ``cat`` and one fill launch per (level, segment) a
-   substep. Then the superstep's rebuild after an AMR event, timed piece by
-   piece (ghost plans, merged fills, disjointness checks, fill tables).
+   with the ghost layer), 4^3 roots, up to level 2, 4 ranks, 12 coarse
+   steps with AMR every 4, in ``fused`` mode (every level's ghost fill from
+   its sources, then every level's stencil, each substep), in ``arena``
+   mode (the stencil kernel) and in ``fused_sharded`` mode (per rank: the
+   emit gathers, the local fills from sources, the inbound messages through
+   the fill's ``values`` kind, and the stencil over the interior, then the
+   boundary slot list). Launch counts are zeroed just before each run and
+   read just after. Prints blocks per level (and per rank), peak device
+   memory, coarse steps/s, MLUPS, mass drift and the device modes'
+   steady-state transfers (must be 0/0). ``fused_sharded`` must grow the
+   forest ``fused`` grows at every AMR event and end with every block's
+   interior bitwise equal to ``fused``'s. ``torch.profiler`` breakdowns of
+   2 steady coarse steps: ``fused`` must hold no index gather, no ``cat``
+   and one fill launch per (level, segment) a substep; ``fused_sharded``
+   no scatter, the fill launches by kind its programs count, the slot-list
+   stencil, and its ``Comm`` bytes and messages per substep. Then the fused
+   superstep's rebuild after an AMR event, timed piece by piece. Then the
+   tracers: ``fused_sharded`` with 256 tracers a root block (16,384), 8
+   coarse steps with AMR every 4; count and ids must be conserved; prints
+   the particles stage's seconds and the host<->device bytes of each tracer
+   step.
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
-   the stencil; the padded-slab form once. Then small D3Q27 / BGK / f64 /
-   odd-extent cases for the stencil and every fill segment kind (``same``,
-   ``coarse``, ``fine``) in f32/f64 x D3Q19/D3Q27. Max error, kernel time,
-   plain time and the bound.
-4. cross-check at a smaller depth: ``restack``, ``arena`` and ``fused`` on
-   the kernels and ``fused`` on the plain versions grow the same forest and
-   agree on the interior fields.
+   the stencil; the padded-slab form once; the stencil over a real rank's
+   boundary slot list (bitwise the whole-stack kernel's blocks); the
+   ``values`` fill of a real rank message segment (bitwise the plain
+   scatter). Then small D3Q27 / BGK / f64 / odd-extent cases for the
+   stencil and every fill segment kind (``same``, ``coarse``, ``fine``) in
+   f32/f64 x D3Q19/D3Q27. Max error, kernel time, plain time and the bound.
+4. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
+   ``sharded`` and ``fused_sharded`` on the kernels and ``fused`` and
+   ``fused_sharded`` on the plain versions grow the same forest and agree
+   on the interior fields; ``restack`` and ``fused_sharded`` with 24
+   tracers a block under the lid agree on every tracer's position within
+   1e-10.
 5. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -47,6 +63,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -70,6 +87,10 @@ FULL_CAVITY = dict(
     **PHYSICS,
 )
 CROSS_CHECK = dict(cells_per_block=(32, 32, 32), root_grid=(2, 2, 2), max_level=1, nranks=4, **PHYSICS)
+# the full cavity's tracers: 256 a root block, the non-quick size of the
+# JAX package's particles benchmark; the cross-check's, as its particle legs
+TRACERS_FULL = dict(per_block=256, seed=0, alpha=0.05, boundary="reflect")
+TRACERS_CROSS = dict(per_block=24, seed=1, alpha=0.05, region=((0.0, 0.0, 1.7), (2.0, 2.0, 2.0)))
 KERNEL1_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:212"
 KERNEL2_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:248"
 KERNEL_SOURCE = "src/repro_torch/kernels/lbm_collide/csrc/lbm_collide.cu"
@@ -167,6 +188,7 @@ def main() -> int:
         lbm_halo_fill,
         lbm_stream_collide,
         lbm_stream_collide_halo,
+        reset_launches,
     )
     from repro_torch.kernels.lbm_collide.ops import (
         _assert_fills_disjoint,
@@ -174,7 +196,9 @@ def main() -> int:
         _lower_fill_gathers,
         _pad_fill_layout,
         _same_fill,
+        boundary_slot_sets,
         fill_tables,
+        make_stream_collide,
     )
     from repro_torch.kernels.lbm_collide.ref import (
         collision_coeffs,
@@ -187,8 +211,13 @@ def main() -> int:
     from repro_torch.lbm.forests import refined_forest
     from repro_torch.lbm.halo import compile_ghost_plan, lower_halo_fill
     from repro_torch.lbm.lattice import D3Q19, D3Q27, omega_for_level
+    from repro_torch.particles import ParticlesConfig, all_particles
 
-    counters = (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)
+    def launch_counts() -> dict:
+        out = {fn.__name__: fn.launches for fn in (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)}
+        out["lbm_stream_collide[slots]"] = lbm_stream_collide.slot_launches
+        out.update({f"lbm_halo_fill[{k}]": n for k, n in lbm_halo_fill.kind_launches.items()})
+        return out
     card = card_line()
     say("card:", card)
     say(
@@ -222,46 +251,62 @@ def main() -> int:
     main_fills = [r for r in attrs if r["kernel"] == "fill" and r["dtype"] == "f32" and r["Q"] == 19
                   and r["variant"] in ("copy", "fine")]
 
-    # -- 2. main path: the full cavity, fused and arena --------------------------
+    # -- 2. main paths: the full cavity, fused, arena and fused_sharded -----------
+    def blocks_per_level(sim) -> dict:
+        return dict(sorted(Counter(b.level for b in sim.forest.all_blocks()).items()))
+
+    def blocks_per_rank(sim) -> dict:
+        per = {}
+        for b in sim.forest.all_blocks():
+            per.setdefault(b.owner, Counter())[b.level] += 1
+        return {r: dict(sorted(c.items())) for r, c in sorted(per.items())}
+
+    def forest_of(sim) -> set:
+        return {(b.bid, b.level, b.owner) for b in sim.forest.all_blocks()}
+
+    def transfers_of(sim) -> tuple[int, int]:
+        res_ = sim.engine.residencies()
+        return sum(r.h2d_transfers for r in res_), sum(r.d2h_transfers for r in res_)
+
     def drive_cavity(mode: str):
         """``AMRLBM(cfg).run(12, amr_interval=4)``, unrolled so each coarse
         step and AMR event is timed; launch counts zeroed just before and
-        read just after."""
+        read just after. Peak memory is counted above what was allocated
+        before the run (an earlier run's simulation stays resident)."""
         cfg = LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **FULL_CAVITY)
         say(f"[{mode}] main path config:",
             json.dumps({k: v for k, v in vars(cfg).items() if k != "obstacle_fn"}))
         torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters:
-            fn.launches = 0
+        reset_launches()
         t_main = time.perf_counter()
         sim = AMRLBM(cfg)
         check(sim.device.type == "cuda", "the main path runs on the card")
         mass0 = sim.total_mass()
-        step_s, amr_s, transfers, levels_at = [], [], [], []
+        step_s, amr_s, transfers, levels_at, comm_at, forests = [], [], [], [], [], []
         for i in range(12):
-            levels_at.append({l: sim.arena.num_blocks(l) for l in sim.arena.levels()})
-            if mode == "fused":
-                res = sim.arena.device()
-                transfers.append((res.h2d_transfers, res.d2h_transfers))
+            levels_at.append(blocks_per_level(sim))
+            transfers.append(transfers_of(sim))
+            comm_at.append(sim.comm.stats.summary())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sim.advance(1)  # fused: ends in a device synchronize; arena: copies back
+            sim.advance(1)  # device modes: ends in a device synchronize; arena: copies back
             step_s.append(time.perf_counter() - t0)
             if (i + 1) % 4 == 0:
                 t0 = time.perf_counter()
                 sim.adapt()
                 amr_s.append(time.perf_counter() - t0)
-        if mode == "fused":
-            res = sim.arena.device()
-            transfers.append((res.h2d_transfers, res.d2h_transfers))
+                forests.append(forest_of(sim))
+        transfers.append(transfers_of(sim))
+        comm_at.append(sim.comm.stats.summary())
         mass1 = sim.total_mass()
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t_main
-        launches = {fn.__name__: fn.launches for fn in counters}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = launch_counts()
+        peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
         # steady state: steps 10 and 11 (step 9 follows the second AMR event:
-        # in fused mode it uploads and builds the superstep; step 12 is
+        # the device modes upload and build their programs there; step 12 is
         # followed by an AMR event)
         steady = range(9, 11)
         steady_s = sum(step_s[i] for i in steady)
@@ -271,8 +316,8 @@ def main() -> int:
         cells = int(np.prod(cfg.cells_per_block))
         updates = sum(n * cells * 2**l for l, n in forest_steady.items())
         say(f"[{mode}] blocks per level during steps 9-12:", json.dumps(forest_steady))
-        say(f"[{mode}] blocks per level after step 12:",
-            json.dumps({l: sim.arena.num_blocks(l) for l in sim.arena.levels()}))
+        say(f"[{mode}] blocks per level after step 12:", json.dumps(blocks_per_level(sim)))
+        say(f"[{mode}] blocks per rank and level after step 12:", json.dumps(blocks_per_rank(sim)))
         say(f"[{mode}] peak device memory: {peak_gb:.3f} GB")
         say(f"[{mode}] coarse step wall times (s):", json.dumps([round(t, 4) for t in step_s]))
         say(f"[{mode}] AMR event wall times (s):", json.dumps([round(t, 3) for t in amr_s]))
@@ -285,25 +330,46 @@ def main() -> int:
         drift = abs(mass1 - mass0) / mass0
         say(f"[{mode}] mass: {mass0:.6f} -> {mass1:.6f}, relative drift {drift:.3e} (limit 1e-5)")
         check(drift <= 1e-5, "mass drift within 1e-5 relative")
-        if mode == "fused":
+        if mode != "arena":
             t_a, t_b = transfers[steady.start], transfers[steady.stop]
             say(f"[{mode}] steady-state h2d/d2h transfers over steps 10-11: "
                 f"{t_b[0] - t_a[0]}/{t_b[1] - t_a[1]}")
             check(t_a == t_b, "zero host<->device transfers in steady state")
+        if mode == "fused_sharded":
+            c_a, c_b = comm_at[steady.start], comm_at[steady.stop]
+            nsub = len(steady) * 2 ** max(forest_steady)
+            say(f"[{mode}] Comm p2p traffic over steps 10-11: "
+                f"{(c_b['p2p_bytes'] - c_a['p2p_bytes']) / nsub:.0f} bytes and "
+                f"{(c_b['p2p_messages'] - c_a['p2p_messages']) / nsub:.1f} messages per substep "
+                f"({nsub} substeps), {c_b['collective_bytes_per_rank'] - c_a['collective_bytes_per_rank']} "
+                f"collective bytes per rank")
         say(f"[{mode}] kernel launches:", json.dumps(launches))
         sim.materialize_host()
         for b in sim.forest.all_blocks():
             check(bool(np.isfinite(sim.spec.interior(b.data["pdf"])).all()), "finite interior pdfs")
-        return sim, launches
+        return sim, launches, forests
 
     # fused: every level's fill from its sources, then every level's stencil;
-    # arena: the stencil alone, with a host round trip every substep
-    sim, fused_launches = drive_cavity("fused")
+    # arena: the stencil alone, with a host round trip every substep;
+    # fused_sharded: the same kernels per rank, with device-built messages
+    sim, fused_launches, fused_forests = drive_cavity("fused")
     check(fused_launches["lbm_halo_fill"] > 0, "the fill kernel launched on the fused path")
     check(fused_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the fused path")
-    _arena_sim, arena_launches = drive_cavity("arena")
+    _arena_sim, arena_launches, _ = drive_cavity("arena")
     check(arena_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the arena path")
     del _arena_sim
+    fs, fs_launches, fs_forests = drive_cavity("fused_sharded")
+    check(fs.engine.split, "fused_sharded splits interior and boundary blocks on the card")
+    for key in ("lbm_stream_collide", "lbm_stream_collide[slots]", "lbm_halo_fill[copy]",
+                "lbm_halo_fill[fine]", "lbm_halo_fill[values]"):
+        check(fs_launches[key] > 0, f"{key} launched on the fused_sharded path")
+    check(fs_forests == fused_forests, "fused_sharded grew the fused forest at every AMR event")
+    fused_blocks = {b.bid: b for b in sim.forest.all_blocks()}
+    for b in fs.forest.all_blocks():
+        check(np.array_equal(fs.spec.interior(b.data["pdf"]), sim.spec.interior(fused_blocks[b.bid].data["pdf"])),
+              f"block {b.bid:#x}: fused_sharded interior bitwise equal to fused's")
+    say(f"[fused_sharded] forest equal to fused's after each of {len(fs_forests)} AMR events; "
+        f"all {len(fused_blocks)} block interiors bitwise equal to fused's after step 12")
     cfg = sim.cfg
     res = sim.arena.device()
 
@@ -377,6 +443,89 @@ def main() -> int:
         f"{len(plans)} patterns {plans_s:.3f} s, merged fills {lower_s:.3f} s, disjointness checks "
         f"{disjoint_s:.3f} s, fill tables of all {n_fills} (pattern, level) fills {tables_s:.3f} s "
         f"(the build makes tables for the {len(distinct)} distinct ones)")
+
+    # where a steady fused_sharded coarse step spends device time: stencils
+    # (whole and slot list), fills by kind, and the emit gathers
+    fs.advance(1)  # the rank programs are rebuilt after the last AMR event
+    progs = fs.engine._programs()
+    fill_expect = sum(  # fill launches a coarse step, as the rank programs count them
+        fn.fill_segments for p in progs.pattern for table in (progs.absorbs, progs.interiors, progs.boundaries)
+        for fn in table[p].values()
+    )
+    values_expect = sum(len(m.scatter) for p in progs.pattern for r in progs.ranks for m in progs.recvs[p][r])
+    torch.cuda.synchronize()
+    c0 = fs.comm.stats.summary()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fs.advance(2)  # ends in a device synchronize
+        fs_wall_ms = (time.perf_counter() - t0) * 1e3
+    c1 = fs.comm.stats.summary()
+    fs_rows = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    fs_busy_ms = sum(r[1] for r in fs_rows)
+    say(f"[fused_sharded] profile of 2 steady coarse steps: device busy {fs_busy_ms:.3f} ms of "
+        f"{fs_wall_ms:.3f} ms wall, idle share {1 - fs_busy_ms / fs_wall_ms:.1%}")
+    for name, ms, count in fs_rows[:14]:
+        say(f"  {ms:9.3f} ms {ms / fs_busy_ms:6.1%} x{count:<5d} {name[:110]}")
+    groups = Counter()
+    group_ms = Counter()
+    for name, ms, count in fs_rows:
+        m_fill = re.search(r"halo_fill_kernel<[^,>]+, *\d+, *(\d)>", name)
+        m_sten = re.search(r"stream_collide_kernel<[^,>]+, *\d+, *(?:true|false), *(true|false)>", name)
+        if m_fill:
+            key = "fill " + ("copy", "fine", "values")[int(m_fill.group(1))]
+        elif m_sten:
+            key = "stencil" + (" (slot list)" if m_sten.group(1) == "true" else "")
+        else:
+            key = "emit gathers and other"
+        groups[key] += count
+        group_ms[key] += ms
+    for key in sorted(groups):
+        say(f"[fused_sharded] {key}: {groups[key]} launches, {group_ms[key]:.3f} ms in 2 steady coarse steps")
+    nsub2 = 2 * progs.nsub
+    say(f"[fused_sharded] Comm during the profile: {(c1['p2p_bytes'] - c0['p2p_bytes']) / nsub2:.0f} bytes, "
+        f"{(c1['p2p_messages'] - c0['p2p_messages']) / nsub2:.1f} messages per substep")
+    banned = [r[0] for r in fs_rows if re.search(r"scatter|index_put", r[0], re.IGNORECASE)]
+    check(not banned, f"no index scatter in the steady fused_sharded step: {banned}")
+    fills_seen = sum(groups[k] for k in groups if k.startswith("fill"))
+    check(fills_seen == 2 * fill_expect, f"fill launches {fills_seen} == the programs' count {2 * fill_expect}")
+    check(groups["fill values"] == 2 * values_expect, "one values fill per inbound message segment")
+    check(groups["stencil (slot list)"] > 0, "the slot-list stencil ran in the steady fused_sharded step")
+
+    # the tracers: the full cavity in fused_sharded with 16,384 tracers
+    tcfg = LidDrivenCavityConfig(stepping_mode="fused_sharded", kernel_backend="cuda",
+                                 particles=ParticlesConfig(**TRACERS_FULL), **FULL_CAVITY)
+    reset_launches()
+    t_tr = time.perf_counter()
+    ts = AMRLBM(tcfg)
+    ids0 = all_particles(ts.forest)["id"]
+    check(ids0.size == 64 * TRACERS_FULL["per_block"], f"{ids0.size} tracers seeded")
+    stage_s, moved_b, step_s = [], [], []
+    for i in range(8):
+        sec0, bytes0 = ts.data_stats["particles"].seconds, dict(ts.particle_transfer_bytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts.advance(1)
+        step_s.append(time.perf_counter() - t0)
+        stage_s.append(ts.data_stats["particles"].seconds - sec0)
+        moved_b.append({k: ts.particle_transfer_bytes[k] - bytes0[k] for k in bytes0})
+        if (i + 1) % 4 == 0:
+            ts.adapt()
+    ids1 = all_particles(ts.forest)["id"]
+    check(ts.total_particles() == ids0.size, "tracer count conserved")
+    check(np.array_equal(np.sort(ids1), np.sort(ids0)), "tracer id set conserved")
+    tracer_launches = launch_counts()
+    say(f"[tracers] fused_sharded, {ids0.size} tracers ({TRACERS_FULL}), 8 coarse steps with AMR every 4: "
+        f"{time.perf_counter() - t_tr:.2f} s; blocks per level after: {json.dumps(blocks_per_level(ts))}")
+    say("[tracers] coarse step wall times (s):", json.dumps([round(t, 4) for t in step_s]))
+    say("[tracers] particles stage seconds per coarse step:", json.dumps([round(t, 4) for t in stage_s]))
+    say("[tracers] h2d/d2h bytes per tracer step:", json.dumps([[b["h2d"], b["d2h"]] for b in moved_b]))
+    say(f"[tracers] advected {ts.particles_advected}, moved {ts.particles_moved} across blocks; "
+        f"count and id set conserved; kernel launches {json.dumps(tracer_launches)}")
+    del ts
 
     # -- 3. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
@@ -501,6 +650,92 @@ def main() -> int:
         f"{slab_bound_ms / slab_ms:.1%} of bound")
     del f_slab, hv, vals, work, plain_work
 
+    # the rank-sharded routes, from the fused_sharded run's real state: the
+    # stencil over a rank's boundary slot list at the finest level, and the
+    # values fill of its largest inbound message segment
+    fs_progs = fs.engine._programs()
+    p_all = fs_progs.pattern[0]  # substep 0 activates every level
+    fs_res = {r: fs.arenas.per_rank[r].device() for r in fs_progs.ranks}
+    fs_pdfs = {r: tuple(fs_res[r].fetch(l, "pdf") for l in fs_progs.rank_levels[r]) for r in fs_progs.ranks}
+
+    def boundary_slots(r):
+        masks_r = {l: fs_res[r].fetch(l, "mask") for l in fs_progs.rank_levels[r]}
+        return sorted(boundary_slot_sets(fs_progs.recvs[p_all][r], masks_r).get(lmax, ()))
+
+    r_s = max(fs_progs.ranks, key=lambda r: len(boundary_slots(r)) if lmax in fs_progs.rank_levels[r] else -1)
+    i_s = fs_progs.rank_levels[r_s].index(lmax)
+    f_r, m_r = fs_pdfs[r_s][i_s], fs_res[r_s].fetch(lmax, "mask")
+    slots_np = np.asarray(boundary_slots(r_s), dtype=np.int32)
+    check(0 < slots_np.size < f_r.shape[0], f"rank {r_s} holds boundary and interior blocks at level {lmax}")
+    slots_t = torch.as_tensor(slots_np, device="cuda")
+    idx_t = slots_t.long()
+    kw = kw_l[lmax]
+    out_s = torch.zeros_like(f_r)
+    lbm_stream_collide(f_r, m_r, slots=slots_t, out=out_s, **kw)
+    whole = lbm_stream_collide(f_r, m_r, **kw)
+    plain_step = make_stream_collide(backend="ref", **kw)
+    plain_out = plain_step(f_r, m_r, slots=slots_t, out=torch.zeros_like(f_r))
+    torch.cuda.synchronize()
+    ks_bitwise = max_err(out_s[idx_t], whole[idx_t])
+    check(ks_bitwise == 0.0, f"slot-list stencil equals the whole-stack kernel on its blocks ({ks_bitwise})")
+    rest = torch.ones(f_r.shape[0], dtype=torch.bool, device="cuda")
+    rest[idx_t] = False
+    check(not out_s[rest].any(), "the slot-list stencil leaves unlisted blocks alone")
+    ks_err = max_err(out_s[idx_t], plain_out[idx_t])
+    torch.testing.assert_close(out_s[idx_t], plain_out[idx_t], **TOL[torch.float32])
+    del whole, plain_out
+    ks_ms = time_ms(lambda: lbm_stream_collide(f_r, m_r, slots=slots_t, out=out_s, **kw), iters=30)
+    ks_plain_ms = time_ms(lambda: plain_step(f_r, m_r, slots=slots_t, out=out_s), iters=3, warmup=1)
+    ks_bound_ms, ks_by = stencil_bound_ms(f_r[idx_t], m_r[idx_t], cfg.collision, extra_bytes=slots_t.numel() * 4)
+    say(f"lbm_stream_collide[slots] rank {r_s} level {lmax}: {slots_np.size} boundary slots of {f_r.shape[0]} "
+        f"blocks: max |err| {ks_bitwise:.1e} against the whole-stack kernel, {ks_err:.3e} against plain; "
+        f"kernel {ks_ms:.4f} ms, plain {ks_plain_ms:.4f} ms, bound {ks_bound_ms:.4f} ms ({ks_by}), "
+        f"{ks_bound_ms / ks_ms:.1%} of bound")
+
+    # the largest inbound message segment of the pattern that activates all
+    # levels, built by the sender's emit from the real state
+    best = None
+    for r in fs_progs.ranks:
+        for m in fs_progs.recvs[p_all][r]:
+            off = 0
+            for dl, db, dc, n in m.scatter:
+                if best is None or n > best[-1]:
+                    best = (r, m, dl, db, dc, off, n)
+                off += n
+    r_v, m_v, dl_v, db_v, dc_v, off_v, n_v = best
+    sends = fs_progs.sends[p_all][m_v.src_rank]
+    payload = fs_progs.emits[p_all][m_v.src_rank](fs_pdfs[m_v.src_rank])[
+        next(i for i, m in enumerate(sends) if m is m_v)]
+    seg = payload[off_v: off_v + n_v]
+    check(seg.is_contiguous() and seg.shape == (n_v, lattice.Q), f"message segment {tuple(seg.shape)}")
+    ds_t = torch.as_tensor(np.asarray(db_v, np.int32), device="cuda")
+    dc_t = torch.as_tensor(np.asarray(dc_v, np.int32), device="cuda")
+    dst0 = fs_pdfs[r_v][fs_progs.rank_levels[r_v].index(dl_v)]
+    got, want = dst0.clone(), dst0.clone()
+    lbm_halo_fill(got, seg, "values", ds_t, dc_t)
+    halo_fill_ref(want, seg, "values", ds_t, dc_t)
+    torch.cuda.synchronize()
+    kv_err = max_err(got, want)
+    check(kv_err == 0.0, f"values fill equals the plain scatter bitwise ({kv_err})")
+    ds_l, dc_l = ds_t.long(), dc_t.long()
+
+    def library_values():
+        got.view(got.shape[0], lattice.Q, -1).transpose(1, 2).index_put_((ds_l, dc_l), seg)
+
+    library_values()
+    torch.cuda.synchronize()
+    check(max_err(got, want) == 0.0, "index_put_ computes the values fill's function")
+    kv_ms = time_ms(lambda: lbm_halo_fill(got, seg, "values", ds_t, dc_t), iters=50)
+    kv_plain_ms = time_ms(lambda: halo_fill_ref(got, seg, "values", ds_t, dc_t), iters=20)
+    kv_library_ms = time_ms(library_values, iters=20)
+    kv_bytes = 2 * seg.numel() * seg.element_size() + 2 * n_v * 4
+    kv_bound_ms = kv_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"lbm_halo_fill[values] message {m_v.src_rank}->{r_v} segment to level {dl_v}: {n_v} rows of the "
+        f"{m_v.num_cells}-row payload: max |err| {kv_err:.1e}; kernel {kv_ms:.4f} ms, plain {kv_plain_ms:.4f} ms, "
+        f"index_put_ {kv_library_ms:.4f} ms, bound {kv_bound_ms:.5f} ms ({kv_bytes} bytes), "
+        f"{kv_bound_ms / kv_ms:.1%} of bound")
+    del got, want, payload, seg, out_s, fs_pdfs
+
     # small cases: stencil and slab form at D3Q27 / BGK / f64 / odd extents
     rng = np.random.default_rng(0)
     for lat, coll, dtype, shape in (
@@ -570,7 +805,8 @@ def main() -> int:
 
     # -- 4. cross-check at a smaller depth ----------------------------------------
     runs = {}
-    for mode, backend in (("restack", "cuda"), ("arena", "cuda"), ("fused", "cuda"), ("fused", "ref")):
+    for mode, backend in (("restack", "cuda"), ("arena", "cuda"), ("fused", "cuda"), ("fused", "ref"),
+                          ("sharded", "cuda"), ("fused_sharded", "cuda"), ("fused_sharded", "ref")):
         t0 = time.perf_counter()
         s = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, kernel_backend=backend, **CROSS_CHECK))
         s.run(8, amr_interval=4)
@@ -593,26 +829,68 @@ def main() -> int:
             r = torch.from_numpy(np.concatenate([s.spec.interior(rho_r)[None], s.spec.interior(u_r)]))
             torch.testing.assert_close(a, r, **TOL[torch.float32])
             worst = max(worst, max_err(a, r))
-    say(f"cross-check: restack/arena/fused on the kernels and fused on the plain versions agree: "
-        f"same forest, interior rho/u max |diff| {worst:.3e} (rtol 3e-5, atol 3e-6)")
+    say(f"cross-check: restack/arena/fused/sharded/fused_sharded on the kernels and fused/fused_sharded on "
+        f"the plain versions agree: same forest, interior rho/u max |diff| {worst:.3e} (rtol 3e-5, atol 3e-6)")
+    del runs, ref, ref_blocks
+
+    tracer_runs = {}
+    for mode in ("restack", "fused_sharded"):
+        t0 = time.perf_counter()
+        s = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda",
+                                         particles=ParticlesConfig(**TRACERS_CROSS), **CROSS_CHECK))
+        n0 = s.total_particles()
+        s.run(8, amr_interval=4)
+        check(s.amr_cycles >= 1 and s.total_particles() == n0 > 0, f"{mode} with tracers conserves {n0}")
+        tracer_runs[mode] = s
+        say(f"cross-check {mode}/cuda with {n0} tracers: moved {s.particles_moved}, "
+            f"{time.perf_counter() - t0:.2f} s")
+    a, b = (tracer_runs[m] for m in ("restack", "fused_sharded"))
+    check(forest_of(a) == forest_of(b), "restack and fused_sharded with tracers grew the same forest")
+    pa, pb = all_particles(a.forest), all_particles(b.forest)
+    check(np.array_equal(pa["id"], pb["id"]), "the same tracer ids")
+    tr_err = float(np.abs(pa["pos"] - pb["pos"]).max())
+    check(tr_err <= 1e-10, f"tracer positions by id within 1e-10 ({tr_err:.3e})")
+    say(f"cross-check tracers: restack and fused_sharded agree on {pa['id'].size} tracers, "
+        f"max |position diff| {tr_err:.3e} (limit 1e-10)")
 
     # -- 5. the kernels line and the result -------------------------------------
+    by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches}
+
+    def path_launches(key):
+        return {path: counts[key] for path, counts in by_path.items()}
+
     kernels = [
         dict(name="lbm_stream_collide", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
-             launches=fused_launches["lbm_stream_collide"], max_abs_err=k1_err, ms=k1_ms,
+             launches=fused_launches["lbm_stream_collide"], launches_by_path=path_launches("lbm_stream_collide"),
+             max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by, library_ms=None,
              registers=main_stencil["registers"], spills=main_stencil["local_bytes"],
              occupancy=main_stencil["occupancy"], shape="B=64 34^3 D3Q19 TRT f32"),
         # the halo kernel's work on the card: the from-sources fill of every
         # segment (launches: lbm_halo_fill) followed by the stencil
         dict(name="lbm_stream_collide_halo", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=fused_launches["lbm_halo_fill"], max_abs_err=k2_err, ms=k2_ms,
+             launches=fused_launches["lbm_halo_fill"], launches_by_path=path_launches("lbm_halo_fill"),
+             max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None,
              registers=max(r["registers"] for r in main_fills),
              spills=max(r["local_bytes"] for r in main_fills),
              entry="lbm_halo_fill (from sources) then lbm_stream_collide",
              shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32",
              fill_ms=fill_ms, fill_bound_ms=fill_bound_ms, slab_form_ms=slab_ms),
+        # the rank-sharded routes of the same two kernels on the
+        # fused_sharded path: the stencil over a slot list (interior and
+        # boundary halves), and the fill's values kind for inbound messages
+        dict(name="lbm_stream_collide[slots]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
+             launches=fs_launches["lbm_stream_collide[slots]"],
+             launches_by_path=path_launches("lbm_stream_collide[slots]"), max_abs_err=ks_err,
+             max_abs_err_whole_stack=ks_bitwise, ms=ks_ms, plain_ms=ks_plain_ms, bound_ms=ks_bound_ms,
+             bound_by=ks_by, library_ms=None,
+             shape=f"rank {r_s} level {lmax}: {slots_np.size} of {f_r.shape[0]} blocks, D3Q19 TRT f32"),
+        dict(name="lbm_halo_fill[values]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
+             launches=fs_launches["lbm_halo_fill[values]"], launches_by_path=path_launches("lbm_halo_fill[values]"),
+             max_abs_err=kv_err, ms=kv_ms, plain_ms=kv_plain_ms, bound_ms=kv_bound_ms, bound_by="bytes",
+             library_ms=kv_library_ms, library="Tensor.index_put_",
+             shape=f"message {m_v.src_rank}->{r_v}, {n_v} rows x {lattice.Q} f32 into level {dl_v}"),
     ]
     say("card:", card_line())
     print(json.dumps({"kernels": kernels}))

@@ -33,9 +33,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    # dtype, Q, trt, f, mask, out, B, X, Y, Z, om_a, om_b, lid, stream
+    # dtype, Q, trt, f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b,
+    # lid, stream
     "lbm_stream_collide": (
-        _I, _I, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _D, _D, _P, _P,
+        _I, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _D, _D, _P, _P,
     ),
     # dtype, Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot,
     # src_cell, valid, stream

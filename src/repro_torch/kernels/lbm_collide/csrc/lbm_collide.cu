@@ -43,6 +43,11 @@
 //     unrolled loops. The collision
 //     coefficients (om, or om_p/om_m, and the lid vector) arrive as kernel
 //     arguments, already rounded to the working type on the host.
+//   * A slot list (the SLOTS instantiations) lets one launch step a subset
+//     of a stack's blocks in place of a gathered sub-stack: grid z indexes
+//     the list, and block slots[z] of f is read and of out written. The
+//     rank-sharded engine steps its interior blocks, then its boundary
+//     blocks, into one output tensor this way.
 //
 // Fill design: the TPU kernel took a padded (B, P, Q) slab of ghost values
 // a block, because one grid step owned one block. On the card that slab is
@@ -54,7 +59,9 @@
 //     "fine" rows sum the 8 octet cells in canonical order and multiply by
 //     1/8 with round-to-nearest intrinsics (nothing contracted or
 //     reordered: bitwise the plain version's arithmetic), "values" rows read
-//     a row of an (N, Q) array (the slab interface);
+//     a row of an (N, Q) array (the slab interface, where a valid byte a row
+//     skips the pad rows, and a rank's inbound halo message, where the
+//     valid array is null and every row is written);
 //   * it writes into the ghost ring of the destination buffer in place. A
 //     fill racing a stencil's read would be wrong, so the launch boundary
 //     orders them; fill targets are ghost cells and fill sources interior
@@ -170,12 +177,14 @@ __device__ __forceinline__ T trt(T fq, T fo, T feq, T feo, T om_p, T om_m) {
   return fq - om_p * (f_p - fe_p) - om_m * (f_m - fe_m);
 }
 
-// blockDim = (TZ, TY); grid = (tiles_y * tiles_z, X, B).
-template <typename T, int Q, bool TRT>
+// blockDim = (TZ, TY); grid = (tiles_y * tiles_z, X, B), or (..., X, S) over
+// a slot list of S entries, each in [0, nblocks) (checked; others step
+// nothing).
+template <typename T, int Q, bool TRT, bool SLOTS>
 __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
     stream_collide_kernel(const T* __restrict__ f, const int32_t* __restrict__ mask,
-                          T* __restrict__ out, int X, int Y, int Z, int tiles_z,
-                          Coefs<T, Q> k) {
+                          T* __restrict__ out, const int32_t* __restrict__ slots,
+                          int nblocks, int X, int Y, int Z, int tiles_z, Coefs<T, Q> k) {
   __shared__ uint8_t tile[kMaskTile];
   const int TZ = blockDim.x;
   const int TY = blockDim.y;
@@ -184,7 +193,11 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   const int y0 = ty_tile * TY;
   const int x = blockIdx.y;
   const int n = X * Y * Z;  // the wrapper checks that it fits 31 bits
-  const int64_t b = blockIdx.z;
+  int64_t b = blockIdx.z;
+  if (SLOTS) {
+    b = slots[blockIdx.z];
+    if (b < 0 || b >= nblocks) return;  // uniform over the CTA
+  }
   const T* __restrict__ fb = f + b * Q * n;
   const int32_t* __restrict__ mb = mask + b * n;
   T* __restrict__ ob = out + b * Q * n;
@@ -329,7 +342,8 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 // dst_cell[i] of block dst_slot[i]. Its value comes, by KIND, from cell
 // src_cell[i] of block src_slot[i] of src (copy), from the mean of the 8
 // cells src_cell[i, 0..7] of block src_slot[i] (fine), or from row i of an
-// (N, Q) array src, skipped where valid[i] is 0 (values). dst and src may be
+// (N, Q) array src, skipped where valid[i] is 0 unless valid is null
+// (values). dst and src may be
 // the same buffer: sources are interior cells, targets ghost cells, so no
 // location is both read and written.
 template <typename T, int Q, int KIND>
@@ -340,7 +354,7 @@ __global__ void __launch_bounds__(kThreads)
                      const uint8_t* __restrict__ valid) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (row >= rows) return;
-  if (KIND == kFillValues && !valid[row]) return;
+  if (KIND == kFillValues && valid != nullptr && !valid[row]) return;
   T* __restrict__ d = dst + static_cast<int64_t>(dst_slot[row]) * Q * n + dst_cell[row];
   if (KIND == kFillCopy) {
     const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n + src_cell[row];
@@ -374,10 +388,12 @@ __global__ void __launch_bounds__(kThreads)
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// B blocks of f, or the S = B entries of slots (non-null) into a stack of
+// nblocks blocks.
 template <typename T, int Q, bool TRT>
-cudaError_t launch_stencil(const void* f, const void* mask, void* out, int64_t B, int X, int Y,
-                           int Z, double om_a, double om_b, const double* lid,
-                           cudaStream_t stream) {
+cudaError_t launch_stencil(const void* f, const void* mask, void* out, const void* slots,
+                           int64_t nblocks, int64_t B, int X, int Y, int Z, double om_a,
+                           double om_b, const double* lid, cudaStream_t stream) {
   Coefs<T, Q> k;
   for (int q = 0; q < Q; ++q) k.lid[q] = static_cast<T>(lid[q]);
   k.om_a = static_cast<T>(om_a);
@@ -391,13 +407,19 @@ cudaError_t launch_stencil(const void* f, const void* mask, void* out, int64_t B
   TY = ceil_div(Y, tiles_y);
   const int64_t n = static_cast<int64_t>(X) * Y * Z;
   constexpr int64_t kMaxGridZ = 65535;
-  if (X > 65535) return cudaErrorInvalidConfiguration;
+  if (X > 65535 || nblocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   for (int64_t b0 = 0; b0 < B; b0 += kMaxGridZ) {
     const int64_t nb = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
     const dim3 grid(tiles_y * tiles_z, X, static_cast<unsigned>(nb));
-    stream_collide_kernel<T, Q, TRT><<<grid, dim3(TZ, TY), 0, stream>>>(
-        static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
-        static_cast<T*>(out) + b0 * Q * n, X, Y, Z, tiles_z, k);
+    if (slots != nullptr) {
+      stream_collide_kernel<T, Q, TRT, true><<<grid, dim3(TZ, TY), 0, stream>>>(
+          static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out),
+          static_cast<const int32_t*>(slots) + b0, static_cast<int>(nblocks), X, Y, Z, tiles_z, k);
+    } else {
+      stream_collide_kernel<T, Q, TRT, false><<<grid, dim3(TZ, TY), 0, stream>>>(
+          static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
+          static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, tiles_z, k);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -420,12 +442,16 @@ cudaError_t launch_fill(void* dst, const void* src, int64_t rows, int n, const v
 
 template <typename T>
 cudaError_t dispatch_stencil(int Q, int trt, const void* f, const void* mask, void* out,
-                             int64_t B, int X, int Y, int Z, double om_a, double om_b,
-                             const double* lid, cudaStream_t s) {
-  if (Q == 19 && trt) return launch_stencil<T, 19, true>(f, mask, out, B, X, Y, Z, om_a, om_b, lid, s);
-  if (Q == 19) return launch_stencil<T, 19, false>(f, mask, out, B, X, Y, Z, om_a, om_b, lid, s);
-  if (Q == 27 && trt) return launch_stencil<T, 27, true>(f, mask, out, B, X, Y, Z, om_a, om_b, lid, s);
-  if (Q == 27) return launch_stencil<T, 27, false>(f, mask, out, B, X, Y, Z, om_a, om_b, lid, s);
+                             const void* slots, int64_t nblocks, int64_t B, int X, int Y, int Z,
+                             double om_a, double om_b, const double* lid, cudaStream_t s) {
+  if (Q == 19 && trt)
+    return launch_stencil<T, 19, true>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+  if (Q == 19)
+    return launch_stencil<T, 19, false>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+  if (Q == 27 && trt)
+    return launch_stencil<T, 27, true>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+  if (Q == 27)
+    return launch_stencil<T, 27, false>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
   return cudaErrorInvalidValue;
 }
 
@@ -469,8 +495,13 @@ cudaError_t attrs_of(K kernel, int* out) {
 template <typename T, int Q>
 cudaError_t attrs_q(int which, int variant, int* out) {
   if (which == 0) {
-    return variant ? attrs_of(stream_collide_kernel<T, Q, true>, out)
-                   : attrs_of(stream_collide_kernel<T, Q, false>, out);
+    switch (variant) {
+      case 0: return attrs_of(stream_collide_kernel<T, Q, false, false>, out);
+      case 1: return attrs_of(stream_collide_kernel<T, Q, true, false>, out);
+      case 2: return attrs_of(stream_collide_kernel<T, Q, false, true>, out);
+      case 3: return attrs_of(stream_collide_kernel<T, Q, true, true>, out);
+      default: return cudaErrorInvalidValue;
+    }
   }
   if (variant == kFillCopy) return attrs_of(halo_fill_kernel<T, Q, kFillCopy>, out);
   if (variant == kFillFine) return attrs_of(halo_fill_kernel<T, Q, kFillFine>, out);
@@ -481,21 +512,27 @@ cudaError_t attrs_q(int which, int variant, int* out) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. trt: 0 = BGK (om_a = om), 1 = TRT
-// (om_a = om_p, om_b = om_m). lid: host array of Q values. Returns the
+// (om_a = om_p, om_b = om_m). f, mask and out hold nblocks blocks; slots is
+// null (step blocks 0 .. B-1, B = nblocks) or a device array of B int32
+// block indices (step those). lid: host array of Q values. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int lbm_stream_collide(int dtype, int Q, int trt, const void* f, const void* mask,
-                                  void* out, long long B, int X, int Y, int Z, double om_a,
-                                  double om_b, const double* lid, void* stream) {
+                                  void* out, const void* slots, long long nblocks, long long B,
+                                  int X, int Y, int Z, double om_a, double om_b, const double* lid,
+                                  void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (B * X * Y * Z == 0) return cudaSuccess;
-  if (dtype == 0) return dispatch_stencil<float>(Q, trt, f, mask, out, B, X, Y, Z, om_a, om_b, lid, s);
-  if (dtype == 1) return dispatch_stencil<double>(Q, trt, f, mask, out, B, X, Y, Z, om_a, om_b, lid, s);
+  if (dtype == 0)
+    return dispatch_stencil<float>(Q, trt, f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+  if (dtype == 1)
+    return dispatch_stencil<double>(Q, trt, f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
   return cudaErrorInvalidValue;
 }
 
 // The ghost fill, in place into dst. kind: 0 = copy (same-level and coarse
 // sources; src_slot, src_cell (rows,)), 1 = fine (src_slot (rows,), src_cell
-// (rows, 8)), 2 = values (src an (rows, Q) array; valid (rows,) bytes). All
+// (rows, 8)), 2 = values (src an (rows, Q) array; valid (rows,) bytes, or
+// null: every row valid). All
 // index arrays int32; n = cells of one block.
 extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* src,
                              long long rows, int n, const void* dst_slot, const void* dst_cell,
@@ -508,7 +545,7 @@ extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* 
   return cudaErrorInvalidValue;
 }
 
-// which: 0 = stencil (variant = trt), 1 = fill (variant = kind). out[5]:
+// which: 0 = stencil (variant = trt + 2 * slots), 1 = fill (variant = kind). out[5]:
 // registers, local bytes, static shared bytes, CTAs per SM, threads per CTA.
 extern "C" int lbm_kernel_attrs(int which, int dtype, int Q, int variant, int* out) {
   if (dtype == 0 && Q == 19) return attrs_q<float, 19>(which, variant, out);

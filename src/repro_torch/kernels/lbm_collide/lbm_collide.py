@@ -20,13 +20,18 @@ launched raises; nothing falls back.
   Moments summed in registers in the Pallas body's fixed q order; BGK or
   TRT with host-rounded coefficients as kernel arguments. The TPU kernel's whole-block-in-VMEM layout (3 MB a
   block) does not fit a CTA's 227 KB of shared memory and is not imitated.
+  With ``slots`` it steps only the listed blocks of the stack into a given
+  ``out`` (grid z indexes the list): the rank-sharded engine's interior and
+  boundary halves write one output tensor this way, gathering no sub-stack.
 * :func:`lbm_halo_fill` is the ghost fill of the main path: one segment of
   a level's merged fill, read straight from the source level's buffer
   (``same``/``coarse``: one cell; ``fine``: the mean of an octet) and
   written into the destination's ghost ring in place. Bound: bytes, each
   row's source values, its Q written values and its int32 indices. Rows
   are sorted by (dst slot, dst cell), one thread a row, so for each q a
-  warp touches neighbouring cells of one q-plane.
+  warp touches neighbouring cells of one q-plane. Its ``"values"`` kind
+  writes the rows of an (N, Q) array instead: one segment of a rank's
+  inbound halo message, in the message's own row order.
 * :func:`lbm_stream_collide_halo` replaces ``lbm_stream_collide_halo_pallas``
   (``_halo_kernel``) at its interface: the padded (B, P, Q) ghost slab.
   Its CUDA path is the fill kernel reading the slab's valid rows, then the
@@ -42,7 +47,11 @@ allocator hands the buffer freed by the previous step to the next, which
 makes successive steps a ping-pong between two buffers per level.
 
 Launch counts: each wrapper carries a plain integer ``launches`` that it
-bumps where it launches its kernel, and nowhere else.
+bumps where it launches its kernel, and nowhere else; beside it,
+``lbm_stream_collide.slot_launches`` counts the launches over a slot list
+and ``lbm_halo_fill.kind_launches`` the fill launches by kind (``copy`` for
+``same``/``coarse``, ``fine``, ``values``). :func:`reset_launches` zeroes
+them all.
 """
 
 from __future__ import annotations
@@ -57,15 +66,22 @@ from .ref import (
     _np_dtype,
     collision_coeffs,
     halo_fill_ref,
-    stream_collide_coeffs,
     stream_collide_halo_ref,
+    stream_collide_into,
 )
 
-__all__ = ["lbm_stream_collide", "lbm_stream_collide_halo", "lbm_halo_fill", "kernel_attributes"]
+__all__ = [
+    "lbm_stream_collide",
+    "lbm_stream_collide_halo",
+    "lbm_halo_fill",
+    "kernel_attributes",
+    "reset_launches",
+]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-FILL_KINDS = {"same": 0, "coarse": 0, "fine": 1}
 _FILL_VALUES = 2
+FILL_KINDS = {"same": 0, "coarse": 0, "fine": 1, "values": _FILL_VALUES}
+_KIND_NAMES = ("copy", "fine", "values")  # by kernel code
 
 
 def _kernel_args(
@@ -144,12 +160,12 @@ def _check_card_operands(*tensors: torch.Tensor) -> None:
         raise ValueError(f"the CUDA stencil needs every block extent >= 2, got {tuple(tensors[0].shape[2:])}")
 
 
-def _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid) -> None:
+def _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid, slots=None) -> None:
     B, Q, X, Y, Z = f.shape
     err = lib.lbm_stream_collide(
         _DTYPE_CODE[f.dtype], Q, trt, f.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, X, Y, Z, om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p),
-        _stream_ptr(f.device),
+        None if slots is None else slots.data_ptr(), B, B if slots is None else slots.numel(),
+        X, Y, Z, om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p), _stream_ptr(f.device),
     )
     _raise_on(err, "lbm_stream_collide")
 
@@ -163,31 +179,47 @@ def lbm_stream_collide(
     u_wall: tuple[float, float, float] = (0.0, 0.0, 0.0),
     collision: str = "bgk",
     magic: float = 3.0 / 16.0,
+    slots: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused stream+collide over a stack of blocks.
 
     Args:
-      f:    (B, Q, X, Y, Z) post-collision PDFs (ghost layer included).
-      mask: (B, X, Y, Z) int32 cell types (0 fluid / 1 wall / 2 lid).
+      f:     (B, Q, X, Y, Z) post-collision PDFs (ghost layer included).
+      mask:  (B, X, Y, Z) int32 cell types (0 fluid / 1 wall / 2 lid).
+      slots: optional (S,) int32 block indices on ``f``'s device, each in
+             [0, B): step only those blocks (the caller builds the list on
+             the host and checks its range; the kernel steps nothing for an
+             index outside it). Blocks not listed are left as ``out`` has
+             them.
+      out:   optional (B, Q, X, Y, Z) output, ``f``'s dtype and device; it
+             must not be ``f`` (the stencil pulls from its input).
     Returns:
-      (B, Q, X, Y, Z) updated PDFs, a new tensor.
+      ``out``, or a new tensor when it is not given.
     """
     _check(f, mask, lattice)
+    if slots is not None and (slots.dim() != 1 or slots.dtype != torch.int32 or slots.device != f.device):
+        raise ValueError(f"slots must be (S,) int32 on {f.device}, got {tuple(slots.shape)} {slots.dtype} {slots.device}")
+    if out is not None:
+        if out.shape != f.shape or out.dtype != f.dtype or out.device != f.device:
+            raise ValueError(f"out must be {tuple(f.shape)} {f.dtype} on {f.device}")
+        if out.data_ptr() == f.data_ptr():
+            raise ValueError("out must not be f: the stencil pulls from its input")
     coeffs, (trt, om_a, om_b), lid = _kernel_args(
         f.dtype, omega=omega, lattice=lattice, u_wall=u_wall,
         collision=collision, magic=magic,
     )
     if f.device.type == "cpu":
-        return stream_collide_coeffs(f, mask, coeffs, lattice=lattice, collision=collision)
-    _check_card_operands(f, mask)
+        return stream_collide_into(f, mask, coeffs, lattice=lattice, collision=collision, slots=slots, out=out)
+    _check_card_operands(f, mask, *(t for t in (slots, out) if t is not None))
     lib = _library()
-    out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
-    _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid)
+    if out is None:
+        out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
+    _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid, slots)
     lbm_stream_collide.launches += 1
+    if slots is not None:
+        lbm_stream_collide.slot_launches += 1
     return out
-
-
-lbm_stream_collide.launches = 0
 
 
 def lbm_halo_fill(
@@ -196,37 +228,47 @@ def lbm_halo_fill(
     kind: str,
     dst_slot: torch.Tensor,
     dst_cell: torch.Tensor,
-    src_slot: torch.Tensor,
-    src_cell: torch.Tensor,
+    src_slot: torch.Tensor | None = None,
+    src_cell: torch.Tensor | None = None,
 ) -> None:
-    """One segment of a ghost fill, read from its source level's buffer and
-    written into ``dst``'s ghost ring in place.
+    """One segment of a ghost fill, written into ``dst``'s ghost ring in
+    place: read from its source level's buffer, or (``"values"``) from the
+    rows of an array.
 
     Args:
       dst:      (B_dst, Q, X, Y, Z) destination level's pre-step PDFs.
       src:      (B_src, Q, X, Y, Z) source level's pre-step PDFs (may be
-                ``dst`` itself for a same-level segment).
-      kind:     ``"same"``, ``"coarse"`` or ``"fine"``.
+                ``dst`` itself for a same-level segment); for ``"values"``
+                an (N, Q) array whose row i fills row i's target.
+      kind:     ``"same"``, ``"coarse"``, ``"fine"`` or ``"values"``.
       dst_slot, dst_cell: (N,) int32 target block and flat cell.
-      src_slot: (N,) int32 source block.
+      src_slot: (N,) int32 source block; None for ``"values"``.
       src_cell: (N,) int32 source cell, or (N, 8) for ``"fine"`` (the octet
-                in canonical order, averaged).
+                in canonical order, averaged); None for ``"values"``.
     """
     Q = dst.shape[1] if dst.dim() == 5 else -1
     _check_block_stack(dst, Q)
-    if src.dim() != 5 or src.shape[1:] != dst.shape[1:] or src.dtype != dst.dtype:
-        raise ValueError(f"src {tuple(src.shape)} {src.dtype} does not match dst {tuple(dst.shape)} {dst.dtype}")
     if kind not in FILL_KINDS:
         raise ValueError(f"unknown fill segment kind {kind!r}")
     N = dst_slot.shape[0] if dst_slot.dim() == 1 else -1
-    cell_shape = (N, 8) if kind == "fine" else (N,)
-    for name, t, shape in (
-        ("dst_slot", dst_slot, (N,)), ("dst_cell", dst_cell, (N,)),
-        ("src_slot", src_slot, (N,)), ("src_cell", src_cell, cell_shape),
-    ):
-        if tuple(t.shape) != shape or t.dtype != torch.int32:
-            raise ValueError(f"{name} must be {shape} int32, got {tuple(t.shape)} {t.dtype}")
-    operands = (dst, src, dst_slot, dst_cell, src_slot, src_cell)
+    if kind == "values":
+        if tuple(src.shape) != (N, Q) or src.dtype != dst.dtype:
+            raise ValueError(f"values src must be {(N, Q)} {dst.dtype}, got {tuple(src.shape)} {src.dtype}")
+        if src_slot is not None or src_cell is not None:
+            raise ValueError("a values fill takes no source indices")
+        indices = (("dst_slot", dst_slot, (N,)), ("dst_cell", dst_cell, (N,)))
+    else:
+        if src.dim() != 5 or src.shape[1:] != dst.shape[1:] or src.dtype != dst.dtype:
+            raise ValueError(f"src {tuple(src.shape)} {src.dtype} does not match dst {tuple(dst.shape)} {dst.dtype}")
+        cell_shape = (N, 8) if kind == "fine" else (N,)
+        indices = (
+            ("dst_slot", dst_slot, (N,)), ("dst_cell", dst_cell, (N,)),
+            ("src_slot", src_slot, (N,)), ("src_cell", src_cell, cell_shape),
+        )
+    for name, t, shape in indices:
+        if t is None or tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be {shape} int32, got {t if t is None else (tuple(t.shape), t.dtype)}")
+    operands = (dst, src, *(t for _name, t, _shape in indices))
     if any(t.device != dst.device for t in operands):
         raise ValueError("the fill's operands must lie on one device")
     if dst.device.type == "cpu":
@@ -239,13 +281,12 @@ def lbm_halo_fill(
     err = _library().lbm_halo_fill(
         _DTYPE_CODE[dst.dtype], Q, FILL_KINDS[kind], dst.data_ptr(), src.data_ptr(), N,
         dst.shape[2] * dst.shape[3] * dst.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
-        src_slot.data_ptr(), src_cell.data_ptr(), None, _stream_ptr(dst.device),
+        None if src_slot is None else src_slot.data_ptr(),
+        None if src_cell is None else src_cell.data_ptr(), None, _stream_ptr(dst.device),
     )
     _raise_on(err, "lbm_halo_fill")
     lbm_halo_fill.launches += 1
-
-
-lbm_halo_fill.launches = 0
+    lbm_halo_fill.kind_launches[_KIND_NAMES[FILL_KINDS[kind]]] += 1
 
 
 def lbm_stream_collide_halo(
@@ -312,7 +353,16 @@ def lbm_stream_collide_halo(
     return out
 
 
-lbm_stream_collide_halo.launches = 0
+def reset_launches() -> None:
+    """Zero every launch count of the wrappers."""
+    lbm_stream_collide.launches = 0
+    lbm_stream_collide.slot_launches = 0
+    lbm_halo_fill.launches = 0
+    lbm_halo_fill.kind_launches = dict.fromkeys(_KIND_NAMES, 0)
+    lbm_stream_collide_halo.launches = 0
+
+
+reset_launches()
 
 
 def kernel_attributes() -> list[dict]:
@@ -323,7 +373,7 @@ def kernel_attributes() -> list[dict]:
     lib = _library()
     rows = []
     out = (ctypes.c_int * 5)()
-    variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"))]
+    variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"), (2, "bgk+slots"), (3, "trt+slots"))]
     variants += [("fill", 1, v, name) for v, name in ((0, "copy"), (1, "fine"), (_FILL_VALUES, "values"))]
     for dtype, dcode in (("f32", 0), ("f64", 1)):
         for Q in (19, 27):

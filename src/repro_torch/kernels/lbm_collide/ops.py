@@ -15,6 +15,16 @@ buffer and writes the destination's ghost ring in place; on the ``ref``
 backend the fill values are gathered with PyTorch index ops and scattered
 into a copy. A coarse step is a plain Python loop over its ``2^lmax``
 substeps with no host transfer in it.
+
+The rank-sharded entry points (:func:`make_rank_emit`,
+:func:`make_rank_absorb`, :func:`make_rank_absorb_split`) run one rank's
+side of a sharded substep over that rank's own buffers: emit gathers the
+outbound halo messages, absorb runs the rank's local fills, writes the
+inbound messages' rows into their ghost cells and steps the active levels.
+On the ``cuda`` backend both writes are fill-kernel launches in place (the
+messages through the ``"values"`` kind), all before any stencil, and the
+split steps its interior and boundary blocks into one output tensor through
+the stencil's slot list.
 """
 
 from __future__ import annotations
@@ -45,6 +55,10 @@ __all__ = [
     "HaloStep",
     "apply_compiled_ghost_plan",
     "make_fused_superstep",
+    "make_rank_emit",
+    "boundary_slot_sets",
+    "make_rank_absorb",
+    "make_rank_absorb_split",
     "BACKENDS",
 ]
 
@@ -64,19 +78,21 @@ def make_stream_collide(
     collision: str = "bgk",
     backend: str = "cuda",
 ):
-    """Build ``step(f_blocks, mask_blocks) -> f_blocks`` on (B, Q, X, Y, Z)
-    stacks; the step runs on whichever device its tensors lie on."""
+    """Build ``step(f_blocks, mask_blocks, *, slots=None, out=None) ->
+    f_blocks`` on (B, Q, X, Y, Z) stacks; the step runs on whichever device
+    its tensors lie on. ``slots`` (an (S,) int32 tensor) steps only those
+    blocks, into ``out`` (see :func:`~.lbm_collide.lbm_stream_collide`)."""
     _check_backend(backend)
     kw = dict(omega=omega, lattice=lattice, u_wall=u_wall, collision=collision)
     if backend == "cuda":
 
-        def step(f: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-            return lbm_stream_collide(f, mask, **kw)
+        def step(f: torch.Tensor, mask: torch.Tensor, *, slots=None, out=None) -> torch.Tensor:
+            return lbm_stream_collide(f, mask, slots=slots, out=out, **kw)
 
     else:
 
-        def step(f: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-            return stream_collide_ref(f, mask, **kw)
+        def step(f: torch.Tensor, mask: torch.Tensor, *, slots=None, out=None) -> torch.Tensor:
+            return stream_collide_ref(f, mask, slots=slots, out=out, **kw)
 
     return step
 
@@ -196,19 +212,25 @@ def fill_tables(fill, level_index: dict[int, int], device: torch.device | str) -
     return tuple(tables)
 
 
-def _assert_fills_disjoint(fills: dict, level_index: dict[int, int], nblocks: list[int], cells: int) -> None:
+def _assert_fills_disjoint(
+    fills: dict, level_index: dict[int, int], nblocks: list[int], cells: int, messages=()
+) -> None:
     """The fills of one substep may run in any order, in place, before any
     level steps only if no ghost cell is filled twice and no fill reads a
-    cell that a fill writes. Checked on the host when a branch is built,
-    with one flag a cell and no sort."""
+    cell that a fill writes. ``messages`` are a rank's inbound
+    :class:`~..lbm.halo.CompiledRankMessage` specs: their targets count as
+    written cells too. Checked on the host when a branch is built, with one
+    flag a cell and no sort."""
     base = np.concatenate([[0], np.cumsum(np.asarray(nblocks, dtype=np.int64) * cells)])
 
     def key(level, slot, cell):
         return base[level_index[level]] + np.asarray(slot, np.int64) * cells + cell
 
-    if not fills:
+    targets = [key(l, f.dst_slot, f.dst_cell) for l, f in fills.items()]
+    targets += [key(dl, db, dc) for m in messages for dl, db, dc, _n in m.scatter]
+    if not targets:
         return
-    tgt = np.concatenate([key(l, f.dst_slot, f.dst_cell) for l, f in fills.items()])
+    tgt = np.concatenate(targets)
     written = np.zeros(int(base[-1]), dtype=bool)
     written[tgt] = True
     assert np.count_nonzero(written) == tgt.size, "a ghost cell is filled twice"
@@ -484,3 +506,232 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
 
     superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
     return superstep
+
+
+# -- rank-sharded substep ----------------------------------------------------------
+
+
+def make_rank_emit(messages, level_index: dict[int, int], device: torch.device | str):
+    """Build one rank's message-building side of a sharded exchange.
+
+    ``messages`` are the :class:`~..lbm.halo.CompiledRankMessage` specs whose
+    ``src_rank`` is this rank; ``level_index`` maps the rank's levels to
+    positions in its buffer tuple. Returns ``emit(pdfs: tuple) -> tuple``
+    producing one ``(N, Q)`` row-major payload per message on the rank's
+    device (sender-side resampled by :func:`_gather_vals`, segments
+    concatenated in the spec's canonical order), so ``m.nbytes`` is the
+    payload's size. Returns ``None`` when the rank sends nothing.
+
+    ``emit`` only reads the pdf buffers: the absorb programs dispatched
+    after it in the same substep write their ghost cells in place, and
+    emits read interior cells only.
+    """
+    if not messages:
+        return None
+    device = torch.device(device)
+    specs = tuple(
+        tuple(
+            (level_index[src_level], kind, _index(sb, device), _index(sc, device))
+            for src_level, kind, sb, sc in m.gather
+        )
+        for m in messages
+    )
+
+    def emit(pdfs):
+        out = []
+        for segs in specs:
+            parts = [_gather_vals(pdfs[li], kind, sb, sc) for li, kind, sb, sc in segs]
+            out.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=0))
+        return tuple(out)
+
+    return emit
+
+
+def boundary_slot_sets(messages, masks) -> dict[int, frozenset[int]]:
+    """Per-level sets of block slots whose ghost layer depends on inbound
+    cross-rank messages (the *boundary* blocks of a rank). ``masks`` maps
+    the rank's levels to their (B, ...) stacks (only shapes are read)."""
+    bnd: dict[int, set[int]] = {l: set() for l in masks}
+    for m in messages:
+        for dl, db, _dc, _n in m.scatter:
+            bnd.setdefault(dl, set()).update(int(s) for s in np.unique(db))
+    return {l: frozenset(s) for l, s in bnd.items()}
+
+
+def _int32(a, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+
+def _rank_fills(messages, local_plan, level_index, masks, active_levels, backend, device):
+    """One rank's ghost writes of a substep, lowered once: ``(local,
+    inbound)`` where ``local(bufs)`` runs the rank-local plan and
+    ``inbound(bufs, msgs)`` writes the received payloads, both in place
+    into the pre-step buffers. On ``cuda``, fill-kernel launches: the local
+    plan's merged fills from their sources, then one ``"values"`` launch a
+    message segment reading its slice of the payload; on ``ref``, the
+    plain gather/scatter. Asserts on the host that no ghost cell is written
+    twice and no local fill reads a written cell. Each closure's
+    ``segments`` counts the fill launches it makes on ``cuda``."""
+    order = [l for l in sorted(level_index, key=level_index.get)]
+    nblocks = [masks[l].shape[0] for l in order]
+    cells = int(np.prod(tuple(masks[order[0]].shape[1:])))
+    fills = lower_halo_fill(local_plan) if local_plan is not None and local_plan.ops else {}
+    assert set(fills) <= set(active_levels), (sorted(fills), sorted(active_levels))
+    assert {dl for m in messages for dl, *_ in m.scatter} <= set(active_levels)
+    _assert_fills_disjoint(fills, level_index, nblocks, cells, messages)
+    if backend == "cuda":
+        tables = [(level_index[l], fill_tables(f, level_index, device)) for l, f in fills.items()]
+        segs = tuple(
+            tuple(
+                (level_index[dl], _int32(db, device), _int32(dc, device), int(off), n)
+                for (dl, db, dc, n), off in zip(m.scatter, np.cumsum([0] + [s[3] for s in m.scatter]))
+            )
+            for m in messages
+        )
+
+        def local(bufs):
+            for dst, ts in tables:
+                for t in ts:
+                    lbm_halo_fill(bufs[dst], bufs[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+
+        def inbound(bufs, msgs):
+            for mseg, msg in zip(segs, msgs):
+                for li, db, dc, off, n in mseg:
+                    lbm_halo_fill(bufs[li], msg[off : off + n], "values", db, dc)
+
+        local.segments = sum(len(ts) for _dst, ts in tables)
+        inbound.segments = sum(len(mseg) for mseg in segs)
+        return local, inbound
+
+    ops_ = _device_plan_ops(local_plan, level_index, device) if fills else []
+    segs = tuple(
+        tuple((level_index[dl], _index(db, device), _index(dc, device), n) for dl, db, dc, n in m.scatter)
+        for m in messages
+    )
+
+    def local_ref(bufs):
+        _run_plan_ops(ops_, bufs)
+
+    def inbound_ref(bufs, msgs):
+        for mseg, msg in zip(segs, msgs):
+            off = 0
+            for li, db, dc, n in mseg:
+                _flat3(bufs[li])[db, :, dc] = msg[off : off + n]
+                off += n
+
+    local_ref.segments = inbound_ref.segments = 0
+    return local_ref, inbound_ref
+
+
+def make_rank_absorb(
+    messages,
+    local_plan,
+    level_index: dict[int, int],
+    *,
+    steppers,
+    masks,
+    active_levels,
+    backend: str = "cuda",
+    device: torch.device | str = "cuda",
+):
+    """Build one rank's receive+exchange+step side of a sharded substep.
+
+    ``messages`` are the inbound :class:`~..lbm.halo.CompiledRankMessage`
+    specs (``dst_rank`` == this rank) in plan order — the caller passes the
+    received payloads in the same order; ``local_plan`` is the rank's
+    intra-rank :class:`~..lbm.halo.CompiledGhostPlan` (or None);
+    ``steppers``/``masks`` map the rank's levels to ``step(f, mask) -> f``
+    (:func:`make_stream_collide`) and device mask stacks; ``active_levels``
+    is this substep pattern's active set intersected with the rank's levels.
+
+    Returns ``absorb(pdfs: tuple, msgs: tuple) -> tuple``: every ghost write
+    of the rank (local fills, then the inbound rows) lands in place in the
+    pre-step buffers, then every active level steps, finest first. The
+    caller rebinds the result and never reads the tuple it passed in. Its
+    ``fill_segments`` counts the fill launches a call makes on ``cuda``.
+    """
+    _check_backend(backend)
+    device = torch.device(device)
+    order = tuple(sorted(active_levels, reverse=True))  # finest first
+    local, inbound = _rank_fills(messages, local_plan, level_index, masks, active_levels, backend, device)
+
+    def absorb(pdfs, msgs):
+        bufs = list(pdfs)
+        local(bufs)
+        inbound(bufs, msgs)
+        for l in order:
+            i = level_index[l]
+            bufs[i] = steppers[l](bufs[i], masks[l])
+        return tuple(bufs)
+
+    absorb.fill_segments = local.segments + inbound.segments
+    return absorb
+
+
+def make_rank_absorb_split(
+    messages,
+    local_plan,
+    level_index: dict[int, int],
+    *,
+    steppers,
+    masks,
+    active_levels,
+    backend: str = "cuda",
+    device: torch.device | str = "cuda",
+):
+    """Split one rank's substep into an interior and a boundary half so the
+    host's message routing overlaps interior stepping.
+
+    *Boundary* blocks are the slots whose ghost layer depends on inbound
+    messages (:func:`boundary_slot_sets`); everything else is *interior* —
+    an interior block's ghosts are filled entirely by the rank-local plan.
+    ``interior(pdfs) -> state`` runs **every** local fill (boundary blocks'
+    local-sourced ghosts included) on the pre-step buffers, allocates each
+    active level's output and steps the interior slots into it through the
+    stencil's slot list. ``boundary(state, msgs) -> pdfs`` writes the
+    inbound rows into the pre-step buffers and steps the boundary slots
+    into the same outputs. No sub-stack is gathered or scattered back. The
+    two halves together equal :func:`make_rank_absorb` bit for bit: a block
+    steps on its own, and every ghost write lands before the block that
+    reads it steps. Arguments as for :func:`make_rank_absorb`; each half's
+    ``fill_segments`` counts its fill launches on ``cuda``.
+    """
+    _check_backend(backend)
+    device = torch.device(device)
+    order = tuple(sorted(active_levels, reverse=True))
+    local, inbound = _rank_fills(messages, local_plan, level_index, masks, active_levels, backend, device)
+    bnd = boundary_slot_sets(messages, {l: masks[l] for l in order})
+    nblocks = {l: masks[l].shape[0] for l in order}
+    # per level, (interior, boundary): whether the half steps any block of
+    # the level, and its slot list (None: every block, no list)
+    halves = {}
+    for l in order:
+        b = np.asarray(sorted(bnd.get(l, ())), dtype=np.int32)
+        i = np.setdiff1d(np.arange(nblocks[l], dtype=np.int32), b)
+        halves[l] = tuple(
+            (idx.size > 0, None if idx.size == nblocks[l] else _int32(idx, device)) for idx in (i, b)
+        )
+
+    def step_half(bufs, outs, which):
+        for l in order:
+            run, slots = halves[l][which]
+            if run:
+                i = level_index[l]
+                steppers[l](bufs[i], masks[l], slots=slots, out=outs[i])
+
+    def interior(pdfs):
+        bufs = list(pdfs)
+        local(bufs)
+        outs = {level_index[l]: torch.empty_like(bufs[level_index[l]]) for l in order}
+        step_half(bufs, outs, 0)
+        return bufs, outs
+
+    def boundary(state, msgs):
+        bufs, outs = state
+        inbound(bufs, msgs)
+        step_half(bufs, outs, 1)
+        return tuple(outs.get(i, b) for i, b in enumerate(bufs))
+
+    interior.fill_segments = local.segments
+    boundary.fill_segments = inbound.segments
+    return interior, boundary

@@ -34,6 +34,7 @@ from ...lbm.lattice import D3Q19, Lattice
 __all__ = [
     "stream_collide_ref",
     "stream_collide_coeffs",
+    "stream_collide_into",
     "stream_collide_halo_ref",
     "halo_fill_ref",
     "collision_coeffs",
@@ -205,6 +206,31 @@ def stream_collide_coeffs(
     return torch.where(fluid.unsqueeze(-4), f_out, f)
 
 
+def stream_collide_into(
+    f: torch.Tensor,
+    mask: torch.Tensor,
+    coeffs: dict,
+    *,
+    lattice: Lattice = D3Q19,
+    collision: str = "bgk",
+    slots: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`stream_collide_coeffs` on a stack (B, Q, X, Y, Z), written
+    into ``out`` when given; with ``slots`` ((S,) block indices) only those
+    blocks are stepped, into ``out`` (a new tensor when None, its other
+    blocks left unset). The plain version of ``lbm_stream_collide``'s slot
+    list."""
+    if slots is None:
+        res = stream_collide_coeffs(f, mask, coeffs, lattice=lattice, collision=collision)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty_like(f)
+    idx = slots.long()
+    out[idx] = stream_collide_coeffs(f[idx], mask[idx], coeffs, lattice=lattice, collision=collision)
+    return out
+
+
 def stream_collide_ref(
     f: torch.Tensor,
     mask: torch.Tensor,
@@ -213,9 +239,13 @@ def stream_collide_ref(
     u_wall: tuple[float, float, float] = (0.0, 0.0, 0.0),
     collision: str = "bgk",
     magic: float = 3.0 / 16.0,
+    *,
+    slots: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One fused stream+collide step on a block (Q, X, Y, Z) or a stack
-    (B, Q, X, Y, Z): the plain version of ``lbm_stream_collide``."""
+    (B, Q, X, Y, Z): the plain version of ``lbm_stream_collide`` (``slots``
+    and ``out`` as for :func:`stream_collide_into`)."""
     coeffs = collision_coeffs(
         omega,
         lattice=lattice,
@@ -224,7 +254,7 @@ def stream_collide_ref(
         magic=magic,
         dtype=_np_dtype(f.dtype),
     )
-    return stream_collide_coeffs(f, mask, coeffs, lattice=lattice, collision=collision)
+    return stream_collide_into(f, mask, coeffs, lattice=lattice, collision=collision, slots=slots, out=out)
 
 
 def stream_collide_halo_ref(
@@ -260,8 +290,8 @@ def halo_fill_ref(
     kind: str,
     dst_slot: torch.Tensor,
     dst_cell: torch.Tensor,
-    src_slot: torch.Tensor,
-    src_cell: torch.Tensor,
+    src_slot: torch.Tensor | None = None,
+    src_cell: torch.Tensor | None = None,
 ) -> None:
     """One segment of a ghost fill read straight from its source level: the
     plain version of ``lbm_halo_fill``, writing ``dst`` (B, Q, X, Y, Z) in
@@ -271,10 +301,14 @@ def halo_fill_ref(
     For ``kind`` ``"same"`` or ``"coarse"`` its value is cell
     ``src_cell[i]`` of block ``src_slot[i]`` of ``src``; for ``"fine"`` it
     is the mean of the 8 cells ``src_cell[i, :]`` (canonical octet order,
-    summed in that order, then times 1/8) of block ``src_slot[i]``. This is
-    the exchange's gather (``ops._gather_vals``) followed by its merged
-    scatter, one segment at a time.
+    summed in that order, then times 1/8) of block ``src_slot[i]``; for
+    ``"values"`` it is row ``i`` of the (N, Q) array ``src``. This is the
+    exchange's gather (``ops._gather_vals``) followed by its merged scatter,
+    one segment at a time.
     """
+    if kind == "values":
+        dst.view(dst.shape[0], dst.shape[1], -1)[dst_slot.long(), :, dst_cell.long()] = src
+        return
     flat_src = src.view(src.shape[0], src.shape[1], -1)
     sb, sc = src_slot.long(), src_cell.long()
     if kind == "fine":

@@ -13,29 +13,60 @@ halo exchange) with the control plane (the four-step AMR pipeline):
 
 Stepping modes (``LidDrivenCavityConfig.stepping_mode``), one
 :class:`~.engines.StepEngine` each: ``"restack"`` (the conformance oracle),
-``"arena"`` (default, persistent host buffers) and ``"fused"`` (the whole
-coarse step on the device). The device is resolved once, when the engine is
+``"arena"`` (default, persistent host buffers), ``"fused"`` (the whole
+coarse step on the device), ``"sharded"`` (per-rank host arenas with p2p
+halo messages) and ``"fused_sharded"`` (per-rank device residency with
+device-built p2p messages). The device is resolved once, when the engine is
 built: ``device=None`` means the CUDA card and raises without one.
 
 Data-plane time is attributed in :attr:`AMRLBM.data_stats`: host modes fill
-``"halo"`` / ``"step"``; the fused mode reports wall time plus exchange
-rounds under ``"fused"`` (host<->device transfer counts live on the arena's
+``"halo"`` / ``"step"``; the device-resident modes report wall time plus
+exchange rounds (and, for ``fused_sharded``, the cross-rank p2p traffic)
+under ``"fused"`` (host<->device transfer counts live on the arenas'
 :class:`~..core.fields.DeviceResidency`).
+
+With ``particles=ParticlesConfig(...)`` a Lagrangian tracer layer rides the
+forest (:mod:`~..particles`): once per coarse step the tracers advect
+through the block-local velocity field (RK2, trilinear) on the engine's
+device and redistribute to their new block/rank over the ``Comm`` fabric
+(attributed under ``data_stats["particles"]``). The batch source is an
+engine hook (:meth:`~.engines.StepEngine.particle_batches`); the
+device-resident engines flush their pdf stacks to the host first, as
+diagnostics do, and the advection uploads each batch again. Those bytes are
+counted in :attr:`AMRLBM.particle_transfer_bytes`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Callable
 
 import numpy as np
 import torch
 
-from ..core import AMRPipeline, Comm, DiffusionBalancer, ForestGeometry, SFCBalancer, make_uniform_forest
+from ..core import (
+    AMRPipeline,
+    Comm,
+    DiffusionBalancer,
+    ForestGeometry,
+    SFCBalancer,
+    make_uniform_forest,
+    recompute_weights,
+)
 from ..core.forest import Block, BlockForest
 from ..core.pipeline import StageStats
 from ..kernels.lbm_collide.ops import BACKENDS
 from ..kernels.lbm_collide.ref import equilibrium
+from ..particles import (
+    ParticlesConfig,
+    advect_block_batch,
+    particle_block_weight,
+    particle_proxy_weight,
+    redistribute_particles,
+    register_particles,
+    seed_particles,
+)
+from ..particles import total_particles as _forest_total_particles
 from ..telemetry import get_tracer
 from .criteria import VelocityGradientCriterion, macroscopic
 from .engines import make_engine
@@ -66,10 +97,14 @@ class LidDrivenCavityConfig:
     # None resolves once, at engine build, to "cuda" and raises without a
     # card; pass "cpu" to run the plain path on the host
     device: str | None = None
-    stepping_mode: str = "arena"  # | "fused" | "restack"
+    # interior/boundary split of the fused_sharded substep (overlaps host
+    # message routing with interior stepping): None resolves once, at
+    # engine build, to "split iff the engine's device is a card"
+    overlap_split: bool | None = None
+    stepping_mode: str = "arena"  # | "fused" | "sharded" | "fused_sharded" | "restack"
     obstacle_fn: Callable[[np.ndarray], np.ndarray] | None = None  # (N,3)->bool
-    # Lagrangian tracers are not ported yet (ROADMAP Queue 1.6); must be None
-    particles: Any = None
+    # optional Lagrangian tracer layer (repro_torch.particles); None disables it
+    particles: ParticlesConfig | None = None
 
 
 def _make_balancer(name: str):
@@ -87,10 +122,6 @@ def _make_balancer(name: str):
 class AMRLBM:
     def __init__(self, cfg: LidDrivenCavityConfig):
         self.cfg = cfg
-        if cfg.particles is not None:
-            raise NotImplementedError(
-                "particles are not ported yet: ROADMAP Queue 1.6 (tracers)"
-            )
         if cfg.kernel_backend not in BACKENDS:
             raise ValueError(f"kernel_backend {cfg.kernel_backend!r} not in {BACKENDS}")
         for n in cfg.cells_per_block:
@@ -102,7 +133,21 @@ class AMRLBM:
         self.fields = make_lbm_fields(self.spec)
         self.registry = self.fields  # typed registry drives all subsystems
         self.comm = Comm(cfg.nranks)
-        self.pipeline = AMRPipeline(balancer=_make_balancer(cfg.balancer), registry=self.registry)
+        # Lagrangian tracers: the particle set registers as one more
+        # block-data item (migration comes for free) and installs the
+        # cells + alpha*N load model into the pipeline
+        self._block_weight_fn = None
+        proxy_weight_fn = None
+        if cfg.particles is not None:
+            register_particles(self.fields, self.geom)
+            self._block_weight_fn = particle_block_weight(cfg.cells_per_block, cfg.particles.alpha)
+            proxy_weight_fn = particle_proxy_weight(self.geom, cfg.cells_per_block, cfg.particles.alpha)
+        self.pipeline = AMRPipeline(
+            balancer=_make_balancer(cfg.balancer),
+            registry=self.registry,
+            weight_fn=proxy_weight_fn,
+            block_weight_fn=self._block_weight_fn,
+        )
         self.criterion = VelocityGradientCriterion(
             spec=self.spec,
             upper=cfg.refine_upper,
@@ -116,12 +161,27 @@ class AMRLBM:
             "halo": StageStats(),
             "step": StageStats(),
             "fused": StageStats(),
+            "particles": StageStats(),
         }
+        # cumulative tracer counters, and the bytes the tracer steps moved
+        # between host and device (flushes, advection uploads, velocities)
+        self.particles_advected = 0
+        self.particles_moved = 0
+        self.particle_transfer_bytes = {"h2d": 0, "d2h": 0}
         # the data plane: storage, steppers, plan/mask caches, the superstep
         # and the per-mode advance loop all live on the engine
         self.engine = make_engine(self)
         for blk in self.forest.all_blocks():
             self._init_block(blk)
+        if cfg.particles is not None:
+            seed_particles(
+                self.forest,
+                self.geom,
+                per_block=cfg.particles.per_block,
+                seed=cfg.particles.seed,
+                region=cfg.particles.region,
+            )
+            recompute_weights(self.forest, self._block_weight_fn)
         self.engine.adopt(self.forest)
         self.refresh_masks()
         self.coarse_step = 0
@@ -135,6 +195,11 @@ class AMRLBM:
     def arena(self):
         """The single global :class:`LevelArena` (arena/fused engines)."""
         return self.engine.arena
+
+    @property
+    def arenas(self):
+        """The per-rank :class:`RankArenas` (sharded engines)."""
+        return self.engine.arenas
 
     # -- block initialization & masks ----------------------------------------
     def _init_block(self, blk: Block) -> None:
@@ -181,11 +246,64 @@ class AMRLBM:
         Diagnostics and :meth:`adapt` call this automatically."""
         self.engine.materialize_host()
 
+    # -- Lagrangian tracers -----------------------------------------------------
+    def _transferred(self) -> tuple[int, int]:
+        res = self.engine.residencies()
+        return sum(r.h2d_bytes for r in res), sum(r.d2h_bytes for r in res)
+
+    def _step_particles(self) -> None:
+        """Advect tracers through the end-of-step velocity field and route
+        escapees to their new block/rank (batched p2p, one message per rank
+        pair). Runs once per coarse step in every stepping mode."""
+        t0 = self._transferred()
+        self.materialize_host()  # device modes: host pdf views must be current
+        # Ghost layers must be a deterministic function of the (mode-
+        # identical) interiors so interpolation reads the same values in
+        # every mode. The next substep's exchange overwrites them again —
+        # the device-resident engines fill every level's ghosts at substep 0
+        # before any stencil — so this host-side write needs no residency
+        # drop.
+        self.engine.exchange_ghosts()
+        traffic = {"h2d": 0, "d2h": 0}
+        s0 = self.comm.stats.summary()
+        with _TR.stage("particles", cat="stage") as sp:
+            advected = 0
+            for level in self.forest.levels_in_use():
+                for pdf, mask, slots, blocks in self.engine.particle_batches(level):
+                    advected += advect_block_batch(
+                        pdf,
+                        mask,
+                        self.spec.lattice,
+                        self.geom,
+                        blocks,
+                        slots,
+                        level=level,
+                        cells=self.spec.cells,
+                        ghost=self.spec.ghost,
+                        device=self.device,
+                        traffic=traffic,
+                    )
+            moved, _cross_bytes = redistribute_particles(
+                self.forest, self.geom, self.comm, boundary=self.cfg.particles.boundary
+            )
+        t1 = self._transferred()
+        self.particle_transfer_bytes["h2d"] += traffic["h2d"] + t1[0] - t0[0]
+        self.particle_transfer_bytes["d2h"] += traffic["d2h"] + t1[1] - t0[1]
+        self.particles_advected += advected
+        self.particles_moved += moved
+        self.data_stats["particles"].add(StageStats.delta(s0, self.comm.stats.summary(), sp.seconds))
+
     def advance(self, coarse_steps: int = 1) -> None:
         """Advance by coarse time steps with per-level substepping."""
         self.engine.sync_caches()
-        self.engine.advance(coarse_steps)
-        self.coarse_step += coarse_steps
+        if self.cfg.particles is None:
+            self.engine.advance(coarse_steps)
+            self.coarse_step += coarse_steps
+            return
+        for _ in range(coarse_steps):
+            self.engine.advance(1)
+            self.coarse_step += 1
+            self._step_particles()
 
     # -- AMR ------------------------------------------------------------------
     def adapt(self, force_rebalance: bool = False):
@@ -236,6 +354,10 @@ class AMRLBM:
             speed = np.sqrt((u**2).sum(axis=0)) * fluid
             vmax = max(vmax, float(self._interior(speed).max(initial=0.0)))
         return vmax
+
+    def total_particles(self) -> int:
+        """Tracer population across the whole forest (conservation probe)."""
+        return _forest_total_particles(self.forest)
 
     def num_fluid_cells(self) -> int:
         return int(

@@ -18,36 +18,48 @@ Engine surface:
   ``adopt`` bumps it), so no call site can replay a stale plan or mask.
 * :meth:`StepEngine.materialize_host` — flush device-newer state so every
   ``Block.data`` view is current (no-op for host-resident modes).
+* :meth:`StepEngine.particle_batches` — the advection batch source for the
+  Lagrangian tracer layer (host modes batch a level, the sharded engines
+  batch per rank so a rank's tracers read only the rank's own memory).
 
 Modes of this port: ``restack`` (re-stack every substep, the conformance
 oracle), ``arena`` (persistent per-level host buffers, uploaded and copied
-back each substep) and ``fused`` (the whole coarse step on the device over a
+back each substep), ``fused`` (the whole coarse step on the device over a
 :class:`~..core.fields.DeviceResidency`, no host transfer between AMR
-events). The rank-sharded modes of the JAX package are not ported yet.
+events), ``sharded`` (per-rank host arenas, cross-rank ghost data as p2p
+messages through ``Comm``) and ``fused_sharded`` (per-rank device
+residency: each rank emits its halo messages on the device, the host routes
+them through ``Comm``, and each rank absorbs them with the fill kernel and
+steps, with no host transfer between AMR events).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Callable
 
 import numpy as np
 import torch
 
-from ..core import LevelArena
+from ..core import LevelArena, RankArenas
 from ..core.pipeline import StageStats
 from ..device import resolve_device, synchronize
 from ..kernels.lbm_collide.ops import (
+    boundary_slot_sets,
     make_arena_stream_collide,
     make_fused_superstep,
     make_halo_stream_collide,
+    make_rank_absorb,
+    make_rank_absorb_split,
+    make_rank_emit,
     make_stream_collide,
 )
 from ..telemetry import get_tracer
-from .halo import compile_ghost_plan, fill_ghost_layers
+from .halo import compile_ghost_plan, compile_rank_halo_plan, fill_ghost_layers, fill_ghost_layers_sharded
 from .lattice import omega_for_level
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
-    from ..core.forest import BlockForest
+    from ..core.forest import Block, BlockForest
     from .driver import AMRLBM
 
 __all__ = ["StepEngine", "ENGINES", "NOT_PORTED", "make_engine"]
@@ -57,8 +69,6 @@ ENGINES: dict[str, type["StepEngine"]] = {}
 # stepping modes of the JAX package that this port does not run yet, with
 # the ROADMAP item that queues each
 NOT_PORTED = {
-    "sharded": "ROADMAP Queue 1.7 (rank-sharded engines)",
-    "fused_sharded": "ROADMAP Queue 1.7 (rank-sharded engines)",
     "device_sharded": "ROADMAP Queue 1.9 (real device ranks)",
 }
 
@@ -92,9 +102,11 @@ class StepEngine:
         # resolved once, here: None -> "cuda", raising when there is no card
         self.device = resolve_device(sim.cfg.device)
         self.arena: LevelArena | None = None
+        self.arenas: RankArenas | None = None
         self._steppers: dict[int, Callable] = {}
         self._fused_steppers: dict[int, Callable] = {}
-        self._mask_dev: dict[int, torch.Tensor] = {}  # level -> device mask
+        # device mask cache; keys: level (arena) or (level, ranks) (sharded)
+        self._mask_dev: dict = {}
         # ghost-exchange plans keyed by active level set; valid between arena
         # adoptions (restack rebinds arrays per substep, so no caching there)
         self._halo_plans: dict | None = {}
@@ -143,12 +155,18 @@ class StepEngine:
 
     # -- storage / invalidation ------------------------------------------------
     def storage_version(self) -> int:
-        return self.arena.version if self.arena is not None else -1
+        if self.arena is not None:
+            return self.arena.version
+        if self.arenas is not None:
+            return self.arenas.version
+        return -1
 
     def adopt(self, forest: "BlockForest") -> None:
         """Rebind storage after a topology change (AMR event, restore)."""
         if self.arena is not None:
             self.arena.adopt(forest)
+        if self.arenas is not None:
+            self.arenas.adopt(forest)
 
     def sync_caches(self) -> None:
         """Drop device masks and ghost plans if the arena rebound storage
@@ -167,6 +185,11 @@ class StepEngine:
     def materialize_host(self) -> None:
         """Flush device-newer buffers so ``Block.data`` views are current
         (no-op in the host-resident modes)."""
+
+    def residencies(self) -> list:
+        """The engine's :class:`~..core.fields.DeviceResidency` objects
+        (none in the host-resident modes), for transfer accounting."""
+        return []
 
     # -- ghost exchange --------------------------------------------------------
     def exchange_ghosts(self, active: set[int] | None = None) -> None:
@@ -204,6 +227,19 @@ class StepEngine:
     def step_level(self, level: int) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
 
+    # -- Lagrangian tracers ----------------------------------------------------
+    def particle_batches(
+        self, level: int
+    ) -> list[tuple[np.ndarray, np.ndarray, dict[int, int], list["Block"]]]:
+        """(pdf stack, mask stack, bid->slot, blocks) advection groups for one
+        level (host views must be current — the driver materializes first)."""
+        arena = self.arena
+        pdf = arena.buffer(level, "pdf")
+        if pdf is None or pdf.shape[0] == 0:
+            return []
+        blocks = [b for b in self.sim.forest.all_blocks() if b.level == level]
+        return [(pdf, arena.buffer(level, "mask"), arena.slots(level), blocks)]
+
 
 @_register
 class RestackEngine(StepEngine):
@@ -226,6 +262,17 @@ class RestackEngine(StepEngine):
         out = self._stepper(level)(f, m).cpu().numpy()
         for i, b in enumerate(blocks):
             b.data["pdf"] = out[i]
+
+    def particle_batches(self, level: int):
+        blocks = sorted(
+            (b for b in self.sim.forest.all_blocks() if b.level == level),
+            key=lambda b: b.bid,
+        )
+        if not blocks:
+            return []
+        pdf = np.stack([b.data["pdf"] for b in blocks])
+        mask = np.stack([b.data["mask"] for b in blocks])
+        return [(pdf, mask, {b.bid: i for i, b in enumerate(blocks)}, blocks)]
 
 
 @_register
@@ -280,6 +327,9 @@ class FusedEngine(ArenaEngine):
 
     def materialize_host(self) -> None:
         self.arena.device().flush()
+
+    def residencies(self) -> list:
+        return [self.arena.device()]
 
     def _fused_program(self) -> tuple[Callable, tuple[int, ...]]:
         """Get-or-build the superstep for the current forest: compiled ghost
@@ -336,3 +386,277 @@ class FusedEngine(ArenaEngine):
         self.sim.data_stats["fused"].add(
             StageStats(seconds=sp.seconds, exchange_rounds=coarse_steps * nsub)
         )
+
+
+@_register
+class ShardedEngine(StepEngine):
+    """The rank-partitioned host data plane: per-rank arenas, in-place
+    intra-rank halo copies, cross-rank faces as batched p2p messages."""
+
+    mode = "sharded"
+
+    def __init__(self, sim: "AMRLBM") -> None:
+        super().__init__(sim)
+        self.arenas = RankArenas(sim.fields, sim.cfg.nranks)
+
+    def _group_mask(self, level: int, ranks: tuple[int, ...]) -> torch.Tensor:
+        """Device mask for a batched group of rank buffers."""
+        self.sync_caches()
+        key = (level, ranks)
+        m = self._mask_dev.get(key)
+        if m is None:
+            parts = [self.arenas.buffer(r, level, "mask") for r in ranks]
+            host = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            m = torch.from_numpy(host).to(self.device, copy=True)
+            self._mask_dev[key] = m
+        return m
+
+    def exchange_ghosts(self, active: set[int] | None = None) -> None:
+        self.sync_caches()
+        token = self.storage_version()
+        comm = self.sim.comm
+        s0 = comm.stats.summary()
+        with _TR.stage("halo", cat="stage") as sp:
+            fill_ghost_layers_sharded(
+                self.sim.forest,
+                self.sim.fields,
+                comm,
+                fields=("pdf",),
+                levels=active,
+                plan_cache=self._halo_plans,
+                cache_token=token,
+            )
+        self.sim.data_stats["halo"].add(StageStats.delta(s0, comm.stats.summary(), sp.seconds))
+
+    def step_level(self, level: int) -> None:
+        """One kernel call per rank per level, batched where shapes agree:
+        ranks whose level buffers hold the same block count share one call
+        on their concatenated buffers."""
+        per_rank = [
+            (r, buf)
+            for r in range(self.cfg.nranks)
+            if (buf := self.arenas.buffer(r, level, "pdf")) is not None and buf.shape[0] > 0
+        ]
+        by_count: dict[int, list[tuple[int, np.ndarray]]] = {}
+        for r, buf in per_rank:
+            by_count.setdefault(buf.shape[0], []).append((r, buf))
+        stepper = self._stepper(level)
+        for nblocks, group in sorted(by_count.items()):
+            ranks = tuple(r for r, _ in group)
+            mask = self._group_mask(level, ranks)
+            if len(group) == 1:
+                stepper(group[0][1], mask)  # in place on the rank's buffer
+                continue
+            cat = np.concatenate([buf for _, buf in group])
+            stepper(cat, mask)
+            for i, (_r, buf) in enumerate(group):
+                np.copyto(buf, cat[i * nblocks : (i + 1) * nblocks])
+
+    def particle_batches(self, level: int):
+        """Per-rank batches over that rank's own buffers, so a rank's tracers
+        read only the rank's own memory."""
+        out = []
+        for r in range(self.cfg.nranks):
+            arena = self.arenas.per_rank[r]
+            pdf = arena.buffer(level, "pdf")
+            if pdf is None or pdf.shape[0] == 0:
+                continue
+            blocks = [b for b in self.sim.forest.local_blocks(r).values() if b.level == level]
+            out.append((pdf, arena.buffer(level, "mask"), arena.slots(level), blocks))
+        return out
+
+
+@dataclass
+class _RankPrograms:
+    """Per-rank substep programs for one (storage version, level set): emit
+    and absorb closures per (activity pattern, rank) plus the message
+    routing tables the advance loop feeds the ``Comm`` fabric from."""
+
+    levels: tuple[int, ...]
+    nsub: int
+    pattern: list[int]
+    ranks: tuple[int, ...]
+    rank_levels: dict[int, tuple[int, ...]]
+    emits: dict[int, dict[int, Callable]] = field(default_factory=dict)
+    absorbs: dict[int, dict[int, Callable]] = field(default_factory=dict)
+    # interior/boundary split pair (exclusive with absorbs[p][r]): interior
+    # steps while the host routes payloads, boundary consumes the messages
+    interiors: dict[int, dict[int, Callable]] = field(default_factory=dict)
+    boundaries: dict[int, dict[int, Callable]] = field(default_factory=dict)
+    sends: dict[int, dict[int, list]] = field(default_factory=dict)
+    recvs: dict[int, dict[int, list]] = field(default_factory=dict)
+    has_messages: dict[int, bool] = field(default_factory=dict)
+
+
+@_register
+class FusedShardedEngine(ShardedEngine):
+    """Device-resident rank-sharded mode: each rank's substep runs over its
+    own :class:`~..core.fields.DeviceResidency`, and cross-rank halo patches
+    travel as device-built per-rank-pair message tensors through ``Comm`` —
+    one p2p message per neighbouring pair per exchange, zero host<->device
+    transfers per substep (host contact only at AMR events).
+
+    ``cfg.overlap_split`` resolves once, here: ``None`` splits a rank's
+    substep into interior and boundary halves exactly when the engine runs
+    on a card, where the host routes messages while the interior stencils
+    run; on the CPU nothing runs concurrently, so the unsplit absorb is
+    kept.
+    """
+
+    mode = "fused_sharded"
+
+    def __init__(self, sim: "AMRLBM") -> None:
+        super().__init__(sim)
+        for arena in self.arenas.per_rank:
+            arena.device(self.device)
+        split = sim.cfg.overlap_split
+        self.split = self.device.type == "cuda" if split is None else bool(split)
+        self._programs_cache: _RankPrograms | None = None
+        self._programs_key: tuple | None = None
+
+    def masks_refreshed(self) -> None:
+        super().masks_refreshed()
+        for arena in self.arenas.per_rank:
+            arena.device().drop(name="mask")
+        self._programs_cache = None
+        self._programs_key = None
+
+    def materialize_host(self) -> None:
+        for arena in self.arenas.per_rank:
+            arena.device().flush()
+
+    def residencies(self) -> list:
+        return [arena.device() for arena in self.arenas.per_rank]
+
+    def _programs(self) -> _RankPrograms:
+        forest = self.sim.forest
+        levels = tuple(sorted(forest.levels_in_use()))
+        key = (self.arenas.version, levels)
+        if self._programs_cache is not None and self._programs_key == key:
+            return self._programs_cache
+        with _TR.span("build:rank_programs", cat="compile", version=self.arenas.version):
+            self._programs_cache = self._build_programs(forest, levels)
+        self._programs_key = key
+        return self._programs_cache
+
+    def _build_programs(self, forest: "BlockForest", levels: tuple[int, ...]) -> _RankPrograms:
+        lmax = levels[-1]
+        nsub = 1 << lmax
+        per_rank = self.arenas.per_rank
+        ranks = tuple(r for r in range(self.cfg.nranks) if per_rank[r].levels())
+        rank_levels = {r: tuple(per_rank[r].levels()) for r in ranks}
+        rank_slots = {r: {l: per_rank[r].slots(l) for l in rank_levels[r]} for r in ranks}
+        # pattern of substep s = trailing zeros of s (s=0 activates everything)
+        pattern = [lmax if s == 0 else min((s & -s).bit_length() - 1, lmax) for s in range(nsub)]
+        progs = _RankPrograms(levels=levels, nsub=nsub, pattern=pattern, ranks=ranks, rank_levels=rank_levels)
+        backend = self.cfg.kernel_backend
+        for p in range(lmax + 1):
+            active = {l for l in levels if l >= lmax - p}
+            plan = compile_rank_halo_plan(forest, self.sim.fields, rank_slots, fields=("pdf",), levels=active)
+            progs.has_messages[p] = bool(plan.messages)
+            for d in (progs.emits, progs.absorbs, progs.interiors, progs.boundaries, progs.sends, progs.recvs):
+                d[p] = {}
+            for r in ranks:
+                idx = {l: i for i, l in enumerate(rank_levels[r])}
+                res = per_rank[r].device()
+                sends = [m for m in plan.messages if m.src_rank == r]
+                recvs = [m for m in plan.messages if m.dst_rank == r]
+                progs.sends[p][r] = sends
+                progs.recvs[p][r] = recvs
+                emit = make_rank_emit(sends, idx, self.device)
+                if emit is not None:
+                    progs.emits[p][r] = emit
+                local = plan.local.get(r)
+                rank_active = active & set(rank_levels[r])
+                if not recvs and not rank_active and not (local and local.ops):
+                    # the rank is idle in this pattern (it owns only levels
+                    # that do not step in it): no program, no dispatch
+                    continue
+                kw = dict(
+                    steppers={l: self._fused_stepper(l) for l in rank_levels[r]},
+                    masks={l: res.fetch(l, "mask") for l in rank_levels[r]},
+                    active_levels=rank_active,
+                    backend=backend,
+                    device=self.device,
+                )
+                bnd = boundary_slot_sets(recvs, {l: kw["masks"][l] for l in rank_active})
+                n_interior = sum(kw["masks"][l].shape[0] - len(bnd.get(l, ())) for l in rank_active)
+                if self.split and recvs and n_interior > 0:
+                    # boundary blocks wait for inbound payloads; interior
+                    # blocks do not — split so the host-side routing
+                    # overlaps the interior stepping dispatched before it
+                    progs.interiors[p][r], progs.boundaries[p][r] = make_rank_absorb_split(
+                        recvs, local, idx, **kw
+                    )
+                else:
+                    progs.absorbs[p][r] = make_rank_absorb(recvs, local, idx, **kw)
+        return progs
+
+    def advance(self, coarse_steps: int) -> None:
+        """Run whole coarse steps with per-rank device programs: the only
+        per-substep host involvement is routing the device-resident message
+        tensors through ``Comm`` (the fabric sees exactly the p2p shape of
+        the host-sharded mode, with identical byte accounting).
+
+        Dispatch order per substep: every rank's ``emit`` (payload gathers)
+        and ``interior`` half are launched *before* the host touches the
+        fabric, so the Python-side send/exchange/routing runs while the
+        device works through them (launches are asynchronous, all on one
+        stream); only the ``boundary``/``absorb`` programs, which consume
+        inbound payloads, wait for routing."""
+        progs = self._programs()
+        comm = self.sim.comm
+        res = {r: self.arenas.per_rank[r].device() for r in progs.ranks}
+        pdfs = {r: tuple(res[r].fetch(l, "pdf") for l in progs.rank_levels[r]) for r in progs.ranks}
+        s0 = comm.stats.summary()
+        with _TR.stage("fused", cat="stage", coarse_steps=coarse_steps) as st:
+            for _ in range(coarse_steps):
+                for s in range(progs.nsub):
+                    p = progs.pattern[s]
+                    overlapped = bool(progs.interiors[p])
+                    payloads = []
+                    for r in progs.ranks:
+                        emit = progs.emits[p].get(r)
+                        if emit is not None:
+                            with _TR.span("emit", cat="substep", rank=r, substep=s, pattern=p):
+                                payloads.append((r, emit(pdfs[r])))
+                    pending = {}
+                    for r in progs.ranks:
+                        interior = progs.interiors[p].get(r)
+                        if interior is not None:
+                            with _TR.span("interior", cat="substep", rank=r, substep=s, pattern=p):
+                                pending[r] = interior(pdfs[r])
+                    with _TR.span("route", cat="substep", substep=s, pattern=p, overlapped=overlapped) as rt:
+                        nbytes = 0
+                        for r, arrs in payloads:
+                            for m, arr in zip(progs.sends[p][r], arrs):
+                                comm.send(m.src_rank, m.dst_rank, "halo", (m.key, arr), nbytes=m.nbytes)
+                                nbytes += m.nbytes
+                        by_key = {}
+                        if progs.has_messages[p]:
+                            for _dst, msgs in comm.exchange().items():
+                                for _tag, (mkey, arr) in msgs:
+                                    by_key[mkey] = arr
+                        rt.set(bytes=nbytes)
+                    for r in progs.ranks:
+                        msgs = tuple(by_key[m.key] for m in progs.recvs[p][r])
+                        boundary = progs.boundaries[p].get(r)
+                        if boundary is not None:
+                            with _TR.span("absorb", cat="substep", rank=r, substep=s, pattern=p, split=True):
+                                pdfs[r] = boundary(pending.pop(r), msgs)
+                            continue
+                        absorb = progs.absorbs[p].get(r)
+                        if absorb is None:  # rank is idle in this pattern
+                            continue
+                        with _TR.span("absorb", cat="substep", rank=r, substep=s, pattern=p, split=False):
+                            pdfs[r] = absorb(pdfs[r], msgs)
+            # timing fence: StageStats seconds must not hide queued device work
+            synchronize(self.device)
+            for r in progs.ranks:
+                for l, arr in zip(progs.rank_levels[r], pdfs[r]):
+                    res[r].store(l, "pdf", arr)
+        stage = StageStats.delta(s0, comm.stats.summary(), st.seconds)
+        # one logical ghost-exchange round per substep, as the fused engine
+        # reports (the Comm superstep count is 0 at one rank)
+        stage.exchange_rounds = coarse_steps * progs.nsub
+        self.sim.data_stats["fused"].add(stage)

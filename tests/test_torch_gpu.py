@@ -174,3 +174,87 @@ def test_fused_cuda_run_matches_restack_on_card():
         assert got.keys() == want.keys()
         for bid, arr in got.items():
             np.testing.assert_allclose(arr, want[bid], **TOL[np.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_slot_list_stencil_matches_plain_on_card(dtype):
+    """The stencil over a slot list steps exactly the listed blocks into
+    ``out`` and leaves the others as ``out`` had them."""
+    _require_card()
+    rng = np.random.default_rng(21)
+    B = 7
+    f, mask = _random_state(rng, B, D3Q19, (10, 12, 14), dtype)
+    kw = dict(omega=1.4, lattice=D3Q19, collision="trt", u_wall=(0.05, 0.01, 0.0))
+    fd, md = torch.from_numpy(f).cuda(), torch.from_numpy(mask).cuda()
+    slots = torch.tensor([5, 0, 3], dtype=torch.int32, device="cuda")
+    sentinel = torch.full_like(fd, -7.0)
+    out = sentinel.clone()
+    n0 = lbm_stream_collide.launches
+    got = lbm_stream_collide(fd, md, slots=slots, out=out, **kw)
+    torch.cuda.synchronize()
+    assert got is out and lbm_stream_collide.launches == n0 + 1
+    want = lbm_stream_collide(fd.cpu(), md.cpu(), slots=slots.cpu(), out=sentinel.cpu(), **kw)
+    listed = slots.long().cpu()
+    torch.testing.assert_close(got.cpu()[listed], want[listed], **TOL[dtype])
+    rest = torch.tensor([b for b in range(B) if b not in listed.tolist()])
+    torch.testing.assert_close(got.cpu()[rest], sentinel.cpu()[rest], rtol=0, atol=0)
+    # the slot list's blocks equal the whole stack's step, bit for bit
+    whole = lbm_stream_collide(fd, md, **kw)
+    torch.testing.assert_close(got[slots.long()], whole[slots.long()], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_values_fill_matches_plain_on_card(dtype):
+    """The ``values`` fill with no valid array writes every row of an (N, Q)
+    slice into its target, bitwise the plain scatter."""
+    _require_card()
+    rng = np.random.default_rng(8)
+    B, dims = 5, (6, 8, 10)
+    X, Y, Z = dims
+    ring = np.flatnonzero(np.pad(np.zeros((X - 2, Y - 2, Z - 2), bool), 1, constant_values=True))
+    slots = np.repeat(np.arange(B), 40)
+    cells = np.concatenate([rng.choice(ring, 40, replace=False) for _ in range(B)])
+    order = rng.permutation(slots.size)  # a message's rows come in no sorted order
+    ds = torch.as_tensor(slots[order], dtype=torch.int32)
+    dc = torch.as_tensor(cells[order], dtype=torch.int32)
+    payload = torch.as_tensor(rng.standard_normal((slots.size + 9, 19)), dtype=torch.float64 if dtype == np.float64 else torch.float32)
+    seg = payload[9:]  # a slice of a message, as the absorb passes it
+    dst = torch.as_tensor(rng.standard_normal((B, 19, *dims)), dtype=seg.dtype)
+    want = dst.clone()
+    halo_fill_ref(want, seg, "values", ds, dc)
+    got = dst.cuda()
+    n0 = lbm_halo_fill.launches
+    lbm_halo_fill(got, payload.cuda()[9:], "values", ds.cuda(), dc.cuda())
+    torch.cuda.synchronize()
+    assert lbm_halo_fill.launches == n0 + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_fused_sharded_cuda_run_matches_fused_bitwise_on_card():
+    """``fused_sharded`` on the kernels (split absorb, the card's default)
+    grows the forest ``fused`` grows and steps every block's interior to the
+    same bits: both run the same block-local, fixed-order kernels."""
+    _require_card()
+    base = dict(
+        root_grid=(2, 2, 2), cells_per_block=(8, 8, 8), omega=1.5, u_lid=(0.08, 0.0, 0.0),
+        max_level=1, refine_upper=0.03, refine_lower=0.004, nranks=4,
+    )
+    sims = {}
+    for mode in ("fused", "fused_sharded"):
+        sim = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **base))
+        assert sim.device.type == "cuda"
+        sim.run(8, amr_interval=4)
+        sim.materialize_host()
+        sims[mode] = sim
+    assert sims["fused_sharded"].engine.split
+    assert any(sims["fused_sharded"].engine._programs().interiors.values())
+    ref, got = sims["fused"], sims["fused_sharded"]
+    assert {(b.bid, b.level, b.owner) for b in got.forest.all_blocks()} == {
+        (b.bid, b.level, b.owner) for b in ref.forest.all_blocks()
+    }
+    want = {b.bid: ref.spec.interior(b.data["pdf"]) for b in ref.forest.all_blocks()}
+    for b in got.forest.all_blocks():
+        np.testing.assert_array_equal(got.spec.interior(b.data["pdf"]), want[b.bid])

@@ -36,13 +36,31 @@ finding per line:
    coarse steps with AMR every 4; count and ids must be conserved; prints
    the particles stage's seconds and the host<->device bytes of each tracer
    step.
+2b. serving, at the full cavity's width: four ``arena`` jobs on the kernels
+   (the physics of ``tests/test_serving.py``'s members; the fourth's lid
+   lowered until it does not refine at the first AMR event) submitted to
+   one ``SimulationService``, 8 coarse steps each with AMR every 4. Launch
+   counts are zeroed just before the service and read just after. The
+   batch must form one ensemble, split at an AMR event, build at most one
+   program per (topology, level set) key, launch every stencil and fill
+   through the kernels' member axis, and end with every member's forest
+   and block interiors bitwise those of a solo ``fused`` run of its config.
+   Then, from the state after the first event, the batch's groups against
+   the four solo runs: program builds, first steps with their uploads, two
+   steady coarse steps each (member coarse steps/s, MLUPS), the launches
+   of one batched coarse step (must equal one solo fused step's, there
+   and with all four members on the roots), and profiles of both. Then elastic resize
+   at the cross-check's depth: ``fused_sharded`` resized 4 -> 2 at step 4,
+   in memory and through a disk checkpoint, ends step 8 bitwise equal to an
+   uninterrupted ``fused`` run.
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
    the stencil; the padded-slab form once; the stencil over a real rank's
    boundary slot list (bitwise the whole-stack kernel's blocks); the
    ``values`` fill of a real rank message segment (bitwise the plain
-   scatter). Then small D3Q27 / BGK / f64 / odd-extent cases for the
+   scatter); the member stencil over M = 4 states of the level-2 stack and
+   the level-2 fill for 4 members (each bitwise M solo launches). Then small D3Q27 / BGK / f64 / odd-extent cases for the
    stencil and every fill segment kind (``same``, ``coarse``, ``fine``) in
    f32/f64 x D3Q19/D3Q27. Max error, kernel time, plain time and the bound.
 4. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
@@ -62,6 +80,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -87,6 +106,17 @@ FULL_CAVITY = dict(
     **PHYSICS,
 )
 CROSS_CHECK = dict(cells_per_block=(32, 32, 32), root_grid=(2, 2, 2), max_level=1, nranks=4, **PHYSICS)
+# the serving phase's four members: the physics of tests/test_serving.py's
+# MEMBERS on the full cavity (the fourth's lid is lowered, if it must be,
+# until it does not refine at the first AMR event, so the batch splits)
+SERVING_MEMBERS = [
+    dict(omega=1.5, u_lid=(0.08, 0.0, 0.0)),
+    dict(omega=1.7, u_lid=(0.06, 0.0, 0.0)),
+    dict(omega=1.6, u_lid=(0.08, 0.02, 0.0)),
+    dict(omega=1.9, u_lid=(0.05, 0.0, 0.0)),
+]
+SERVING_STEPS = 8
+SERVING_AMR_INTERVAL = 4
 # the full cavity's tracers: 256 a root block, the non-quick size of the
 # JAX package's particles benchmark; the cross-check's, as its particle legs
 TRACERS_FULL = dict(per_block=256, seed=0, alpha=0.05, boundary="reflect")
@@ -177,6 +207,26 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def device_profile(run) -> tuple[list, float, float]:
+    """``torch.profiler`` over ``run()`` (which must end in a device
+    synchronize): (kernel rows (name, device ms, count) by time, device
+    busy ms, wall ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    return rows, sum(r[1] for r in rows), wall_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -188,6 +238,7 @@ def main() -> int:
         lbm_halo_fill,
         lbm_stream_collide,
         lbm_stream_collide_halo,
+        member_coeffs,
         reset_launches,
     )
     from repro_torch.kernels.lbm_collide.ops import (
@@ -204,6 +255,7 @@ def main() -> int:
         collision_coeffs,
         halo_fill_ref,
         stream_collide_coeffs,
+        stream_collide_into,
         stream_collide_ref,
     )
     from repro_torch.lbm.criteria import macroscopic
@@ -212,11 +264,15 @@ def main() -> int:
     from repro_torch.lbm.halo import compile_ghost_plan, lower_halo_fill
     from repro_torch.lbm.lattice import D3Q19, D3Q27, omega_for_level
     from repro_torch.particles import ParticlesConfig, all_particles
+    from repro_torch.serving import Ensemble, JobSpec, SimulationService, resize_ranks, topology_key
+    from repro_torch.state import export_state, load_state
 
     def launch_counts() -> dict:
         out = {fn.__name__: fn.launches for fn in (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)}
         out["lbm_stream_collide[slots]"] = lbm_stream_collide.slot_launches
+        out["lbm_stream_collide[members]"] = lbm_stream_collide.member_launches
         out.update({f"lbm_halo_fill[{k}]": n for k, n in lbm_halo_fill.kind_launches.items()})
+        out["lbm_halo_fill[members]"] = sum(n for k, n in lbm_halo_fill.kind_launches.items() if k.endswith("+members"))
         return out
     card = card_line()
     say("card:", card)
@@ -248,6 +304,8 @@ def main() -> int:
     main_stencil = next(r for r in attrs if r["kernel"] == "stencil" and r["variant"] == "trt"
                         and r["dtype"] == "f32" and r["Q"] == 19)
     check(main_stencil["occupancy"] >= 0.5, "the f32 D3Q19 TRT stencil keeps 50 % occupancy")
+    member_stencil = next(r for r in attrs if r["kernel"] == "stencil" and r["variant"] == "trt+members"
+                          and r["dtype"] == "f32" and r["Q"] == 19)
     main_fills = [r for r in attrs if r["kernel"] == "fill" and r["dtype"] == "f32" and r["Q"] == 19
                   and r["variant"] in ("copy", "fine")]
 
@@ -374,22 +432,9 @@ def main() -> int:
     res = sim.arena.device()
 
     # where a steady fused coarse step spends device time, by kernel name
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     sim.advance(1)  # the superstep is rebuilt after the last AMR event
     fill_segments = sim.engine._fused_program()[0].fill_segments
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.advance(2)  # ends in a device synchronize
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda r: -r[1],
-    )
-    busy_ms = sum(r[1] for r in rows)
+    rows, busy_ms, wall_ms = device_profile(lambda: sim.advance(2))  # ends in a device synchronize
     say(f"[fused] profile of 2 steady coarse steps: device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall, idle share {1 - busy_ms / wall_ms:.1%}")
     for name, ms, count in rows[:10]:
@@ -453,19 +498,9 @@ def main() -> int:
         for fn in table[p].values()
     )
     values_expect = sum(len(m.scatter) for p in progs.pattern for r in progs.ranks for m in progs.recvs[p][r])
-    torch.cuda.synchronize()
     c0 = fs.comm.stats.summary()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fs.advance(2)  # ends in a device synchronize
-        fs_wall_ms = (time.perf_counter() - t0) * 1e3
+    fs_rows, fs_busy_ms, fs_wall_ms = device_profile(lambda: fs.advance(2))
     c1 = fs.comm.stats.summary()
-    fs_rows = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda r: -r[1],
-    )
-    fs_busy_ms = sum(r[1] for r in fs_rows)
     say(f"[fused_sharded] profile of 2 steady coarse steps: device busy {fs_busy_ms:.3f} ms of "
         f"{fs_wall_ms:.3f} ms wall, idle share {1 - fs_busy_ms / fs_wall_ms:.1%}")
     for name, ms, count in fs_rows[:14]:
@@ -474,7 +509,7 @@ def main() -> int:
     group_ms = Counter()
     for name, ms, count in fs_rows:
         m_fill = re.search(r"halo_fill_kernel<[^,>]+, *\d+, *(\d)>", name)
-        m_sten = re.search(r"stream_collide_kernel<[^,>]+, *\d+, *(?:true|false), *(true|false)>", name)
+        m_sten = re.search(r"stream_collide_kernel<[^,>]+, *\d+, *(?:true|false), *(true|false), *(?:true|false)>", name)
         if m_fill:
             key = "fill " + ("copy", "fine", "values")[int(m_fill.group(1))]
         elif m_sten:
@@ -526,6 +561,257 @@ def main() -> int:
     say(f"[tracers] advected {ts.particles_advected}, moved {ts.particles_moved} across blocks; "
         f"count and id set conserved; kernel launches {json.dumps(tracer_launches)}")
     del ts
+
+    # -- 2b. serving: four full-cavity jobs batched by SimulationService ---------
+    def serving_cfg(mode: str, over: dict):
+        return LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **{**FULL_CAVITY, **over})
+
+    def interiors(s) -> dict:
+        s.materialize_host()
+        return {b.bid: s.spec.interior(b.data["pdf"]).copy() for b in s.forest.all_blocks()}
+
+    def updates_per_coarse_step(s) -> int:
+        return sum(n * int(np.prod(s.cfg.cells_per_block)) * 2**l for l, n in blocks_per_level(s).items())
+
+    # the fourth member must not refine at the first AMR event, so that the
+    # batch splits there: lower its lid until it does not
+    members = [dict(m) for m in SERVING_MEMBERS]
+    for _ in range(8):
+        probe = AMRLBM(serving_cfg("fused", members[3]))
+        probe.advance(SERVING_AMR_INTERVAL)
+        probe.adapt()
+        refined = probe.forest.levels_in_use() != [0]
+        del probe
+        if not refined:
+            break
+        members[3]["u_lid"] = tuple(0.5 * c for c in members[3]["u_lid"])
+    check(not refined, "a lid low enough that the fourth member does not refine at the first event")
+    say(f"[serving] fourth member's lid {members[3]['u_lid']} (listed {SERVING_MEMBERS[3]['u_lid']}): "
+        f"it does not refine at the first AMR event")
+
+    # solo references: each member as a solo fused run of its config; only
+    # host copies of the interiors are kept
+    solo_refs = []
+    for i, over in enumerate(members):
+        s = AMRLBM(serving_cfg("fused", over))
+        forests, step_s, amr_s = [], [], []
+        for k in range(SERVING_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.advance(1)
+            step_s.append(time.perf_counter() - t0)
+            if (k + 1) % SERVING_AMR_INTERVAL == 0:
+                t0 = time.perf_counter()
+                s.adapt()
+                amr_s.append(time.perf_counter() - t0)
+                forests.append(forest_of(s))
+        solo_refs.append(dict(forests=forests, interiors=interiors(s)))
+        say(f"[serving] solo fused reference {i + 1} {json.dumps(over)}: blocks per level after each event "
+            f"{[dict(sorted(Counter(l for _b, l, _o in f).items())) for f in forests]}; coarse step wall times (s) "
+            f"{json.dumps([round(t, 4) for t in step_s])}; AMR events (s) {json.dumps([round(t, 3) for t in amr_s])}")
+        del s
+
+    # the service: four arena jobs on the kernels, AMR every 4 coarse steps
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_srv = time.perf_counter()
+    svc = SimulationService()
+    jobs = [svc.jobs[svc.submit(JobSpec(config=serving_cfg("arena", over), coarse_steps=SERVING_STEPS,
+                                        amr_interval=SERVING_AMR_INTERVAL))] for over in members]
+    check(all(j.sim.device.type == "cuda" for j in jobs), "the jobs run on the card")
+    amr_event_s = []
+    for job in jobs:  # time each member's AMR event
+        def timed_adapt(*a, _adapt=job.sim.adapt, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _adapt(*a, **k)
+            amr_event_s.append(time.perf_counter() - t0)
+            return out
+
+        job.sim.adapt = timed_adapt
+    keys = {(topology_key(jobs[0].sim.forest), tuple(jobs[0].sim.forest.levels_in_use()))}
+    svc._form_groups()  # the first round's groups, so that their transfer counters can be read around it
+    rounds, member_forests, states_after_first = [], [[] for _ in jobs], None
+    more = True
+    while more:
+        ens = [g.ensemble for g in svc._groups]
+        moved0 = [(e.h2d_bytes, e.d2h_bytes) for e in ens]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = svc.run_round()
+        torch.cuda.synchronize()
+        rounds.append(dict(seconds=round(time.perf_counter() - t0, 3), members=[e.size for e in ens],
+                           h2d_bytes=sum(e.h2d_bytes - a for e, (a, _b) in zip(ens, moved0)),
+                           d2h_bytes=sum(e.d2h_bytes - b for e, (_a, b) in zip(ens, moved0))))
+        for i, job in enumerate(jobs):
+            member_forests[i].append(forest_of(job.sim))
+        if len(rounds) == 1:  # the state the second chunk steps from
+            states_after_first = [export_state(job.sim) for job in jobs]
+            keys |= {(topology_key(j.sim.forest), tuple(j.sim.forest.levels_in_use())) for j in jobs}
+    serving_s = time.perf_counter() - t_srv
+    serving_launches = launch_counts()
+    serving_peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    summary = svc.summary()
+    say(f"[serving] {len(jobs)} jobs x {SERVING_STEPS} coarse steps, AMR every {SERVING_AMR_INTERVAL}: "
+        f"{serving_s:.2f} s in {len(rounds)} rounds; counters "
+        f"{json.dumps({k: summary[k] for k in ('ensembles_formed', 'divergence_splits', 'batched_steps', 'solo_steps', 'compile_hits', 'compile_misses', 'programs')})}; "
+        f"distinct (topology, level set) keys stepped: {len(keys)}")
+    say("[serving] rounds (chunks):", json.dumps(rounds))
+    say("[serving] AMR event wall times (s), member by member:", json.dumps([round(t, 3) for t in amr_event_s]))
+    say(f"[serving] peak device memory: {serving_peak_gb:.3f} GB; kernel launches: {json.dumps(serving_launches)}")
+    check(summary["jobs_completed"] == len(jobs) and all(j.step == SERVING_STEPS for j in jobs), "every job ran to its end")
+    check(summary["ensembles_formed"] == 1, "the four jobs formed one ensemble")
+    check(summary["divergence_splits"] >= 1, "the batch split at an AMR event")
+    check(summary["compile_misses"] <= len(keys), "one program per distinct (topology, level set) key at most")
+    check(serving_launches["lbm_stream_collide[members]"] == serving_launches["lbm_stream_collide"] > 0,
+          "every stencil launch of the service went through the member axis")
+    check(serving_launches["lbm_halo_fill[members]"] == serving_launches["lbm_halo_fill"] > 0,
+          "every fill launch of the service went through the member axis")
+    for i, job in enumerate(jobs):
+        check(member_forests[i] == solo_refs[i]["forests"], f"member {i + 1} grew its solo run's forest at every event")
+        got, want = interiors(job.sim), solo_refs[i]["interiors"]
+        check(got.keys() == want.keys(), f"member {i + 1}: the solo run's blocks")
+        for bid, arr in got.items():
+            check(np.array_equal(arr, want[bid]), f"member {i + 1} block {bid:#x}: interior bitwise equal to its solo run's")
+    say(f"[serving] every member grew its solo fused run's forest at both AMR events and ended with every block "
+        f"interior bitwise equal to it ({sum(len(r['interiors']) for r in solo_refs)} blocks)")
+    del svc, jobs, solo_refs
+
+    # steady rates, from the state after the first event: the batch's groups
+    # (the members that share a forest) against the four solo runs, two
+    # steady coarse steps each, all from the same state
+    groups = {}
+    for i, st in enumerate(states_after_first):
+        groups.setdefault(tuple(sorted((bid, lv) for bid, (lv, _o, _a) in st["blocks"].items())), []).append(i)
+    big = max(groups.values(), key=len)
+    check(len(big) >= 2, f"members share a forest after the first event: {list(groups.values())}")
+
+    def from_state(i, mode):
+        s = AMRLBM(serving_cfg(mode, members[i]))
+        load_state(s, states_after_first[i])
+        return s
+
+    # the program a group builds once, against each member's own superstep
+    # build, and each first step (upload included)
+    batched_s = batched_member_steps = batched_updates = 0
+    build_s, first_s = {}, {}
+    for idx in groups.values():
+        sims = [from_state(i, "arena") for i in idx]
+        e = Ensemble(sims)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e._program()  # ghost plans of every pattern, fill tables, device masks
+        t1 = time.perf_counter()
+        e.advance(1)  # uploads the member stacks
+        build_s["batched", tuple(idx)], first_s["batched", tuple(idx)] = t1 - t0, time.perf_counter() - t1
+        t0 = time.perf_counter()
+        e.advance(2)  # ends in a device synchronize
+        batched_s += time.perf_counter() - t0
+        batched_member_steps += 2 * len(idx)
+        batched_updates += 2 * len(idx) * updates_per_coarse_step(sims[0])
+        if idx is big:
+            big_forest = blocks_per_level(sims[0])
+            reset_launches()
+            e.advance(1)
+            batched_step_launches = launch_counts()
+            b_rows, b_busy, b_wall = device_profile(lambda: e.advance(2))
+            batched_fill_segments = e._program()[0].fill_segments
+        del e, sims
+    solo_s = solo_updates = 0
+    for i in range(len(members)):
+        s = from_state(i, "fused")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.engine._fused_program()
+        t1 = time.perf_counter()
+        s.advance(1)  # uploads the buffers
+        build_s["solo", i], first_s["solo", i] = t1 - t0, time.perf_counter() - t1
+        t0 = time.perf_counter()
+        s.advance(2)
+        solo_s += time.perf_counter() - t0
+        solo_updates += 2 * updates_per_coarse_step(s)
+        if i == big[0]:
+            reset_launches()
+            s.advance(1)
+            solo_step_launches = launch_counts()
+            s_rows, s_busy, s_wall = device_profile(lambda: s.advance(2))
+        del s
+    del states_after_first
+    say("[serving] program builds after the first event (s), per batched group and per solo member:",
+        json.dumps({f"{k[0]} {k[1]}": round(v, 3) for k, v in build_s.items()}),
+        f"(batched {sum(v for k, v in build_s.items() if k[0] == 'batched'):.3f} s in all, solo "
+        f"{sum(v for k, v in build_s.items() if k[0] == 'solo'):.3f} s); first coarse step with its upload (s):",
+        json.dumps({f"{k[0]} {k[1]}": round(v, 3) for k, v in first_s.items()}))
+    step_keys = ("lbm_halo_fill", "lbm_stream_collide")
+    # all four members on the roots (before the first event): one batched
+    # coarse step of M = 4 against one solo step
+    roots = [AMRLBM(serving_cfg("arena", over)) for over in members]
+    e = Ensemble(roots)
+    e.advance(1)
+    reset_launches()
+    e.advance(1)
+    roots_batched = launch_counts()
+    del e, roots
+    s = AMRLBM(serving_cfg("fused", members[0]))
+    s.advance(1)
+    reset_launches()
+    s.advance(1)
+    roots_solo = launch_counts()
+    del s
+    say(f"[serving] launches of one coarse step on the 64 roots: batched ({len(members)} members) "
+        f"{json.dumps({k: roots_batched[k] for k in step_keys})}, one solo fused member "
+        f"{json.dumps({k: roots_solo[k] for k in step_keys})}")
+    check(all(roots_batched[k] == roots_solo[k] > 0 for k in step_keys),
+          "a batched coarse step of all members launches what one solo fused coarse step launches")
+    say(f"[serving] launches of one steady coarse step on the forest {json.dumps(big_forest)}: batched "
+        f"({len(big)} members) {json.dumps({k: batched_step_launches[k] for k in step_keys})}, one solo fused member "
+        f"{json.dumps({k: solo_step_launches[k] for k in step_keys})}")
+    check(all(batched_step_launches[k] == solo_step_launches[k] > 0 for k in step_keys),
+          "a batched coarse step launches what one solo fused coarse step launches")
+    check(batched_step_launches["lbm_halo_fill"] == batched_fill_segments, "one fill launch per (level, segment) a substep")
+    batched_rate = batched_member_steps / batched_s
+    solo_rate = 2 * len(members) / solo_s
+    say(f"[serving] steady member-coarse-steps/s from the state after the first event (groups "
+        f"{[len(v) for v in groups.values()]}): batched {batched_rate:.3f} ({batched_updates / batched_s / 1e6:.1f} MLUPS), "
+        f"the {len(members)} solo fused runs back to back {solo_rate:.3f} ({solo_updates / solo_s / 1e6:.1f} MLUPS), "
+        f"ratio {batched_rate / solo_rate:.3f}")
+    say(f"[serving] profile of 2 steady batched coarse steps ({len(big)} members): device busy {b_busy:.3f} ms of "
+        f"{b_wall:.3f} ms wall, idle share {1 - b_busy / b_wall:.1%}; one solo member: {s_busy:.3f} ms of "
+        f"{s_wall:.3f} ms wall, idle share {1 - s_busy / s_wall:.1%}; device time ratio {b_busy / s_busy:.3f}")
+    for label, rows_, busy in (("batched", b_rows, b_busy), ("solo", s_rows, s_busy)):
+        say(f"[serving] {label}: {sum(r[2] for r in rows_)} kernels in the profile "
+            f"(the launch counts say {2 * sum(batched_step_launches[k] for k in step_keys)})")
+        for name, ms, count in rows_[:8]:
+            say(f"  {ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} {name[:110]}")
+    banned = [r[0] for r in b_rows if re.search(r"index|gather|scatter|cat", r[0], re.IGNORECASE)]
+    check(not banned, f"no index gather, scatter or cat in the steady batched step: {banned}")
+
+    # elastic resize at the cross-check's depth: fused_sharded resized 4 -> 2
+    # at step 4 (in memory, then through a disk checkpoint) continues to step
+    # 8 bitwise equal to an uninterrupted fused run
+    e_ref = AMRLBM(LidDrivenCavityConfig(stepping_mode="fused", kernel_backend="cuda", **CROSS_CHECK))
+    e_ref.run(8, amr_interval=4)
+    e_want, e_forest = interiors(e_ref), {(b.bid, b.level) for b in e_ref.forest.all_blocks()}
+    del e_ref
+    for via_disk in (False, True):
+        s = AMRLBM(LidDrivenCavityConfig(stepping_mode="fused_sharded", kernel_backend="cuda", **CROSS_CHECK))
+        s.run(4, amr_interval=4)
+        with tempfile.TemporaryDirectory() as tmp:
+            report = resize_ranks(s, 2, checkpoint_dir=Path(tmp) / "ckpt" if via_disk else None)
+        check(report.new_nranks == 2 == s.cfg.nranks and report.via_disk == via_disk, f"resized 4 -> 2: {report}")
+        s.run(4, amr_interval=4)
+        check(s.amr_cycles >= 1 and {(b.bid, b.level) for b in s.forest.all_blocks()} == e_forest,
+              "the resized run grew the fused run's forest")
+        got = interiors(s)
+        check(all(np.array_equal(arr, e_want[bid]) for bid, arr in got.items()),
+              "the resized run's interiors are bitwise the fused run's")
+        say(f"[serving] elastic: fused_sharded resized 4 -> 2 at step 4 ({'through a disk checkpoint' if via_disk else 'in memory'}, "
+            f"{report.seconds:.3f} s, rebalanced {report.rebalanced}) ends step 8 with all {len(got)} block interiors "
+            f"bitwise equal to an uninterrupted fused run")
+        del s
+    del e_want
 
     # -- 3. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
@@ -736,6 +1022,95 @@ def main() -> int:
         f"{kv_bound_ms / kv_ms:.1%} of bound")
     del got, want, payload, seg, out_s, fs_pdfs
 
+    # the member routes at main-path shapes: the serving members' level-2
+    # coefficients on M = 4 distinct states of the level-2 stack, stencil
+    # and fill, each held bitwise against M solo launches of the same kernel
+    M = len(members)
+    phys = [(omega_for_level(m["omega"], lmax), m["u_lid"]) for m in members]
+    mc = member_coeffs([o for o, _u in phys], [u for _o, u in phys], lattice=lattice, collision=cfg.collision,
+                       dtype=f_fine.dtype, device="cuda")
+    fm = torch.empty((M, *f_fine.shape), dtype=f_fine.dtype, device="cuda")
+    for m in range(M):
+        torch.mul(f_fine, 1.0 + 1e-3 * m, out=fm[m])
+    out_m = torch.empty_like(fm)
+    lbm_stream_collide(fm, m_fine, members=mc, out=out_m)
+    km_solo_err = 0.0
+    for m, (om, u) in enumerate(phys):
+        solo_out = lbm_stream_collide(fm[m], m_fine, omega=om, u_wall=u, lattice=lattice, collision=cfg.collision)
+        torch.cuda.synchronize()
+        km_solo_err = max(km_solo_err, max_err(out_m[m], solo_out))
+    del solo_out
+    check(km_solo_err == 0.0, f"the member stencil equals M solo launches bitwise ({km_solo_err})")
+    chunk = 64  # the plain version, 64 blocks at a time: its temporaries for the whole stack do not fit
+
+    def plain_members(compare=False):
+        worst = 0.0
+        for b0 in range(0, B2, chunk):
+            res = stream_collide_into(fm[:, b0:b0 + chunk], m_fine[b0:b0 + chunk], mc.host, lattice=lattice,
+                                      collision=cfg.collision)
+            if compare:
+                torch.testing.assert_close(out_m[:, b0:b0 + chunk], res, **TOL[torch.float32])
+                worst = max(worst, max_err(out_m[:, b0:b0 + chunk], res))
+        return worst
+
+    km_err = plain_members(compare=True)
+    km_ms = time_ms(lambda: lbm_stream_collide(fm, m_fine, members=mc, out=out_m), iters=20)
+    km_solos_ms = time_ms(lambda: [lbm_stream_collide(fm[m], m_fine, omega=om, u_wall=u, lattice=lattice,
+                                                      collision=cfg.collision, out=out_m[m])
+                                   for m, (om, u) in enumerate(phys)], iters=20)
+    km_plain_ms = time_ms(plain_members, iters=2, warmup=1)
+    fluid2 = int((m_fine == 0).sum())
+    km_bytes = 2 * fm.numel() * fm.element_size() + m_fine.numel() * m_fine.element_size() + mc.table.numel() * 4
+    km_bound_ms, km_by = max((km_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (M * fluid2 * flops_per_fluid_cell(lattice.Q, cfg.collision) / FP32_FLOPS_PER_S * 1e3,
+                              "operations"))
+    say(f"lbm_stream_collide[members] M={M} x level {lmax} B={B2} 34^3 D3Q19 TRT f32: max |err| {km_solo_err:.1e} "
+        f"against {M} solo launches, {km_err:.3e} against plain; kernel {km_ms:.4f} ms ({M} solo launches "
+        f"{km_solos_ms:.4f} ms), plain {km_plain_ms:.4f} ms (in chunks of {chunk} blocks), bound {km_bound_ms:.4f} ms "
+        f"({km_by}; {M} x the solo bound: {M * sten2_bound_ms:.4f} ms), {km_bound_ms / km_ms:.1%} of bound")
+    del fm, out_m
+
+    # the level-2 fill of the cavity for M members: member stacks of every level
+    stacks = []
+    for b in bufs:
+        st = torch.empty((M, *b.shape), dtype=b.dtype, device="cuda")
+        for m in range(M):
+            torch.mul(b, 1.0 + 1e-3 * m, out=st[m])
+        stacks.append(st)
+
+    def member_fill(fill_fn, work):
+        for t in tables[lmax]:
+            fill_fn(work[i2], work[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+
+    got_w, want_w = list(stacks), list(stacks)
+    got_w[i2], want_w[i2] = stacks[i2].clone(), stacks[i2].clone()
+    member_fill(lbm_halo_fill, got_w)
+    kf_solo_err = 0.0
+    for m in range(M):
+        solo_w = [st[m] for st in stacks]
+        solo_w[i2] = stacks[i2][m].clone()
+        member_fill(lbm_halo_fill, solo_w)
+        torch.cuda.synchronize()
+        kf_solo_err = max(kf_solo_err, max_err(got_w[i2][m], solo_w[i2]))
+    del solo_w
+    check(kf_solo_err == 0.0, f"the member fill equals M solo launches bitwise ({kf_solo_err})")
+    member_fill(halo_fill_ref, want_w)
+    torch.cuda.synchronize()
+    kf_err = max_err(got_w[i2], want_w[i2])
+    check(kf_err == 0.0, f"the member fill equals its plain version bitwise ({kf_err})")
+    solo_ws = [[st[m] for st in got_w] for m in range(M)]
+    kf_ms = time_ms(lambda: member_fill(lbm_halo_fill, got_w), iters=20)
+    kf_solos_ms = time_ms(lambda: [member_fill(lbm_halo_fill, w) for w in solo_ws], iters=20)
+    kf_plain_ms = time_ms(lambda: member_fill(halo_fill_ref, want_w), iters=2, warmup=1)
+    kf_bytes = M * (tr["rows"] + tr["src_own"] + tr["src_other"]) * row_bytes + tr["index_bytes"]
+    kf_bound_ms = kf_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"lbm_halo_fill[members] M={M} x level {lmax} ({rows2} ghost rows a member, {len(tables[lmax])} launches): "
+        f"max |err| {kf_solo_err:.1e} against {M} solo launches, {kf_err:.1e} against plain; kernel {kf_ms:.4f} ms "
+        f"({M} x {len(tables[lmax])} solo launches {kf_solos_ms:.4f} ms), plain {kf_plain_ms:.4f} ms, bound "
+        f"{kf_bound_ms:.4f} ms (bytes, the tables once; {M} x the solo bound: {M * fill_bound_ms:.4f} ms), "
+        f"{kf_bound_ms / kf_ms:.1%} of bound")
+    del stacks, got_w, want_w, solo_ws
+
     # small cases: stencil and slab form at D3Q27 / BGK / f64 / odd extents
     rng = np.random.default_rng(0)
     for lat, coll, dtype, shape in (
@@ -854,7 +1229,8 @@ def main() -> int:
         f"max |position diff| {tr_err:.3e} (limit 1e-10)")
 
     # -- 5. the kernels line and the result -------------------------------------
-    by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches}
+    by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
+               "serving": serving_launches}
 
     def path_launches(key):
         return {path: counts[key] for path, counts in by_path.items()}
@@ -891,6 +1267,21 @@ def main() -> int:
              max_abs_err=kv_err, ms=kv_ms, plain_ms=kv_plain_ms, bound_ms=kv_bound_ms, bound_by="bytes",
              library_ms=kv_library_ms, library="Tensor.index_put_",
              shape=f"message {m_v.src_rank}->{r_v}, {n_v} rows x {lattice.Q} f32 into level {dl_v}"),
+        # the member routes of both kernels on the serving path: one launch
+        # for all members of an ensemble
+        dict(name="lbm_stream_collide[members]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
+             launches=serving_launches["lbm_stream_collide[members]"],
+             launches_by_path=path_launches("lbm_stream_collide[members]"), max_abs_err=km_err,
+             max_abs_err_solo_launches=km_solo_err, ms=km_ms, solo_launches_ms=km_solos_ms, plain_ms=km_plain_ms,
+             bound_ms=km_bound_ms, bound_by=km_by, library_ms=None,
+             registers=member_stencil["registers"], spills=member_stencil["local_bytes"],
+             occupancy=member_stencil["occupancy"], shape=f"M={M} x level {lmax} B={B2} 34^3 D3Q19 TRT f32"),
+        dict(name="lbm_halo_fill[members]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
+             launches=serving_launches["lbm_halo_fill[members]"],
+             launches_by_path=path_launches("lbm_halo_fill[members]"), max_abs_err=kf_err,
+             max_abs_err_solo_launches=kf_solo_err, ms=kf_ms, solo_launches_ms=kf_solos_ms, plain_ms=kf_plain_ms,
+             bound_ms=kf_bound_ms, bound_by="bytes", library_ms=None,
+             shape=f"M={M} x level {lmax} fill, {rows2} ghost rows a member, D3Q19 f32"),
     ]
     say("card:", card_line())
     print(json.dumps({"kernels": kernels}))

@@ -48,6 +48,15 @@
 //     the list, and block slots[z] of f is read and of out written. The
 //     rank-sharded engine steps its interior blocks, then its boundary
 //     blocks, into one output tensor this way.
+//   * A member axis (the MEMBERS instantiations) steps M ensemble members
+//     that share one forest in one launch: f and out are (M * B, Q, X, Y, Z)
+//     views of an (M, B, ...) stack, grid z covers all M * B blocks, block
+//     b is member b / B and reads mask block b % B (the mask stack is
+//     shared). Each member's coefficients (lid[Q], om_a, om_b) are a row of
+//     a device table; the member index is uniform over a CTA, so the CTA
+//     stages its row in shared memory once, and the by-value coefficient
+//     struct is never indexed by a runtime member. A batch of M members
+//     thus launches what one member's step launches.
 //
 // Fill design: the TPU kernel took a padded (B, P, Q) slab of ghost values
 // a block, because one grid step owned one block. On the card that slab is
@@ -65,7 +74,10 @@
 //   * it writes into the ghost ring of the destination buffer in place. A
 //     fill racing a stencil's read would be wrong, so the launch boundary
 //     orders them; fill targets are ghost cells and fill sources interior
-//     cells, so fills of several levels never read what another wrote.
+//     cells, so fills of several levels never read what another wrote;
+//   * grid y is the member axis: member m of an ensemble's (M, B, ...)
+//     stacks offsets dst and src by m whole member stacks, and all members
+//     share one set of index tables (grid y = 1 for a solo fill).
 //
 // C interface: plain functions taking raw pointers and the CUDA stream,
 // returning cudaGetLastError() as an int, loaded from Python with ctypes.
@@ -152,6 +164,16 @@ struct Coefs {
   T om_b;
 };
 
+// The member axis of the MEMBERS instantiations: grid z covers blocks b0 ..
+// of an (M * B)-block stack; coef is the device table (M, Q + 2) of each
+// member's lid[Q], om_a, om_b in the working type. Unused (null) otherwise.
+template <typename T>
+struct Members {
+  const T* coef;
+  int B;
+  int b0;
+};
+
 // i in [-n, 2n): one period either way. A neighbour of a cell of the block,
 // and a cell of a mask tile (TY <= Y and TZ <= Z, so a tile and its ring
 // overhang the block by at most one period), are both in range.
@@ -179,13 +201,18 @@ __device__ __forceinline__ T trt(T fq, T fo, T feq, T feo, T om_p, T om_m) {
 
 // blockDim = (TZ, TY); grid = (tiles_y * tiles_z, X, B), or (..., X, S) over
 // a slot list of S entries, each in [0, nblocks) (checked; others step
-// nothing).
-template <typename T, int Q, bool TRT, bool SLOTS>
+// nothing), or (..., X, chunk) over an M-member stack from block mem.b0 on.
+template <typename T, int Q, bool TRT, bool SLOTS, bool MEMBERS>
 __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
     stream_collide_kernel(const T* __restrict__ f, const int32_t* __restrict__ mask,
                           T* __restrict__ out, const int32_t* __restrict__ slots,
-                          int nblocks, int X, int Y, int Z, int tiles_z, Coefs<T, Q> k) {
+                          int nblocks, int X, int Y, int Z, int tiles_z, Coefs<T, Q> k,
+                          Members<T> mem) {
+  static_assert(!(SLOTS && MEMBERS), "a slot list and a member axis do not combine");
   __shared__ uint8_t tile[kMaskTile];
+  // the CTA's member's coefficients (lid[Q], om_a, om_b); a placeholder in
+  // the solo instantiations, which read k instead
+  __shared__ T mcoef[MEMBERS ? Q + 2 : 1];
   const int TZ = blockDim.x;
   const int TY = blockDim.y;
   const int ty_tile = blockIdx.x / tiles_z;  // uniform over the CTA
@@ -194,12 +221,25 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   const int x = blockIdx.y;
   const int n = X * Y * Z;  // the wrapper checks that it fits 31 bits
   int64_t b = blockIdx.z;
+  int64_t b_mask = b;
   if (SLOTS) {
     b = slots[blockIdx.z];
     if (b < 0 || b >= nblocks) return;  // uniform over the CTA
+    b_mask = b;
+  }
+  if constexpr (MEMBERS) {
+    // member and mask block: one uniform 32-bit division a CTA
+    const int bm = static_cast<int>(blockIdx.z) + mem.b0;
+    const int m = bm / mem.B;
+    b = bm;
+    b_mask = bm - m * mem.B;
+    // the row is staged before the __syncthreads that publishes the mask
+    // tile, and read only after it
+    const T* __restrict__ row = mem.coef + m * (Q + 2);
+    for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < Q + 2; i += blockDim.x * blockDim.y) mcoef[i] = row[i];
   }
   const T* __restrict__ fb = f + b * Q * n;
-  const int32_t* __restrict__ mb = mask + b * n;
+  const int32_t* __restrict__ mb = mask + b_mask * n;
   T* __restrict__ ob = out + b * Q * n;
 
   const int y = y0 + threadIdx.y;
@@ -286,7 +326,13 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
     const int ms = tile[centre - (cx_of(q) * SY + cy_of(q)) * SZ - cz_of(q)];
     if (ms != kFluid) {
       fin[q] = fc[opposite_of(q) * n];  // replaces the dead pulled value
-      if (ms == kLid) fin[q] = fin[q] + k.lid[q];
+      if (ms == kLid) {
+        if constexpr (MEMBERS) {
+          fin[q] = fin[q] + mcoef[q];
+        } else {
+          fin[q] = fin[q] + k.lid[q];
+        }
+      }
     }
   }
 
@@ -307,16 +353,21 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   uz = uz * inv_rho;
   const T usq = ux * ux + uy * uy + uz * uz;
 
+  T om_a = k.om_a, om_b = k.om_b;
+  if constexpr (MEMBERS) {
+    om_a = mcoef[Q];
+    om_b = mcoef[Q + 1];
+  }
   if (!TRT) {
-    const T om = k.om_a;
+    const T om = om_a;
 #pragma unroll
     for (int q = 0; q < Q; ++q, o += n) {
       const T fe = equilibrium<T, Q>(q, rho, ux, uy, uz, usq);
       *o = fin[q] + om * (fe - fin[q]);
     }
   } else {
-    const T om_p = k.om_a;
-    const T om_m = k.om_b;
+    const T om_p = om_a;
+    const T om_m = om_b;
     const T fe0 = equilibrium<T, Q>(0, rho, ux, uy, uz, usq);
     *o = trt(fin[0], fin[0], fe0, fe0, om_p, om_m);
     o += n;
@@ -345,16 +396,19 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 // (N, Q) array src, skipped where valid[i] is 0 unless valid is null
 // (values). dst and src may be
 // the same buffer: sources are interior cells, targets ghost cells, so no
-// location is both read and written.
+// location is both read and written. Grid y is the member: dst and src
+// advance by dst_mstride and src_mstride elements a member (0 for values).
 template <typename T, int Q, int KIND>
 __global__ void __launch_bounds__(kThreads)
     halo_fill_kernel(T* __restrict__ dst, const T* __restrict__ src, int64_t rows, int n,
                      const int32_t* __restrict__ dst_slot, const int32_t* __restrict__ dst_cell,
                      const int32_t* __restrict__ src_slot, const int32_t* __restrict__ src_cell,
-                     const uint8_t* __restrict__ valid) {
+                     const uint8_t* __restrict__ valid, int64_t dst_mstride, int64_t src_mstride) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (row >= rows) return;
   if (KIND == kFillValues && valid != nullptr && !valid[row]) return;
+  dst += blockIdx.y * dst_mstride;
+  src += blockIdx.y * src_mstride;
   T* __restrict__ d = dst + static_cast<int64_t>(dst_slot[row]) * Q * n + dst_cell[row];
   if (KIND == kFillCopy) {
     const T* __restrict__ s = src + static_cast<int64_t>(src_slot[row]) * Q * n + src_cell[row];
@@ -388,6 +442,22 @@ __global__ void __launch_bounds__(kThreads)
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// The stencil's CTA shape: z tiles as wide as Z allows, then as many y rows
+// as fit; both balanced so the last tile overhangs the block as little as
+// it can.
+struct StencilTiles {
+  int TZ, TY, tiles_z, tiles_y;
+  StencilTiles(int Y, int Z) {
+    tiles_z = ceil_div(Z, kThreads);
+    TZ = ceil_div(Z, tiles_z);
+    TY = kThreads / TZ < Y ? kThreads / TZ : Y;
+    tiles_y = ceil_div(Y, TY);
+    TY = ceil_div(Y, tiles_y);
+  }
+};
+
+constexpr int64_t kMaxGridZ = 65535;
+
 // B blocks of f, or the S = B entries of slots (non-null) into a stack of
 // nblocks blocks.
 template <typename T, int Q, bool TRT>
@@ -398,27 +468,21 @@ cudaError_t launch_stencil(const void* f, const void* mask, void* out, const voi
   for (int q = 0; q < Q; ++q) k.lid[q] = static_cast<T>(lid[q]);
   k.om_a = static_cast<T>(om_a);
   k.om_b = static_cast<T>(om_b);
-  // z tiles as wide as Z allows, then as many y rows as fit; both balanced
-  // so the last tile overhangs the block as little as it can
-  const int tiles_z = ceil_div(Z, kThreads);
-  const int TZ = ceil_div(Z, tiles_z);
-  int TY = kThreads / TZ < Y ? kThreads / TZ : Y;
-  const int tiles_y = ceil_div(Y, TY);
-  TY = ceil_div(Y, tiles_y);
+  const StencilTiles t(Y, Z);
   const int64_t n = static_cast<int64_t>(X) * Y * Z;
-  constexpr int64_t kMaxGridZ = 65535;
+  const Members<T> none{nullptr, 0, 0};
   if (X > 65535 || nblocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   for (int64_t b0 = 0; b0 < B; b0 += kMaxGridZ) {
     const int64_t nb = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
-    const dim3 grid(tiles_y * tiles_z, X, static_cast<unsigned>(nb));
+    const dim3 grid(t.tiles_y * t.tiles_z, X, static_cast<unsigned>(nb));
     if (slots != nullptr) {
-      stream_collide_kernel<T, Q, TRT, true><<<grid, dim3(TZ, TY), 0, stream>>>(
+      stream_collide_kernel<T, Q, TRT, true, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
           static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out),
-          static_cast<const int32_t*>(slots) + b0, static_cast<int>(nblocks), X, Y, Z, tiles_z, k);
+          static_cast<const int32_t*>(slots) + b0, static_cast<int>(nblocks), X, Y, Z, t.tiles_z, k, none);
     } else {
-      stream_collide_kernel<T, Q, TRT, false><<<grid, dim3(TZ, TY), 0, stream>>>(
+      stream_collide_kernel<T, Q, TRT, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
           static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
-          static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, tiles_z, k);
+          static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, t.tiles_z, k, none);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -426,18 +490,58 @@ cudaError_t launch_stencil(const void* f, const void* mask, void* out, const voi
   return cudaSuccess;
 }
 
+// M members of B blocks each: f and out hold M * B blocks, mask B, coef the
+// (M, Q + 2) table.
+template <typename T, int Q, bool TRT>
+cudaError_t launch_stencil_members(const void* f, const void* mask, void* out, const void* coef,
+                                   int64_t M, int64_t B, int X, int Y, int Z, cudaStream_t stream) {
+  const StencilTiles t(Y, Z);
+  const int64_t total = M * B;
+  if (X > 65535 || total > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const Coefs<T, Q> unused{};
+  for (int64_t b0 = 0; b0 < total; b0 += kMaxGridZ) {
+    const int64_t nb = total - b0 < kMaxGridZ ? total - b0 : kMaxGridZ;
+    const dim3 grid(t.tiles_y * t.tiles_z, X, static_cast<unsigned>(nb));
+    const Members<T> mem{static_cast<const T*>(coef), static_cast<int>(B), static_cast<int>(b0)};
+    stream_collide_kernel<T, Q, TRT, false, true><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
+        static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out), nullptr,
+        static_cast<int>(total), X, Y, Z, t.tiles_z, unused, mem);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Fill args shared by every kind: members (grid y) and each member's stride
+// in dst and in src, in elements.
+struct FillMembers {
+  int M;
+  int64_t dst_stride;
+  int64_t src_stride;
+};
+
 template <typename T, int Q, int KIND>
 cudaError_t launch_fill(void* dst, const void* src, int64_t rows, int n, const void* dst_slot,
                         const void* dst_cell, const void* src_slot, const void* src_cell,
-                        const void* valid, cudaStream_t stream) {
+                        const void* valid, FillMembers mem, cudaStream_t stream) {
   const int64_t grid = (rows + kThreads - 1) / kThreads;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  halo_fill_kernel<T, Q, KIND><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+  if (grid > 0x7fffffff || mem.M < 1 || mem.M > 65535) return cudaErrorInvalidConfiguration;
+  halo_fill_kernel<T, Q, KIND><<<dim3(static_cast<unsigned>(grid), mem.M), kThreads, 0, stream>>>(
       static_cast<T*>(dst), static_cast<const T*>(src), rows, n,
       static_cast<const int32_t*>(dst_slot), static_cast<const int32_t*>(dst_cell),
       static_cast<const int32_t*>(src_slot), static_cast<const int32_t*>(src_cell),
-      static_cast<const uint8_t*>(valid));
+      static_cast<const uint8_t*>(valid), mem.dst_stride, mem.src_stride);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_members(int Q, int trt, const void* f, const void* mask, void* out,
+                             const void* coef, int64_t M, int64_t B, int X, int Y, int Z, cudaStream_t s) {
+  if (Q == 19 && trt) return launch_stencil_members<T, 19, true>(f, mask, out, coef, M, B, X, Y, Z, s);
+  if (Q == 19) return launch_stencil_members<T, 19, false>(f, mask, out, coef, M, B, X, Y, Z, s);
+  if (Q == 27 && trt) return launch_stencil_members<T, 27, true>(f, mask, out, coef, M, B, X, Y, Z, s);
+  if (Q == 27) return launch_stencil_members<T, 27, false>(f, mask, out, coef, M, B, X, Y, Z, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -458,19 +562,19 @@ cudaError_t dispatch_stencil(int Q, int trt, const void* f, const void* mask, vo
 template <typename T, int Q>
 cudaError_t dispatch_fill_kind(int kind, void* dst, const void* src, int64_t rows, int n,
                                const void* ds, const void* dc, const void* ss, const void* sc,
-                               const void* valid, cudaStream_t s) {
-  if (kind == kFillCopy) return launch_fill<T, Q, kFillCopy>(dst, src, rows, n, ds, dc, ss, sc, valid, s);
-  if (kind == kFillFine) return launch_fill<T, Q, kFillFine>(dst, src, rows, n, ds, dc, ss, sc, valid, s);
-  if (kind == kFillValues) return launch_fill<T, Q, kFillValues>(dst, src, rows, n, ds, dc, ss, sc, valid, s);
+                               const void* valid, FillMembers m, cudaStream_t s) {
+  if (kind == kFillCopy) return launch_fill<T, Q, kFillCopy>(dst, src, rows, n, ds, dc, ss, sc, valid, m, s);
+  if (kind == kFillFine) return launch_fill<T, Q, kFillFine>(dst, src, rows, n, ds, dc, ss, sc, valid, m, s);
+  if (kind == kFillValues) return launch_fill<T, Q, kFillValues>(dst, src, rows, n, ds, dc, ss, sc, valid, m, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t dispatch_fill(int Q, int kind, void* dst, const void* src, int64_t rows, int n,
                           const void* ds, const void* dc, const void* ss, const void* sc,
-                          const void* valid, cudaStream_t s) {
-  if (Q == 19) return dispatch_fill_kind<T, 19>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, s);
-  if (Q == 27) return dispatch_fill_kind<T, 27>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, s);
+                          const void* valid, FillMembers m, cudaStream_t s) {
+  if (Q == 19) return dispatch_fill_kind<T, 19>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, m, s);
+  if (Q == 27) return dispatch_fill_kind<T, 27>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, m, s);
   return cudaErrorInvalidValue;
 }
 
@@ -496,10 +600,12 @@ template <typename T, int Q>
 cudaError_t attrs_q(int which, int variant, int* out) {
   if (which == 0) {
     switch (variant) {
-      case 0: return attrs_of(stream_collide_kernel<T, Q, false, false>, out);
-      case 1: return attrs_of(stream_collide_kernel<T, Q, true, false>, out);
-      case 2: return attrs_of(stream_collide_kernel<T, Q, false, true>, out);
-      case 3: return attrs_of(stream_collide_kernel<T, Q, true, true>, out);
+      case 0: return attrs_of(stream_collide_kernel<T, Q, false, false, false>, out);
+      case 1: return attrs_of(stream_collide_kernel<T, Q, true, false, false>, out);
+      case 2: return attrs_of(stream_collide_kernel<T, Q, false, true, false>, out);
+      case 3: return attrs_of(stream_collide_kernel<T, Q, true, true, false>, out);
+      case 4: return attrs_of(stream_collide_kernel<T, Q, false, false, true>, out);
+      case 5: return attrs_of(stream_collide_kernel<T, Q, true, false, true>, out);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -529,23 +635,42 @@ extern "C" int lbm_stream_collide(int dtype, int Q, int trt, const void* f, cons
   return cudaErrorInvalidValue;
 }
 
+// The member axis of the stencil: f and out are (M * B, Q, X, Y, Z) views of
+// M members' stacks, mask (B, X, Y, Z) is shared by every member, and coef
+// is a device array (M, Q + 2) in the working type holding each member's
+// lid[Q], om_a, om_b (BGK: om_b unused). Returns the cudaError_t of the
+// launch.
+extern "C" int lbm_stream_collide_members(int dtype, int Q, int trt, const void* f, const void* mask,
+                                          void* out, const void* coef, long long M, long long B,
+                                          int X, int Y, int Z, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (M * B * X * Y * Z == 0) return cudaSuccess;
+  if (dtype == 0) return dispatch_members<float>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, s);
+  if (dtype == 1) return dispatch_members<double>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, s);
+  return cudaErrorInvalidValue;
+}
+
 // The ghost fill, in place into dst. kind: 0 = copy (same-level and coarse
 // sources; src_slot, src_cell (rows,)), 1 = fine (src_slot (rows,), src_cell
 // (rows, 8)), 2 = values (src an (rows, Q) array; valid (rows,) bytes, or
 // null: every row valid). All
-// index arrays int32; n = cells of one block.
+// index arrays int32; n = cells of one block. members (grid y): the fill
+// runs for each of them, member m's dst and src offset by m * dst_mstride
+// and m * src_mstride elements (1, 0, 0 for one stack).
 extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* src,
                              long long rows, int n, const void* dst_slot, const void* dst_cell,
                              const void* src_slot, const void* src_cell, const void* valid,
+                             int members, long long dst_mstride, long long src_mstride,
                              void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
-  if (dtype == 0) return dispatch_fill<float>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, s);
-  if (dtype == 1) return dispatch_fill<double>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, s);
+  const FillMembers m{members, dst_mstride, src_mstride};
+  if (dtype == 0) return dispatch_fill<float>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, m, s);
+  if (dtype == 1) return dispatch_fill<double>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, m, s);
   return cudaErrorInvalidValue;
 }
 
-// which: 0 = stencil (variant = trt + 2 * slots), 1 = fill (variant = kind). out[5]:
+// which: 0 = stencil (variant = trt + 2 * slots + 4 * members), 1 = fill (variant = kind). out[5]:
 // registers, local bytes, static shared bytes, CTAs per SM, threads per CTA.
 extern "C" int lbm_kernel_attrs(int which, int dtype, int Q, int variant, int* out) {
   if (dtype == 0 && Q == 19) return attrs_q<float, 19>(which, variant, out);

@@ -23,6 +23,11 @@ launched raises; nothing falls back.
   With ``slots`` it steps only the listed blocks of the stack into a given
   ``out`` (grid z indexes the list): the rank-sharded engine's interior and
   boundary halves write one output tensor this way, gathering no sub-stack.
+  With ``members`` (:class:`MemberCoeffs`) it steps an ensemble's member
+  stack ``(M, B, Q, X, Y, Z)`` over one shared mask stack in one launch,
+  each member with its own coefficients from a device table that each CTA
+  stages in shared memory: the counterpart of the JAX ensemble's ``vmap``,
+  so a batch of M members launches what one member's step launches.
 * :func:`lbm_halo_fill` is the ghost fill of the main path: one segment of
   a level's merged fill, read straight from the source level's buffer
   (``same``/``coarse``: one cell; ``fine``: the mean of an octet) and
@@ -31,7 +36,9 @@ launched raises; nothing falls back.
   are sorted by (dst slot, dst cell), one thread a row, so for each q a
   warp touches neighbouring cells of one q-plane. Its ``"values"`` kind
   writes the rows of an (N, Q) array instead: one segment of a rank's
-  inbound halo message, in the message's own row order.
+  inbound halo message, in the message's own row order. Given member
+  stacks ``(M, B, Q, X, Y, Z)`` it fills the segment of all M members in
+  one launch (grid y is the member), through one set of index tables.
 * :func:`lbm_stream_collide_halo` replaces ``lbm_stream_collide_halo_pallas``
   (``_halo_kernel``) at its interface: the padded (B, P, Q) ghost slab.
   Its CUDA path is the fill kernel reading the slab's valid rows, then the
@@ -48,15 +55,18 @@ makes successive steps a ping-pong between two buffers per level.
 
 Launch counts: each wrapper carries a plain integer ``launches`` that it
 bumps where it launches its kernel, and nowhere else; beside it,
-``lbm_stream_collide.slot_launches`` counts the launches over a slot list
-and ``lbm_halo_fill.kind_launches`` the fill launches by kind (``copy`` for
-``same``/``coarse``, ``fine``, ``values``). :func:`reset_launches` zeroes
-them all.
+``lbm_stream_collide.slot_launches`` counts the launches over a slot list,
+``lbm_stream_collide.member_launches`` those over a member axis, and
+``lbm_halo_fill.kind_launches`` the fill launches by kind (``copy`` for
+``same``/``coarse``, ``fine``, ``values``; ``copy+members`` and
+``fine+members`` over a member axis). :func:`reset_launches` zeroes them
+all.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -66,6 +76,7 @@ from .ref import (
     _np_dtype,
     collision_coeffs,
     halo_fill_ref,
+    stack_coeffs,
     stream_collide_halo_ref,
     stream_collide_into,
 )
@@ -74,6 +85,8 @@ __all__ = [
     "lbm_stream_collide",
     "lbm_stream_collide_halo",
     "lbm_halo_fill",
+    "MemberCoeffs",
+    "member_coeffs",
     "kernel_attributes",
     "reset_launches",
 ]
@@ -82,6 +95,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _FILL_VALUES = 2
 FILL_KINDS = {"same": 0, "coarse": 0, "fine": 1, "values": _FILL_VALUES}
 _KIND_NAMES = ("copy", "fine", "values")  # by kernel code
+_MEMBER_KIND_NAMES = ("copy+members", "fine+members")  # by kernel code
 
 
 def _kernel_args(
@@ -111,6 +125,50 @@ def _kernel_args(
         scal = (1, float(coeffs["om_p"]), float(coeffs["om_m"]))
     lid = np.ascontiguousarray(coeffs["lid"], dtype=np.float64)
     return coeffs, scal, lid
+
+
+@dataclass(frozen=True)
+class MemberCoeffs:
+    """The collision coefficients of an ensemble's M members at one level,
+    for the member axis of :func:`lbm_stream_collide`. ``host`` is the
+    :func:`~.ref.stack_coeffs` dict the plain version takes (``lid``
+    ``(M, Q)``, each rate ``(M,)``); ``table`` holds the same values as the
+    kernel's ``(M, Q + 2)`` device table (``lid[Q]``, ``om_a``, ``om_b``)
+    in the field's dtype. Built by :func:`member_coeffs`."""
+
+    lattice: Lattice
+    collision: str
+    host: dict
+    table: torch.Tensor
+
+    @property
+    def size(self) -> int:
+        return self.table.shape[0]
+
+
+def member_coeffs(
+    omegas,
+    u_walls,
+    *,
+    lattice: Lattice = D3Q19,
+    collision: str = "bgk",
+    magic: float = 3.0 / 16.0,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> MemberCoeffs:
+    """Each member's coefficients from :func:`~.ref.collision_coeffs`,
+    rounded to ``dtype`` exactly as a solo launch's are (:func:`_kernel_args`),
+    stacked over members for both paths."""
+    per, rows = [], []
+    for omega, u_wall in zip(omegas, u_walls, strict=True):
+        coeffs, (_trt, om_a, om_b), lid = _kernel_args(
+            dtype, omega=omega, lattice=lattice, u_wall=u_wall, collision=collision, magic=magic,
+        )
+        per.append(coeffs)
+        rows.append(np.concatenate([lid, [om_a, om_b]]))
+    # float64 rows of values already rounded to dtype: the cast is exact
+    table = torch.as_tensor(np.stack(rows), dtype=dtype, device=device)
+    return MemberCoeffs(lattice, collision, stack_coeffs(per), table)
 
 
 def _check_block_stack(f: torch.Tensor, Q: int) -> None:
@@ -174,37 +232,48 @@ def lbm_stream_collide(
     f: torch.Tensor,
     mask: torch.Tensor,
     *,
-    omega: float,
+    omega: float | None = None,
     lattice: Lattice = D3Q19,
     u_wall: tuple[float, float, float] = (0.0, 0.0, 0.0),
     collision: str = "bgk",
     magic: float = 3.0 / 16.0,
     slots: torch.Tensor | None = None,
     out: torch.Tensor | None = None,
+    members: MemberCoeffs | None = None,
 ) -> torch.Tensor:
-    """Fused stream+collide over a stack of blocks.
+    """Fused stream+collide over a stack of blocks, or over the member
+    stacks of an ensemble.
 
     Args:
-      f:     (B, Q, X, Y, Z) post-collision PDFs (ghost layer included).
-      mask:  (B, X, Y, Z) int32 cell types (0 fluid / 1 wall / 2 lid).
-      slots: optional (S,) int32 block indices on ``f``'s device, each in
-             [0, B): step only those blocks (the caller builds the list on
-             the host and checks its range; the kernel steps nothing for an
-             index outside it). Blocks not listed are left as ``out`` has
-             them.
-      out:   optional (B, Q, X, Y, Z) output, ``f``'s dtype and device; it
-             must not be ``f`` (the stencil pulls from its input).
+      f:       (B, Q, X, Y, Z) post-collision PDFs (ghost layer included);
+               with ``members``, (M, B, Q, X, Y, Z): M members' stacks.
+      mask:    (B, X, Y, Z) int32 cell types (0 fluid / 1 wall / 2 lid),
+               shared by every member.
+      omega:   relaxation rate of a solo stack (with ``u_wall``,
+               ``collision``, ``magic`` and ``lattice``); not given with
+               ``members``, which carry each member's coefficients.
+      slots:   optional (S,) int32 block indices on ``f``'s device, each in
+               [0, B): step only those blocks (the caller builds the list on
+               the host and checks its range; the kernel steps nothing for
+               an index outside it). Blocks not listed are left as ``out``
+               has them. Not with ``members``.
+      out:     optional output shaped like ``f``, ``f``'s dtype and device;
+               it must not be ``f`` (the stencil pulls from its input).
+      members: optional :class:`MemberCoeffs` of the M members, its table
+               on ``f``'s device in ``f``'s dtype.
     Returns:
       ``out``, or a new tensor when it is not given.
     """
+    if members is not None:
+        if omega is not None or slots is not None:
+            raise ValueError("a member stack takes its coefficients from members, and no slot list")
+        return _stream_collide_members(f, mask, members, out)
+    if omega is None:
+        raise TypeError("lbm_stream_collide needs omega, or members for a member stack")
     _check(f, mask, lattice)
     if slots is not None and (slots.dim() != 1 or slots.dtype != torch.int32 or slots.device != f.device):
         raise ValueError(f"slots must be (S,) int32 on {f.device}, got {tuple(slots.shape)} {slots.dtype} {slots.device}")
-    if out is not None:
-        if out.shape != f.shape or out.dtype != f.dtype or out.device != f.device:
-            raise ValueError(f"out must be {tuple(f.shape)} {f.dtype} on {f.device}")
-        if out.data_ptr() == f.data_ptr():
-            raise ValueError("out must not be f: the stencil pulls from its input")
+    _check_out(f, out)
     coeffs, (trt, om_a, om_b), lid = _kernel_args(
         f.dtype, omega=omega, lattice=lattice, u_wall=u_wall,
         collision=collision, magic=magic,
@@ -222,6 +291,45 @@ def lbm_stream_collide(
     return out
 
 
+def _check_out(f: torch.Tensor, out: torch.Tensor | None) -> None:
+    if out is not None:
+        if out.shape != f.shape or out.dtype != f.dtype or out.device != f.device:
+            raise ValueError(f"out must be {tuple(f.shape)} {f.dtype} on {f.device}")
+        if out.data_ptr() == f.data_ptr():
+            raise ValueError("out must not be f: the stencil pulls from its input")
+
+
+def _stream_collide_members(
+    f: torch.Tensor, mask: torch.Tensor, members: MemberCoeffs, out: torch.Tensor | None
+) -> torch.Tensor:
+    """The member route of :func:`lbm_stream_collide`."""
+    lattice = members.lattice
+    if f.dim() != 6 or f.shape[0] != members.size:
+        raise ValueError(f"a member stack must be ({members.size}, B, {lattice.Q}, X, Y, Z), got {tuple(f.shape)}")
+    M, B = f.shape[:2]
+    _check(f[0], mask, lattice)
+    table = members.table
+    if tuple(table.shape) != (M, lattice.Q + 2) or table.dtype != f.dtype or table.device != f.device:
+        raise ValueError(f"the member table must be ({M}, {lattice.Q + 2}) {f.dtype} on {f.device}, "
+                         f"got {tuple(table.shape)} {table.dtype} {table.device}")
+    _check_out(f, out)
+    if f.device.type == "cpu":
+        return stream_collide_into(f, mask, members.host, lattice=lattice, collision=members.collision, out=out)
+    _check_card_operands(f[0], f, mask, table, *(t for t in (out,) if t is not None))
+    lib = _library()
+    if out is None:
+        out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
+    _Q, X, Y, Z = f.shape[2:]
+    err = lib.lbm_stream_collide_members(
+        _DTYPE_CODE[f.dtype], lattice.Q, int(members.collision == "trt"), f.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), table.data_ptr(), M, B, X, Y, Z, _stream_ptr(f.device),
+    )
+    _raise_on(err, "lbm_stream_collide (members)")
+    lbm_stream_collide.launches += 1
+    lbm_stream_collide.member_launches += 1
+    return out
+
+
 def lbm_halo_fill(
     dst: torch.Tensor,
     src: torch.Tensor,
@@ -236,9 +344,12 @@ def lbm_halo_fill(
     rows of an array.
 
     Args:
-      dst:      (B_dst, Q, X, Y, Z) destination level's pre-step PDFs.
+      dst:      (B_dst, Q, X, Y, Z) destination level's pre-step PDFs, or
+                an ensemble's (M, B_dst, Q, X, Y, Z) member stacks: every
+                member's segment is filled, in one launch.
       src:      (B_src, Q, X, Y, Z) source level's pre-step PDFs (may be
-                ``dst`` itself for a same-level segment); for ``"values"``
+                ``dst`` itself for a same-level segment), (M, B_src, Q, X,
+                Y, Z) with member stacks; for ``"values"`` (no member axis)
                 an (N, Q) array whose row i fills row i's target.
       kind:     ``"same"``, ``"coarse"``, ``"fine"`` or ``"values"``.
       dst_slot, dst_cell: (N,) int32 target block and flat cell.
@@ -246,10 +357,14 @@ def lbm_halo_fill(
       src_cell: (N,) int32 source cell, or (N, 8) for ``"fine"`` (the octet
                 in canonical order, averaged); None for ``"values"``.
     """
-    Q = dst.shape[1] if dst.dim() == 5 else -1
-    _check_block_stack(dst, Q)
+    lead = 1 if dst.dim() == 6 else 0  # the member axis
+    stack = dst[0] if lead else dst
+    Q = stack.shape[1] if stack.dim() == 5 else -1
+    _check_block_stack(stack, Q)
     if kind not in FILL_KINDS:
         raise ValueError(f"unknown fill segment kind {kind!r}")
+    if lead and kind == "values":
+        raise ValueError("the values fill takes no member axis")
     N = dst_slot.shape[0] if dst_slot.dim() == 1 else -1
     if kind == "values":
         if tuple(src.shape) != (N, Q) or src.dtype != dst.dtype:
@@ -258,7 +373,8 @@ def lbm_halo_fill(
             raise ValueError("a values fill takes no source indices")
         indices = (("dst_slot", dst_slot, (N,)), ("dst_cell", dst_cell, (N,)))
     else:
-        if src.dim() != 5 or src.shape[1:] != dst.shape[1:] or src.dtype != dst.dtype:
+        if (src.dim() != dst.dim() or src.shape[:lead] != dst.shape[:lead]
+                or src.shape[lead + 1:] != dst.shape[lead + 1:] or src.dtype != dst.dtype):
             raise ValueError(f"src {tuple(src.shape)} {src.dtype} does not match dst {tuple(dst.shape)} {dst.dtype}")
         cell_shape = (N, 8) if kind == "fine" else (N,)
         indices = (
@@ -278,15 +394,18 @@ def lbm_halo_fill(
         raise ValueError("the fill's operands must be contiguous")
     if N == 0:
         return
+    code = FILL_KINDS[kind]
+    members, dst_stride, src_stride = (dst.shape[0], dst[0].numel(), src[0].numel()) if lead else (1, 0, 0)
     err = _library().lbm_halo_fill(
-        _DTYPE_CODE[dst.dtype], Q, FILL_KINDS[kind], dst.data_ptr(), src.data_ptr(), N,
-        dst.shape[2] * dst.shape[3] * dst.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
+        _DTYPE_CODE[dst.dtype], Q, code, dst.data_ptr(), src.data_ptr(), N,
+        stack.shape[2] * stack.shape[3] * stack.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
         None if src_slot is None else src_slot.data_ptr(),
-        None if src_cell is None else src_cell.data_ptr(), None, _stream_ptr(dst.device),
+        None if src_cell is None else src_cell.data_ptr(), None,
+        members, dst_stride, src_stride, _stream_ptr(dst.device),
     )
     _raise_on(err, "lbm_halo_fill")
     lbm_halo_fill.launches += 1
-    lbm_halo_fill.kind_launches[_KIND_NAMES[FILL_KINDS[kind]]] += 1
+    lbm_halo_fill.kind_launches[(_MEMBER_KIND_NAMES if lead else _KIND_NAMES)[code]] += 1
 
 
 def lbm_stream_collide_halo(
@@ -344,7 +463,7 @@ def lbm_stream_collide_halo(
     err = lib.lbm_halo_fill(
         _DTYPE_CODE[f.dtype], Q, _FILL_VALUES, f.data_ptr(), halo_vals.data_ptr(), B * P,
         X * Y * Z, slot.data_ptr(), halo_cell.data_ptr(), None, None,
-        halo_valid.data_ptr(), _stream_ptr(f.device),
+        halo_valid.data_ptr(), 1, 0, 0, _stream_ptr(f.device),
     )
     _raise_on(err, "lbm_stream_collide_halo (fill)")
     out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
@@ -357,8 +476,9 @@ def reset_launches() -> None:
     """Zero every launch count of the wrappers."""
     lbm_stream_collide.launches = 0
     lbm_stream_collide.slot_launches = 0
+    lbm_stream_collide.member_launches = 0
     lbm_halo_fill.launches = 0
-    lbm_halo_fill.kind_launches = dict.fromkeys(_KIND_NAMES, 0)
+    lbm_halo_fill.kind_launches = dict.fromkeys(_KIND_NAMES + _MEMBER_KIND_NAMES, 0)
     lbm_stream_collide_halo.launches = 0
 
 
@@ -373,7 +493,8 @@ def kernel_attributes() -> list[dict]:
     lib = _library()
     rows = []
     out = (ctypes.c_int * 5)()
-    variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"), (2, "bgk+slots"), (3, "trt+slots"))]
+    variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"), (2, "bgk+slots"), (3, "trt+slots"),
+                                                        (4, "bgk+members"), (5, "trt+members"))]
     variants += [("fill", 1, v, name) for v, name in ((0, "copy"), (1, "fine"), (_FILL_VALUES, "values"))]
     for dtype, dcode in (("f32", 0), ("f64", 1)):
         for Q in (19, 27):

@@ -16,6 +16,11 @@ backend the fill values are gathered with PyTorch index ops and scattered
 into a copy. A coarse step is a plain Python loop over its ``2^lmax``
 substeps with no host transfer in it.
 
+The ensemble superstep (:func:`make_ensemble_superstep`) is the fused
+superstep over an ensemble's member stacks ``(M, B, Q, X, Y, Z)``: the same
+fills and stencils, each launched once for all M members through the
+kernels' member axis, with per-member coefficients as operands.
+
 The rank-sharded entry points (:func:`make_rank_emit`,
 :func:`make_rank_absorb`, :func:`make_rank_absorb_split`) run one rank's
 side of a sharded substep over that rank's own buffers: emit gathers the
@@ -37,12 +42,14 @@ import torch
 
 from ...lbm.halo import lower_halo_fill
 from ...lbm.lattice import D3Q19, Lattice
-from .lbm_collide import lbm_halo_fill, lbm_stream_collide
+from .lbm_collide import MemberCoeffs, lbm_halo_fill, lbm_stream_collide
 from .ref import (
     _np_dtype,
     collision_coeffs,
+    halo_fill_ref,
     precompute_stream_masks,
     stream_collide_halo_ref,
+    stream_collide_into,
     stream_collide_ref,
 )
 
@@ -55,6 +62,8 @@ __all__ = [
     "HaloStep",
     "apply_compiled_ghost_plan",
     "make_fused_superstep",
+    "make_ensemble_superstep",
+    "substep_patterns",
     "make_rank_emit",
     "boundary_slot_sets",
     "make_rank_absorb",
@@ -412,6 +421,12 @@ def apply_compiled_ghost_plan(plan, bufs: dict[int, np.ndarray | torch.Tensor]) 
     return dict(zip(levels, out))
 
 
+def substep_patterns(lmax: int) -> list[int]:
+    """Activity pattern of each substep of a coarse step: the trailing zeros
+    of ``s`` (``s = 0`` activates every level)."""
+    return [lmax if s == 0 else min((s & -s).bit_length() - 1, lmax) for s in range(1 << lmax)]
+
+
 def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory):
     """One full coarse step — the whole ``2^lmax`` substep cycle with
     interleaved ghost exchange — as one device-resident function.
@@ -456,7 +471,6 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
     levels = tuple(sorted(levels))
     index = {l: i for i, l in enumerate(levels)}
     lmax = levels[-1]
-    nsub = 1 << lmax
     masks_t = tuple(masks[l] for l in levels)
     nblocks = [m.shape[0] for m in masks_t]
     cells = int(np.prod(masks_t[0].shape[1:]))
@@ -493,18 +507,136 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
         return branch
 
     branches = [make_branch(p) for p in range(lmax + 1)]
-    # pattern of substep s = trailing zeros of s (s=0 activates everything)
-    pattern = [
-        lmax if s == 0 else min((s & -s).bit_length() - 1, lmax) for s in range(nsub)
-    ]
+    pattern = substep_patterns(lmax)
 
     def superstep(pdfs):
         pdfs = tuple(pdfs)
-        for s in range(nsub):
-            pdfs = branches[pattern[s]](pdfs)
+        for p in pattern:
+            pdfs = branches[p](pdfs)
         return pdfs
 
     superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
+    return superstep
+
+
+def make_ensemble_superstep(
+    *,
+    levels,
+    plans,
+    masks,
+    lattice: Lattice = D3Q19,
+    collision: str = "bgk",
+    backend: str = "cuda",
+    device: torch.device | str = "cuda",
+):
+    """One coarse step for a whole *ensemble* of independent members that
+    share one forest topology: :func:`make_fused_superstep` with a leading
+    member axis, per-member physics coefficients as operands.
+
+    The counterpart of the JAX package's ``vmap`` over members. The
+    schedule is the fused superstep's: the same ``lmax+1`` activity
+    patterns, every level's merged fill first (each distinct level fill
+    lowered once and shared by the patterns that run it, the fills checked
+    disjoint on the host), then every active level's stencil, finest first.
+    On the ``cuda`` backend each (level, segment) fill is one
+    :func:`~.lbm_collide.lbm_halo_fill` launch and each level's stencil one
+    :func:`~.lbm_collide.lbm_stream_collide` launch for **all** members
+    (the kernels' member axis), so a batch launches exactly what one
+    member's fused coarse step launches, whatever M is. On the ``ref``
+    backend the same fills and stencils run as the plain versions over the
+    member axis (:func:`~.ref.halo_fill_ref`, a gather and a scatter a
+    segment, and :func:`~.ref.stream_collide_into`). Either way member
+    ``m`` of the result has the bits of a solo fused superstep with
+    ``m``'s coefficients: coefficients are rounded to the field's dtype on
+    the host and only ever multiply (``ref.py``), the fills write ghost
+    cells from interior cells, and every kernel is block-local and
+    fixed-order.
+
+    Args:
+        levels: refinement levels in use (ascending buffer-tuple order).
+        plans: pattern index ``p`` (0..lmax) -> compiled ghost plan for the
+            active set ``{l : l >= lmax - p}``, in one member's slot layout
+            (all members share it, since they share the topology).
+        masks: level -> host (B, X, Y, Z) mask stack shared by every
+            member (copied to ``device`` once).
+        lattice / collision: the kernel configuration the whole ensemble
+            shares.
+        backend / device: as for :func:`make_halo_stream_collide`.
+
+    Returns:
+        ``superstep(pdfs: tuple, coeffs: dict) -> tuple`` advancing one
+        coarse step: ``pdfs`` holds one ``(M, B, Q, X, Y, Z)`` tensor per
+        level (ascending), ``coeffs`` maps level ->
+        :class:`~.lbm_collide.MemberCoeffs` of the M members. It consumes
+        its input tuple. Its ``fill_segments`` and ``stencils`` attributes
+        count the fill and stencil launches of a coarse step on ``cuda``.
+    """
+    _check_backend(backend)
+    device = torch.device(device)
+    levels = tuple(sorted(levels))
+    index = {l: i for i, l in enumerate(levels)}
+    lmax = levels[-1]
+    masks_host = tuple(np.asarray(masks[l]) for l in levels)
+    masks_t = tuple(torch.tensor(m, device=device) for m in masks_host)  # copies
+    nblocks = [m.shape[0] for m in masks_host]
+    cells = int(np.prod(masks_host[0].shape[1:]))
+    if backend == "cuda":
+        fill_fn = lbm_halo_fill
+
+        def step(f: torch.Tensor, mask: torch.Tensor, c: MemberCoeffs) -> torch.Tensor:
+            return lbm_stream_collide(f, mask, members=c)
+
+    else:
+        fill_fn = halo_fill_ref
+
+        def step(f: torch.Tensor, mask: torch.Tensor, c: MemberCoeffs) -> torch.Tensor:
+            return stream_collide_into(f, mask, c.host, lattice=lattice, collision=collision)
+
+    built: dict[int, list] = {}  # level -> [(fill, tables)] of earlier branches
+
+    def tables_of(l: int, fill) -> tuple[FillTable, ...]:
+        """The fill's tables, shared by every branch with the same fill."""
+        for other, tables in built.setdefault(l, []):
+            if _same_fill(fill, other):
+                return tables
+        tables = fill_tables(fill, index, device)
+        built[l].append((fill, tables))
+        return tables
+
+    def make_branch(p: int):
+        active = tuple(sorted((l for l in levels if l >= lmax - p), reverse=True))
+        fills = lower_halo_fill(plans[p])
+        assert set(fills) <= set(active), (sorted(fills), active)
+        _assert_fills_disjoint(fills, index, nblocks, cells)
+        tables = {l: tables_of(l, f) for l, f in fills.items()}
+        filling = [l for l in active if l in fills]  # finest first
+
+        def branch(pdfs, coeffs):
+            bufs = list(pdfs)
+            for l in filling:  # every fill reads the pre-step buffers
+                i = index[l]
+                for t in tables[l]:
+                    fill_fn(bufs[i], bufs[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+            for l in active:  # finest first
+                i = index[l]
+                bufs[i] = step(bufs[i], masks_t[i], coeffs[l])
+            return tuple(bufs)
+
+        branch.fill_segments = sum(len(f.segments) for f in fills.values())
+        branch.stencils = len(active)
+        return branch
+
+    branches = [make_branch(p) for p in range(lmax + 1)]
+    pattern = substep_patterns(lmax)
+
+    def superstep(pdfs, coeffs):
+        pdfs = tuple(pdfs)
+        for p in pattern:
+            pdfs = branches[p](pdfs, coeffs)
+        return pdfs
+
+    superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
+    superstep.stencils = sum(branches[p].stencils for p in pattern)
     return superstep
 
 

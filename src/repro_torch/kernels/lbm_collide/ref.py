@@ -22,6 +22,16 @@ These are the oracles of the CUDA kernels in :mod:`.lbm_collide` and the
 ``"ref"`` backend of :mod:`.ops`; they match the JAX package's ``ref.py``
 op for op, except that moments are summed by ``einsum``/``sum`` in PyTorch's
 order (a few ulp apart from the kernels' fixed q order).
+
+Member axis (the serving ensemble): the stencil also takes a stack of M
+members ``(M, B, Q, X, Y, Z)`` with one mask stack ``(B, X, Y, Z)`` shared
+by all of them, and coefficients stacked over members (:func:`stack_coeffs`:
+``lid`` ``(M, Q)``, each rate ``(M,)``). A per-member coefficient becomes an
+``(M, 1, ...)`` tensor in :func:`_coef` and multiplies each member's slice
+exactly as the scalar multiplies a solo run's, so member ``m`` of a batch
+gets the bits of a solo step with ``m``'s coefficients. The ghost fill
+takes ``(M, B, Q, X, Y, Z)`` destination and source stacks the same way:
+every member through one index table.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ __all__ = [
     "stream_collide_halo_ref",
     "halo_fill_ref",
     "collision_coeffs",
+    "stack_coeffs",
     "precompute_stream_masks",
     "equilibrium",
     "moments",
@@ -111,6 +122,13 @@ def collision_coeffs(
     raise ValueError(f"unknown collision model {collision!r}")
 
 
+def stack_coeffs(per_member: list[dict]) -> dict[str, np.ndarray]:
+    """:func:`collision_coeffs` dicts of M members stacked along a leading
+    member axis (``lid`` ``(M, Q)``, each rate ``(M,)``), as the member-axis
+    stencil takes them."""
+    return {k: np.stack([c[k] for c in per_member]) for k in per_member[0]}
+
+
 def precompute_stream_masks(mask, lattice: Lattice = D3Q19) -> dict[str, np.ndarray]:
     """Hoist the mask-derived streaming selectors out of the stencil.
 
@@ -140,10 +158,13 @@ def precompute_stream_masks(mask, lattice: Lattice = D3Q19) -> dict[str, np.ndar
     return {"fluid_src": fluid_src, "lid_src": lid_src, "fluid": m == CT_FLUID}
 
 
-def _coef(x, f: torch.Tensor) -> torch.Tensor:
+def _coef(x, f: torch.Tensor, ndim: int) -> torch.Tensor:
     """A host coefficient as a tensor of ``f``'s dtype and device (exact:
-    :func:`collision_coeffs` already rounded it to that dtype)."""
-    return torch.as_tensor(x, dtype=f.dtype, device=f.device)
+    :func:`collision_coeffs` already rounded it to that dtype) that
+    broadcasts against an ``ndim``-dimensional operand: a scalar stays a
+    0-d tensor, a per-member ``(M,)`` vector becomes ``(M, 1, ..., 1)``."""
+    t = torch.as_tensor(x, dtype=f.dtype, device=f.device)
+    return t if t.dim() == 0 else t.reshape(t.shape[0], *([1] * (ndim - 1)))
 
 
 def stream_collide_coeffs(
@@ -157,7 +178,9 @@ def stream_collide_coeffs(
 ) -> torch.Tensor:
     """One fused stream+collide step on ``f`` (..., Q, X, Y, Z).
 
-    ``coeffs`` comes from :func:`collision_coeffs`. When ``premask`` (from
+    ``coeffs`` comes from :func:`collision_coeffs`, or from
+    :func:`stack_coeffs` for a member stack ``f`` (M, B, Q, X, Y, Z) whose
+    members share ``mask`` (B, X, Y, Z). When ``premask`` (from
     :func:`precompute_stream_masks`, as tensors on ``f``'s device) is given,
     the mask rolls/compares are skipped in favour of the precomputed
     selectors and ``mask`` may be None.
@@ -165,7 +188,7 @@ def stream_collide_coeffs(
     Q = lattice.Q
     c = np.asarray(lattice.c)
     opp = np.asarray(lattice.opposite)
-    lid = _coef(coeffs["lid"], f)
+    lid = torch.as_tensor(coeffs["lid"], dtype=f.dtype, device=f.device)  # (Q,) or (M, Q)
 
     # -- pull streaming with bounce-back ------------------------------------
     f_in = []
@@ -179,7 +202,7 @@ def stream_collide_coeffs(
             src_mask = torch.roll(mask, shifts=sh, dims=_SPATIAL)
             is_fluid_src = src_mask == CT_FLUID
             is_lid_src = src_mask == CT_LID
-        bounced = f[..., int(opp[q]), :, :, :] + lid[q] * is_lid_src.to(f.dtype)
+        bounced = f[..., int(opp[q]), :, :, :] + _coef(lid[..., q], f, f.dim() - 1) * is_lid_src.to(f.dtype)
         f_in.append(torch.where(is_fluid_src, pulled, bounced))
     f_in = torch.stack(f_in, dim=-4)
 
@@ -187,10 +210,10 @@ def stream_collide_coeffs(
     rho, u = moments(f_in, lattice)
     feq = equilibrium(rho, u, lattice)
     if collision == "bgk":
-        f_out = f_in + _coef(coeffs["om"], f) * (feq - f_in)
+        f_out = f_in + _coef(coeffs["om"], f, f.dim()) * (feq - f_in)
     elif collision == "trt":
-        om_p = _coef(coeffs["om_p"], f)
-        om_m = _coef(coeffs["om_m"], f)
+        om_p = _coef(coeffs["om_p"], f, f.dim())
+        om_m = _coef(coeffs["om_m"], f, f.dim())
         opp_t = torch.as_tensor(opp, dtype=torch.long, device=f.device)
         f_opp_in = f_in.index_select(-4, opp_t)
         feq_opp = feq.index_select(-4, opp_t)
@@ -216,11 +239,12 @@ def stream_collide_into(
     slots: torch.Tensor | None = None,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """:func:`stream_collide_coeffs` on a stack (B, Q, X, Y, Z), written
-    into ``out`` when given; with ``slots`` ((S,) block indices) only those
-    blocks are stepped, into ``out`` (a new tensor when None, its other
-    blocks left unset). The plain version of ``lbm_stream_collide``'s slot
-    list."""
+    """:func:`stream_collide_coeffs` on a stack (B, Q, X, Y, Z), or on a
+    member stack (M, B, Q, X, Y, Z) with stacked ``coeffs``, written into
+    ``out`` when given; with ``slots`` ((S,) block indices, solo stacks
+    only) only those blocks are stepped, into ``out`` (a new tensor when
+    None, its other blocks left unset). The plain version of
+    ``lbm_stream_collide``'s slot list and member axis."""
     if slots is None:
         res = stream_collide_coeffs(f, mask, coeffs, lattice=lattice, collision=collision)
         return res if out is None else out.copy_(res)
@@ -295,7 +319,9 @@ def halo_fill_ref(
 ) -> None:
     """One segment of a ghost fill read straight from its source level: the
     plain version of ``lbm_halo_fill``, writing ``dst`` (B, Q, X, Y, Z) in
-    place.
+    place. With member stacks ``dst`` (M, B_dst, Q, X, Y, Z) and ``src``
+    (M, B_src, Q, X, Y, Z), every member's segment is filled through the
+    same indices (not for ``"values"``).
 
     Row ``i`` writes flat cell ``dst_cell[i]`` of block ``dst_slot[i]``.
     For ``kind`` ``"same"`` or ``"coarse"`` its value is cell
@@ -306,22 +332,29 @@ def halo_fill_ref(
     exchange's gather (``ops._gather_vals``) followed by its merged scatter,
     one segment at a time.
     """
+    # a member stack's leading axis is taken whole: the advanced indices
+    # then come first, so values are (N, M, Q) rows for (N, Q) solo ones
+    lead = (slice(None),) * (dst.dim() - 5)
+    flat_dst = dst.view(*dst.shape[:-3], -1)
+    target = (*lead, dst_slot.long(), slice(None), dst_cell.long())
     if kind == "values":
-        dst.view(dst.shape[0], dst.shape[1], -1)[dst_slot.long(), :, dst_cell.long()] = src
+        if lead:
+            raise ValueError("the values fill takes no member axis")
+        flat_dst[target] = src
         return
-    flat_src = src.view(src.shape[0], src.shape[1], -1)
+    flat_src = src.view(*src.shape[:-3], -1)
     sb, sc = src_slot.long(), src_cell.long()
     if kind == "fine":
-        v = flat_src[sb[:, None], :, sc]  # (N, 8, Q)
+        v = flat_src[(*lead, sb[:, None], slice(None), sc)]  # (N, 8, [M,] Q)
         acc = v[:, 0]
         for k in range(1, 8):  # fixed-sequence sum
             acc = acc + v[:, k]
         vals = acc * 0.125
     elif kind in ("same", "coarse"):
-        vals = flat_src[sb, :, sc]
+        vals = flat_src[(*lead, sb, slice(None), sc)]
     else:
         raise ValueError(f"unknown fill segment kind {kind!r}")
-    dst.view(dst.shape[0], dst.shape[1], -1)[dst_slot.long(), :, dst_cell.long()] = vals
+    flat_dst[target] = vals
 
 
 def _np_dtype(dtype: torch.dtype):

@@ -53,6 +53,7 @@ from ..kernels.lbm_collide.ops import (
     make_rank_absorb_split,
     make_rank_emit,
     make_stream_collide,
+    substep_patterns,
 )
 from ..telemetry import get_tracer
 from .halo import compile_ghost_plan, compile_rank_halo_plan, fill_ghost_layers, fill_ghost_layers_sharded
@@ -546,9 +547,8 @@ class FusedShardedEngine(ShardedEngine):
         ranks = tuple(r for r in range(self.cfg.nranks) if per_rank[r].levels())
         rank_levels = {r: tuple(per_rank[r].levels()) for r in ranks}
         rank_slots = {r: {l: per_rank[r].slots(l) for l in rank_levels[r]} for r in ranks}
-        # pattern of substep s = trailing zeros of s (s=0 activates everything)
-        pattern = [lmax if s == 0 else min((s & -s).bit_length() - 1, lmax) for s in range(nsub)]
-        progs = _RankPrograms(levels=levels, nsub=nsub, pattern=pattern, ranks=ranks, rank_levels=rank_levels)
+        progs = _RankPrograms(levels=levels, nsub=nsub, pattern=substep_patterns(lmax), ranks=ranks,
+                              rank_levels=rank_levels)
         backend = self.cfg.kernel_backend
         for p in range(lmax + 1):
             active = {l for l in levels if l >= lmax - p}

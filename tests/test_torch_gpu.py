@@ -17,11 +17,13 @@ from repro_torch.kernels.lbm_collide.lbm_collide import (
     lbm_halo_fill,
     lbm_stream_collide,
     lbm_stream_collide_halo,
+    member_coeffs,
 )
 from repro_torch.kernels.lbm_collide.ops import _pad_fill_layout, fill_tables
 from repro_torch.kernels.lbm_collide.ref import CT_LID, CT_WALL, halo_fill_ref, stream_collide_ref
 from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
 from repro_torch.lbm.lattice import D3Q19, D3Q27
+from repro_torch.serving import JobSpec, SimulationService
 from torch_fill_cases import branch_fills, random_buffers, refined_forest
 
 TOL = {np.float32: dict(rtol=3e-5, atol=3e-6), np.float64: dict(rtol=1e-11, atol=1e-12)}
@@ -258,3 +260,116 @@ def test_fused_sharded_cuda_run_matches_fused_bitwise_on_card():
     want = {b.bid: ref.spec.interior(b.data["pdf"]) for b in ref.forest.all_blocks()}
     for b in got.forest.all_blocks():
         np.testing.assert_array_equal(got.spec.interior(b.data["pdf"]), want[b.bid])
+
+
+_PHYSICS = [(1.3, (0.05, 0.01, 0.0)), (1.6, (0.08, 0.0, 0.0)), (1.9, (0.0, 0.03, 0.01))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collision", ["bgk", "trt"])
+@pytest.mark.parametrize("lattice", [D3Q19, D3Q27], ids=["d3q19", "d3q27"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_member_stencil_equals_solo_launches_on_card(dtype, lattice, collision):
+    """One launch over M members' stacks with a shared mask equals M solo
+    launches with each member's coefficients, bit for bit."""
+    _require_card()
+    rng = np.random.default_rng(31)
+    B, shape = 4, (10, 12, 14)
+    states = [_random_state(rng, B, lattice, shape, dtype) for _ in _PHYSICS]
+    fd = torch.from_numpy(np.stack([f for f, _m in states])).cuda()
+    md = torch.from_numpy(states[0][1]).cuda()
+    mc = member_coeffs([o for o, _u in _PHYSICS], [u for _o, u in _PHYSICS], lattice=lattice,
+                       collision=collision, dtype=fd.dtype, device="cuda")
+    n0, m0 = lbm_stream_collide.launches, lbm_stream_collide.member_launches
+    got = lbm_stream_collide(fd, md, members=mc)
+    torch.cuda.synchronize()
+    assert (lbm_stream_collide.launches, lbm_stream_collide.member_launches) == (n0 + 1, m0 + 1)
+    for m, (omega, u_wall) in enumerate(_PHYSICS):
+        want = lbm_stream_collide(fd[m], md, omega=omega, u_wall=u_wall, lattice=lattice, collision=collision)
+        torch.testing.assert_close(got[m], want, rtol=0, atol=0)
+    plain = lbm_stream_collide(fd.cpu(), md.cpu(), members=member_coeffs(
+        [o for o, _u in _PHYSICS], [u for _o, u in _PHYSICS], lattice=lattice, collision=collision, dtype=fd.dtype))
+    torch.testing.assert_close(got.cpu(), plain, **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_member_stencil_chunks_grid_z_on_card():
+    """More than 65,535 blocks over two members: the launch chunks grid z,
+    and a chunk's blocks still find their member and mask block."""
+    _require_card()
+    rng = np.random.default_rng(4)
+    B, shape = 35_000, (3, 2, 2)
+    states = [_random_state(rng, B, D3Q19, shape, np.float32) for _ in range(2)]
+    fd = torch.from_numpy(np.stack([f for f, _m in states])).cuda()
+    md = torch.from_numpy(states[0][1]).cuda()
+    physics = _PHYSICS[:2]
+    mc = member_coeffs([o for o, _u in physics], [u for _o, u in physics], collision="trt",
+                       dtype=torch.float32, device="cuda")
+    got = lbm_stream_collide(fd, md, members=mc)
+    for m, (omega, u_wall) in enumerate(physics):
+        want = lbm_stream_collide(fd[m], md, omega=omega, u_wall=u_wall, collision="trt")
+        torch.testing.assert_close(got[m], want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lattice", [D3Q19, D3Q27], ids=["d3q19", "d3q27"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_member_fill_equals_solo_launches_on_card(lattice, dtype):
+    """Every segment of every branch of a three-level forest, filled for M
+    members in one launch, equals M solo launches bit for bit."""
+    _require_card()
+    forest, reg, arena = refined_forest(cells=(6, 4, 8))
+    index = {l: i for i, l in enumerate(arena.levels())}
+    rng = np.random.default_rng(6)
+    M = 3
+    per_member = [random_buffers(rng, arena, lattice.Q, dtype, device="cuda") for _ in range(M)]
+    bufs = [torch.stack(s) for s in zip(*per_member)]
+    kinds = set()
+    for fills in branch_fills(forest, reg, {l: arena.slots(l) for l in arena.levels()}):
+        for l, fill in fills.items():
+            for t in fill_tables(fill, index, "cuda"):
+                kinds.add(t.kind)
+                args = (t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+                got = bufs[index[l]].clone()
+                n0 = lbm_halo_fill.launches
+                lbm_halo_fill(got, got if t.src == index[l] else bufs[t.src], *args)
+                torch.cuda.synchronize()
+                assert lbm_halo_fill.launches == n0 + 1
+                for m in range(M):
+                    want = bufs[index[l]][m].clone()
+                    lbm_halo_fill(want, want if t.src == index[l] else bufs[t.src][m], *args)
+                    torch.testing.assert_close(got[m], want, rtol=0, atol=0)
+    assert kinds == {"same", "coarse", "fine"}
+    assert lbm_halo_fill.kind_launches["copy+members"] > 0 and lbm_halo_fill.kind_launches["fine+members"] > 0
+
+
+@pytest.mark.gpu
+def test_service_batch_equals_solo_fused_runs_on_card():
+    """Four jobs of different physics, batched by the service on the
+    kernels, split at the AMR event and end bitwise equal to solo ``fused``
+    runs of their configs."""
+    _require_card()
+    base = dict(
+        root_grid=(2, 2, 2), cells_per_block=(8, 8, 8), max_level=1, refine_upper=0.03,
+        refine_lower=0.004, kernel_backend="cuda",
+    )
+    members = [dict(omega=1.5, u_lid=(0.08, 0.0, 0.0)), dict(omega=1.7, u_lid=(0.06, 0.0, 0.0)),
+               dict(omega=1.6, u_lid=(0.08, 0.02, 0.0)), dict(omega=1.9, u_lid=(0.05, 0.0, 0.0))]
+    svc = SimulationService()
+    ids = [svc.submit(JobSpec(config=LidDrivenCavityConfig(stepping_mode="arena", **base, **m),
+                              coarse_steps=8, amr_interval=4)) for m in members]
+    m0 = lbm_stream_collide.member_launches
+    svc.run()
+    s = svc.summary()
+    assert s["ensembles_formed"] == 1 and s["divergence_splits"] >= 1 and s["compile_misses"] <= 2
+    assert lbm_stream_collide.member_launches > m0
+    for jid, m in zip(ids, members):
+        sim = svc.jobs[jid].sim
+        assert sim.device.type == "cuda"
+        ref = AMRLBM(LidDrivenCavityConfig(stepping_mode="fused", **base, **m))
+        ref.run(8, amr_interval=4)
+        ref.materialize_host()
+        assert {(b.bid, b.level) for b in sim.forest.all_blocks()} == {(b.bid, b.level) for b in ref.forest.all_blocks()}
+        want = {b.bid: b.data["pdf"] for b in ref.forest.all_blocks()}
+        for b in sim.forest.all_blocks():
+            np.testing.assert_array_equal(sim.spec.interior(b.data["pdf"]), ref.spec.interior(want[b.bid]))

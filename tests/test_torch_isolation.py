@@ -28,6 +28,8 @@ COPIED = [
     "telemetry/export.py",
     "core/__init__.py",
     "core/blockid.py",
+    "core/checkpoint.py",
+    "core/resilience.py",
     "core/comm.py",
     "core/forest.py",
     "core/refine.py",
@@ -46,6 +48,9 @@ COPIED = [
     "particles/storage.py",
     "particles/balance.py",
     "particles/redistribute.py",
+    "serving/__init__.py",
+    "serving/service.py",
+    "serving/elastic.py",
 ]
 
 SMALL = dict(root_grid=(1, 1, 1), cells_per_block=(4, 4, 4), max_level=1, nranks=1)
@@ -53,7 +58,7 @@ SMALL = dict(root_grid=(1, 1, 1), cells_per_block=(4, 4, 4), max_level=1, nranks
 
 def test_import_leaves_jax_and_repro_unloaded():
     code = (
-        "import sys, repro_torch.lbm.driver, repro_torch.state; "
+        "import sys, repro_torch.lbm.driver, repro_torch.state, repro_torch.serving; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -1,0 +1,79 @@
+"""Compare the SASS of the stream+collide kernel's solo instantiations
+between two versions of the port's CUDA source.
+
+    git show <rev>:src/repro_torch/kernels/lbm_collide/csrc/lbm_collide.cu > old.cu
+    python tools/stencil_sass_diff.py old.cu src/repro_torch/kernels/lbm_collide/csrc/lbm_collide.cu
+
+Needs ``nvcc`` and ``cuobjdump`` (CUDA toolkit under ``CUDA_HOME``, default
+``/usr/local/cuda``); no card. Each source is compiled to a cubin for
+``sm_90a`` with the build's optimisation flags, its SASS dumped, and every
+``stream_collide_kernel`` instantiation of the old source matched to the
+new one's by (dtype, Q, TRT, SLOTS) with no member axis. Instruction text
+is compared with addresses and encodings stripped. Prints one line per
+instantiation and exits 1 when any differs or is missing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import difflib
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin")
+# dtype, Q, TRT, SLOTS and (newer sources only) MEMBERS of a mangled name
+_NAME = re.compile(r"stream_collide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?")
+
+
+def _tool(name: str) -> str:
+    return os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", name)
+
+
+def solo_stencils(source: Path, workdir: Path) -> dict[tuple, list[str]]:
+    """(dtype, Q, TRT, SLOTS) -> instruction lines of each solo stencil."""
+    cubin = workdir / (source.stem + ".cubin")
+    subprocess.run([_tool("nvcc"), *_FLAGS, "-o", str(cubin), str(source)], check=True)
+    dump = subprocess.run([_tool("cuobjdump"), "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
+    funcs: dict[tuple, list[str]] = {}
+    current = None
+    for line in dump.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            m = _NAME.search(head.group(1))
+            current = None if m is None or m.group(5) == "1" else m.groups()[:4]
+            if current is not None:
+                funcs[current] = []
+            continue
+        if current is not None and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            funcs[current].append(re.sub(r"/\*.*?\*/", "", line).strip())
+    return funcs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old", type=Path)
+    ap.add_argument("new", type=Path)
+    args = ap.parse_args()
+    with tempfile.TemporaryDirectory() as tmp:
+        old_dir, new_dir = Path(tmp, "old"), Path(tmp, "new")
+        old_dir.mkdir()
+        new_dir.mkdir()
+        old, new = solo_stencils(args.old, old_dir), solo_stencils(args.new, new_dir)
+    same = 0
+    for key, sass in sorted(old.items()):
+        got = new.get(key)
+        same += got == sass
+        verdict = "missing" if got is None else ("identical" if got == sass else "different")
+        print(f"stencil {key}: {len(sass)} -> {None if got is None else len(got)} instructions, {verdict}")
+        if got is not None and got != sass:
+            print("\n".join(list(difflib.unified_diff(sass, got, lineterm=""))[:40]))
+    print(f"{same} of {len(old)} solo stencil instantiations have identical SASS")
+    return 0 if old and same == len(old) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

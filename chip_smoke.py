@@ -18,19 +18,30 @@ finding per line:
    with the ghost layer), 4^3 roots, up to level 2, 4 ranks, 12 coarse
    steps with AMR every 4, in ``fused`` mode (every level's ghost fill from
    its sources, then every level's stencil, each substep), in ``arena``
-   mode (the stencil kernel) and in ``fused_sharded`` mode (per rank: the
+   mode (the stencil kernel), in ``fused_sharded`` mode (per rank: the
    emit gathers, the local fills from sources, the inbound messages through
    the fill's ``values`` kind, and the stencil over the interior, then the
-   boundary slot list). Launch counts are zeroed just before each run and
-   read just after. Prints blocks per level (and per rank), peak device
-   memory, coarse steps/s, MLUPS, mass drift and the device modes'
-   steady-state transfers (must be 0/0). ``fused_sharded`` must grow the
-   forest ``fused`` grows at every AMR event and end with every block's
-   interior bitwise equal to ``fused``'s. ``torch.profiler`` breakdowns of
-   2 steady coarse steps: ``fused`` must hold no index gather, no ``cat``
-   and one fill launch per (level, segment) a substep; ``fused_sharded``
-   no scatter, the fill launches by kind its programs count, the slot-list
-   stencil, and its ``Comm`` bytes and messages per substep. Then the fused
+   boundary slot list) and in ``device_sharded`` mode (4 ranks that share
+   the card, ``rank_devices=("cuda:0",) * 4``: stacks padded to one height
+   a level, per ppermute round each sender's emit and one on-device copy of
+   its padded payload, then every rank's local fills, ``values`` fills of
+   its inbound rows and stencils over its whole padded stacks). Launch
+   counts are zeroed just before each run and read just after. Prints
+   blocks per level (and per rank), peak device memory, coarse steps/s,
+   MLUPS, mass drift and the device modes' steady-state transfers (must be
+   0/0). ``fused_sharded`` and ``device_sharded`` must grow the forest
+   ``fused`` grows at every AMR event and end with every block's interior
+   bitwise equal to ``fused``'s; ``device_sharded``'s ``DeviceComm`` bytes
+   and messages per substep must equal ``fused_sharded``'s ``Comm``
+   numbers, and every rank's device must hold the same bytes.
+   ``torch.profiler`` breakdowns of 2 steady coarse steps: ``fused`` must
+   hold no index gather, no ``cat`` and one fill launch per (level,
+   segment) a substep; ``fused_sharded`` no scatter, the fill launches by
+   kind its programs count, the slot-list stencil, and its ``Comm`` bytes
+   and messages per substep; ``device_sharded`` no scatter and the fill
+   launches its superstep counts, with its launches by kind (stencils,
+   fills by kind, emit gathers, payload copies), the padding's share of the
+   stencil work and, beside ``fused_sharded``'s, its host operators. Then the fused
    superstep's rebuild after an AMR event, timed piece by piece. Then the
    tracers: ``fused_sharded`` with 256 tracers a root block (16,384), 8
    coarse steps with AMR every 4; count and ids must be conserved; prints
@@ -52,23 +63,26 @@ finding per line:
    and with all four members on the roots), and profiles of both. Then elastic resize
    at the cross-check's depth: ``fused_sharded`` resized 4 -> 2 at step 4,
    in memory and through a disk checkpoint, ends step 8 bitwise equal to an
-   uninterrupted ``fused`` run.
+   uninterrupted ``fused`` run; so must ``device_sharded`` resized 4 -> 2.
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
    the stencil; the padded-slab form once; the stencil over a real rank's
    boundary slot list (bitwise the whole-stack kernel's blocks); the
    ``values`` fill of a real rank message segment (bitwise the plain
-   scatter); the member stencil over M = 4 states of the level-2 stack and
+   scatter; kernel, plain version and ``Tensor.index_put_`` each timed as
+   the median of 50 single launches, taken in turn); the member stencil over M = 4 states of the level-2 stack and
    the level-2 fill for 4 members (each bitwise M solo launches). Then small D3Q27 / BGK / f64 / odd-extent cases for the
    stencil and every fill segment kind (``same``, ``coarse``, ``fine``) in
    f32/f64 x D3Q19/D3Q27. Max error, kernel time, plain time and the bound.
 4. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
-   ``sharded`` and ``fused_sharded`` on the kernels and ``fused`` and
-   ``fused_sharded`` on the plain versions grow the same forest and agree
-   on the interior fields; ``restack`` and ``fused_sharded`` with 24
-   tracers a block under the lid agree on every tracer's position within
-   1e-10.
+   ``sharded``, ``fused_sharded`` and ``device_sharded`` on the kernels and
+   ``fused``, ``fused_sharded`` and ``device_sharded`` on the plain
+   versions grow the same forest and agree on the interior fields
+   (``device_sharded`` bitwise ``fused`` on each backend); with two or more
+   cards ``device_sharded`` runs again with its ranks spread over them;
+   ``restack`` and ``fused_sharded`` with 24 tracers a block under the lid
+   agree on every tracer's position within 1e-10.
 5. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -92,6 +106,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+SPACER_CYCLES = 500_000  # about 0.3 ms of sleep kernel at the H100's clock: covers one call's host time
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 TOL = {torch.float32: dict(rtol=3e-5, atol=3e-6), torch.float64: dict(rtol=1e-11, atol=1e-12)}
 PHYSICS = dict(omega=1.5, u_lid=(0.08, 0.0, 0.0), refine_upper=0.03, refine_lower=0.004)
@@ -106,6 +121,8 @@ FULL_CAVITY = dict(
     **PHYSICS,
 )
 CROSS_CHECK = dict(cells_per_block=(32, 32, 32), root_grid=(2, 2, 2), max_level=1, nranks=4, **PHYSICS)
+# device_sharded's ranks share one card, so that the script needs one card
+SHARED_CARD = ("cuda:0",) * 4
 # the serving phase's four members: the physics of tests/test_serving.py's
 # MEMBERS on the full cavity (the fourth's lid is lowered, if it must be,
 # until it does not refine at the first AMR event, so the batch splits)
@@ -158,6 +175,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fns: dict, n: int) -> dict:
+    """Device time of one call of each of ``fns``, by CUDA events around
+    each single call, the calls taken in turn ``n`` times: (median,
+    quartiles) per name. A sleep kernel ahead of each start event keeps the
+    card busy while the host records the event and enqueues the call, so
+    the events bracket the call's device time and not the host's launch
+    overhead."""
+    for fn in fns.values():
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(n):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPACER_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return {k: (float(np.median(v)), float(np.percentile(v, 25)), float(np.percentile(v, 75))) for k, v in times.items()}
+
+
 def flops_per_fluid_cell(Q: int, collision: str) -> int:
     """Floating-point operations the stencil does per fluid cell, counted
     from the kernel source: moments 7Q-1 (sum, three FMA chains), velocity
@@ -207,10 +249,11 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def device_profile(run) -> tuple[list, float, float]:
+def device_profile(run, host_rows: list | None = None) -> tuple[list, float, float]:
     """``torch.profiler`` over ``run()`` (which must end in a device
     synchronize): (kernel rows (name, device ms, count) by time, device
-    busy ms, wall ms)."""
+    busy ms, wall ms). With ``host_rows``, the host's operators (name, self
+    CPU ms, count) by time are appended to it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -219,11 +262,15 @@ def device_profile(run) -> tuple[list, float, float]:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     rows = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in events
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[1],
     )
+    if host_rows is not None:
+        host_rows += sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
+                             if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0), key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows), wall_ms
 
 
@@ -326,12 +373,12 @@ def main() -> int:
         res_ = sim.engine.residencies()
         return sum(r.h2d_transfers for r in res_), sum(r.d2h_transfers for r in res_)
 
-    def drive_cavity(mode: str):
+    def drive_cavity(mode: str, **over):
         """``AMRLBM(cfg).run(12, amr_interval=4)``, unrolled so each coarse
         step and AMR event is timed; launch counts zeroed just before and
         read just after. Peak memory is counted above what was allocated
         before the run (an earlier run's simulation stays resident)."""
-        cfg = LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **FULL_CAVITY)
+        cfg = LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **FULL_CAVITY, **over)
         say(f"[{mode}] main path config:",
             json.dumps({k: v for k, v in vars(cfg).items() if k != "obstacle_fn"}))
         torch.cuda.synchronize()
@@ -346,7 +393,7 @@ def main() -> int:
         for i in range(12):
             levels_at.append(blocks_per_level(sim))
             transfers.append(transfers_of(sim))
-            comm_at.append(sim.comm.stats.summary())
+            comm_at.append({**sim.comm.stats.summary(), "pad": getattr(sim.comm, "ppermute_pad_bytes", 0)})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sim.advance(1)  # device modes: ends in a device synchronize; arena: copies back
@@ -357,7 +404,7 @@ def main() -> int:
                 amr_s.append(time.perf_counter() - t0)
                 forests.append(forest_of(sim))
         transfers.append(transfers_of(sim))
-        comm_at.append(sim.comm.stats.summary())
+        comm_at.append({**sim.comm.stats.summary(), "pad": getattr(sim.comm, "ppermute_pad_bytes", 0)})
         mass1 = sim.total_mass()
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t_main
@@ -379,8 +426,9 @@ def main() -> int:
         say(f"[{mode}] peak device memory: {peak_gb:.3f} GB")
         say(f"[{mode}] coarse step wall times (s):", json.dumps([round(t, 4) for t in step_s]))
         say(f"[{mode}] AMR event wall times (s):", json.dumps([round(t, 3) for t in amr_s]))
+        rate = len(steady) / steady_s
         say(
-            f"[{mode}] steady state (steps 10-11): {len(steady) / steady_s:.3f} coarse steps/s, "
+            f"[{mode}] steady state (steps 10-11): {rate:.3f} coarse steps/s, "
             f"{updates * len(steady) / steady_s / 1e6:.1f} MLUPS "
             f"({updates} interior cell updates per coarse step)"
         )
@@ -393,30 +441,31 @@ def main() -> int:
             say(f"[{mode}] steady-state h2d/d2h transfers over steps 10-11: "
                 f"{t_b[0] - t_a[0]}/{t_b[1] - t_a[1]}")
             check(t_a == t_b, "zero host<->device transfers in steady state")
-        if mode == "fused_sharded":
+        comm = None
+        if mode in ("fused_sharded", "device_sharded"):
             c_a, c_b = comm_at[steady.start], comm_at[steady.stop]
             nsub = len(steady) * 2 ** max(forest_steady)
-            say(f"[{mode}] Comm p2p traffic over steps 10-11: "
-                f"{(c_b['p2p_bytes'] - c_a['p2p_bytes']) / nsub:.0f} bytes and "
-                f"{(c_b['p2p_messages'] - c_a['p2p_messages']) / nsub:.1f} messages per substep "
+            comm = {k: (c_b[k] - c_a[k]) / nsub for k in ("p2p_bytes", "p2p_messages", "pad")}
+            say(f"[{mode}] {type(sim.comm).__name__} p2p traffic over steps 10-11: "
+                f"{comm['p2p_bytes']:.0f} bytes and {comm['p2p_messages']:.1f} messages per substep "
                 f"({nsub} substeps), {c_b['collective_bytes_per_rank'] - c_a['collective_bytes_per_rank']} "
-                f"collective bytes per rank")
+                f"collective bytes per rank" + (f", {comm['pad']:.0f} pad bytes per substep" if comm["pad"] else ""))
         say(f"[{mode}] kernel launches:", json.dumps(launches))
         sim.materialize_host()
         for b in sim.forest.all_blocks():
             check(bool(np.isfinite(sim.spec.interior(b.data["pdf"])).all()), "finite interior pdfs")
-        return sim, launches, forests
+        return sim, launches, forests, dict(peak_gb=peak_gb, rate=rate, comm=comm)
 
     # fused: every level's fill from its sources, then every level's stencil;
     # arena: the stencil alone, with a host round trip every substep;
     # fused_sharded: the same kernels per rank, with device-built messages
-    sim, fused_launches, fused_forests = drive_cavity("fused")
+    sim, fused_launches, fused_forests, _ = drive_cavity("fused")
     check(fused_launches["lbm_halo_fill"] > 0, "the fill kernel launched on the fused path")
     check(fused_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the fused path")
-    _arena_sim, arena_launches, _ = drive_cavity("arena")
+    _arena_sim, arena_launches, _, _ = drive_cavity("arena")
     check(arena_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the arena path")
     del _arena_sim
-    fs, fs_launches, fs_forests = drive_cavity("fused_sharded")
+    fs, fs_launches, fs_forests, fs_info = drive_cavity("fused_sharded")
     check(fs.engine.split, "fused_sharded splits interior and boundary blocks on the card")
     for key in ("lbm_stream_collide", "lbm_stream_collide[slots]", "lbm_halo_fill[copy]",
                 "lbm_halo_fill[fine]", "lbm_halo_fill[values]"):
@@ -428,6 +477,32 @@ def main() -> int:
               f"block {b.bid:#x}: fused_sharded interior bitwise equal to fused's")
     say(f"[fused_sharded] forest equal to fused's after each of {len(fs_forests)} AMR events; "
         f"all {len(fused_blocks)} block interiors bitwise equal to fused's after step 12")
+
+    # device_sharded: the 4 ranks share the one card, as fused_sharded's do
+    ds, ds_launches, ds_forests, ds_info = drive_cavity("device_sharded", rank_devices=SHARED_CARD)
+    check(ds.engine.rank_devices == (torch.device("cuda:0"),) * FULL_CAVITY["nranks"], "every rank on cuda:0")
+    for key in ("lbm_stream_collide", "lbm_halo_fill[copy]", "lbm_halo_fill[fine]", "lbm_halo_fill[values]"):
+        check(ds_launches[key] > 0, f"{key} launched on the device_sharded path")
+    check(ds_forests == fused_forests, "device_sharded grew the fused forest at every AMR event")
+    for b in ds.forest.all_blocks():
+        check(np.array_equal(ds.spec.interior(b.data["pdf"]), sim.spec.interior(fused_blocks[b.bid].data["pdf"])),
+              f"block {b.bid:#x}: device_sharded interior bitwise equal to fused's")
+    say(f"[device_sharded] forest equal to fused's after each of {len(ds_forests)} AMR events; "
+        f"all {len(fused_blocks)} block interiors bitwise equal to fused's after step 12")
+    for key in ("p2p_bytes", "p2p_messages"):
+        check(ds_info["comm"][key] == fs_info["comm"][key],
+              f"device_sharded's DeviceComm {key} per substep equal fused_sharded's Comm numbers: "
+              f"{ds_info['comm'][key]} vs {fs_info['comm'][key]}")
+    say(f"[device_sharded] DeviceComm per substep over steps 10-11: {ds_info['comm']['p2p_bytes']:.0f} bytes, "
+        f"{ds_info['comm']['p2p_messages']:.1f} messages (fused_sharded's Comm: {fs_info['comm']['p2p_bytes']:.0f} "
+        f"bytes, {fs_info['comm']['p2p_messages']:.1f} messages), {ds_info['comm']['pad']:.0f} pad bytes; "
+        f"{ds.comm.ppermute_rounds} ppermute rounds and {ds.comm.ppermute_pad_bytes} pad bytes over the run")
+    held = ds.engine.device_held_bytes_per_rank()
+    check(len(set(held)) == 1, f"every rank's device holds the same bytes: {held}")
+    say(f"[device_sharded] padded stacks held per rank device after step 12: {held[0] / 1e9:.3f} GB on each of "
+        f"{len(held)} ranks; peak device memory {ds_info['peak_gb']:.3f} GB against fused_sharded's "
+        f"{fs_info['peak_gb']:.3f} GB; steady rate {ds_info['rate']:.3f} against fused_sharded's "
+        f"{fs_info['rate']:.3f} coarse steps/s")
     cfg = sim.cfg
     res = sim.arena.device()
 
@@ -499,7 +574,8 @@ def main() -> int:
     )
     values_expect = sum(len(m.scatter) for p in progs.pattern for r in progs.ranks for m in progs.recvs[p][r])
     c0 = fs.comm.stats.summary()
-    fs_rows, fs_busy_ms, fs_wall_ms = device_profile(lambda: fs.advance(2))
+    fs_host = []
+    fs_rows, fs_busy_ms, fs_wall_ms = device_profile(lambda: fs.advance(2), fs_host)
     c1 = fs.comm.stats.summary()
     say(f"[fused_sharded] profile of 2 steady coarse steps: device busy {fs_busy_ms:.3f} ms of "
         f"{fs_wall_ms:.3f} ms wall, idle share {1 - fs_busy_ms / fs_wall_ms:.1%}")
@@ -529,6 +605,59 @@ def main() -> int:
     check(fills_seen == 2 * fill_expect, f"fill launches {fills_seen} == the programs' count {2 * fill_expect}")
     check(groups["fill values"] == 2 * values_expect, "one values fill per inbound message segment")
     check(groups["stencil (slot list)"] > 0, "the slot-list stencil ran in the steady fused_sharded step")
+
+    # where a steady device_sharded coarse step spends device time: stencils
+    # over the padded stacks, fills by kind, emit gathers, payload copies
+    ds.advance(1)  # the device superstep is rebuilt after the last AMR event
+    ds_progs = ds.engine._programs()
+    ds_fn = ds_progs.fn
+    ds_counts = ds_progs.counts
+    real = Counter(b.level for b in ds.forest.all_blocks())
+    padded_work = sum(ds_counts[l] * FULL_CAVITY["nranks"] * 2**l for l in ds_counts)
+    real_work = sum(real[l] * 2**l for l in ds_counts)
+    say(f"[device_sharded] padded stacks {json.dumps(ds_counts)} a rank against real blocks per level "
+        f"{json.dumps(dict(sorted(real.items())))}: the stencils step {padded_work} block-substeps a coarse step "
+        f"for {real_work} real ones ({padded_work / real_work - 1:.1%} padding)")
+    c0 = ds.comm.stats.summary()
+    ds_host = []
+    ds_rows, ds_busy_ms, ds_wall_ms = device_profile(lambda: ds.advance(2), ds_host)
+    c1 = ds.comm.stats.summary()
+    say(f"[device_sharded] profile of 2 steady coarse steps: device busy {ds_busy_ms:.3f} ms of "
+        f"{ds_wall_ms:.3f} ms wall, idle share {1 - ds_busy_ms / ds_wall_ms:.1%}")
+    for name, ms, count in ds_rows[:14]:
+        say(f"  {ms:9.3f} ms {ms / ds_busy_ms:6.1%} x{count:<5d} {name[:110]}")
+    ds_groups = Counter()
+    ds_group_ms = Counter()
+    for name, ms, count in ds_rows:
+        m_fill = re.search(r"halo_fill_kernel<[^,>]+, *\d+, *(\d)>", name)
+        if m_fill:
+            key = "fill " + ("copy", "fine", "values")[int(m_fill.group(1))]
+        elif "stream_collide_kernel" in name:
+            key = "stencil"
+        elif re.search(r"memcpy", name, re.IGNORECASE):
+            key = "payload copies"
+        else:
+            key = "emit gathers and other"
+        ds_groups[key] += count
+        ds_group_ms[key] += ms
+    for key in sorted(ds_groups):
+        say(f"[device_sharded] {key}: {ds_groups[key]} launches, {ds_group_ms[key]:.3f} ms in 2 steady coarse steps")
+    say(f"[device_sharded] the superstep counts {2 * ds_fn.fill_segments} fill launches and "
+        f"{2 * ds_fn.payload_copies} payload copies in 2 coarse steps; {sum(ds_groups.values())} device "
+        f"operations in the profile (fused_sharded: {sum(groups.values())})")
+    for label, host, wall in (("fused_sharded", fs_host, fs_wall_ms), ("device_sharded", ds_host, ds_wall_ms)):
+        say(f"[{label}] host operators of the profile by self CPU time ({sum(r[1] for r in host):.3f} ms "
+            f"in all, {wall:.3f} ms wall):")
+        for name, ms, count in host[:10]:
+            say(f"  {ms:9.3f} ms x{count:<5d} {name[:100]}")
+    ds_nsub2 = 2 * ds_progs.nsub
+    say(f"[device_sharded] DeviceComm during the profile: {(c1['p2p_bytes'] - c0['p2p_bytes']) / ds_nsub2:.0f} bytes, "
+        f"{(c1['p2p_messages'] - c0['p2p_messages']) / ds_nsub2:.1f} messages per substep")
+    banned = [r[0] for r in ds_rows if re.search(r"scatter|index_put", r[0], re.IGNORECASE)]
+    check(not banned, f"no index scatter in the steady device_sharded step: {banned}")
+    ds_fills = sum(ds_groups[k] for k in ds_groups if k.startswith("fill"))
+    check(ds_fills == 2 * ds_fn.fill_segments, f"fill launches {ds_fills} == the superstep's count {2 * ds_fn.fill_segments}")
+    del ds, ds_progs, ds_fn
 
     # the tracers: the full cavity in fused_sharded with 16,384 tracers
     tcfg = LidDrivenCavityConfig(stepping_mode="fused_sharded", kernel_backend="cuda",
@@ -795,8 +924,9 @@ def main() -> int:
     e_ref.run(8, amr_interval=4)
     e_want, e_forest = interiors(e_ref), {(b.bid, b.level) for b in e_ref.forest.all_blocks()}
     del e_ref
-    for via_disk in (False, True):
-        s = AMRLBM(LidDrivenCavityConfig(stepping_mode="fused_sharded", kernel_backend="cuda", **CROSS_CHECK))
+    for mode, via_disk, over in (("fused_sharded", False, {}), ("fused_sharded", True, {}),
+                                 ("device_sharded", False, dict(rank_devices=SHARED_CARD))):
+        s = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **CROSS_CHECK, **over))
         s.run(4, amr_interval=4)
         with tempfile.TemporaryDirectory() as tmp:
             report = resize_ranks(s, 2, checkpoint_dir=Path(tmp) / "ckpt" if via_disk else None)
@@ -807,7 +937,10 @@ def main() -> int:
         got = interiors(s)
         check(all(np.array_equal(arr, e_want[bid]) for bid, arr in got.items()),
               "the resized run's interiors are bitwise the fused run's")
-        say(f"[serving] elastic: fused_sharded resized 4 -> 2 at step 4 ({'through a disk checkpoint' if via_disk else 'in memory'}, "
+        if mode == "device_sharded":
+            check(s.engine.rank_devices == (torch.device("cuda:0"),) * 2 and hasattr(s.comm, "ppermute"),
+                  "the resized device_sharded run keeps its DeviceComm and takes the first 2 rank devices")
+        say(f"[serving] elastic: {mode} resized 4 -> 2 at step 4 ({'through a disk checkpoint' if via_disk else 'in memory'}, "
             f"{report.seconds:.3f} s, rebalanced {report.rebalanced}) ends step 8 with all {len(got)} block interiors "
             f"bitwise equal to an uninterrupted fused run")
         del s
@@ -1011,15 +1144,19 @@ def main() -> int:
     library_values()
     torch.cuda.synchronize()
     check(max_err(got, want) == 0.0, "index_put_ computes the values fill's function")
-    kv_ms = time_ms(lambda: lbm_halo_fill(got, seg, "values", ds_t, dc_t), iters=50)
-    kv_plain_ms = time_ms(lambda: halo_fill_ref(got, seg, "values", ds_t, dc_t), iters=20)
-    kv_library_ms = time_ms(library_values, iters=20)
+    # each timed as the median of single launches, kernel, plain version and
+    # index_put_ in turn: one launch takes about 20 us
+    kv = median_ms({"kernel": lambda: lbm_halo_fill(got, seg, "values", ds_t, dc_t),
+                    "plain": lambda: halo_fill_ref(got, seg, "values", ds_t, dc_t),
+                    "index_put_": library_values}, n=50)
+    kv_ms, kv_plain_ms, kv_library_ms = (kv[k][0] for k in ("kernel", "plain", "index_put_"))
     kv_bytes = 2 * seg.numel() * seg.element_size() + 2 * n_v * 4
     kv_bound_ms = kv_bytes / HBM_BYTES_PER_S * 1e3
     say(f"lbm_halo_fill[values] message {m_v.src_rank}->{r_v} segment to level {dl_v}: {n_v} rows of the "
-        f"{m_v.num_cells}-row payload: max |err| {kv_err:.1e}; kernel {kv_ms:.4f} ms, plain {kv_plain_ms:.4f} ms, "
-        f"index_put_ {kv_library_ms:.4f} ms, bound {kv_bound_ms:.5f} ms ({kv_bytes} bytes), "
-        f"{kv_bound_ms / kv_ms:.1%} of bound")
+        f"{m_v.num_cells}-row payload: max |err| {kv_err:.1e}; medians of 50 single launches in turn (quartiles): "
+        + ", ".join(f"{k} {m:.4f} ms ({q1:.4f}-{q3:.4f})" for k, (m, q1, q3) in kv.items())
+        + f"; bound {kv_bound_ms:.5f} ms ({kv_bytes} bytes), {kv_bound_ms / kv_ms:.1%} of bound, "
+        f"kernel / index_put_ {kv_ms / kv_library_ms:.3f}")
     del got, want, payload, seg, out_s, fs_pdfs
 
     # the member routes at main-path shapes: the serving members' level-2
@@ -1181,9 +1318,11 @@ def main() -> int:
     # -- 4. cross-check at a smaller depth ----------------------------------------
     runs = {}
     for mode, backend in (("restack", "cuda"), ("arena", "cuda"), ("fused", "cuda"), ("fused", "ref"),
-                          ("sharded", "cuda"), ("fused_sharded", "cuda"), ("fused_sharded", "ref")):
+                          ("sharded", "cuda"), ("fused_sharded", "cuda"), ("fused_sharded", "ref"),
+                          ("device_sharded", "cuda"), ("device_sharded", "ref")):
         t0 = time.perf_counter()
-        s = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, kernel_backend=backend, **CROSS_CHECK))
+        over = dict(rank_devices=SHARED_CARD) if mode == "device_sharded" else {}
+        s = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, kernel_backend=backend, **CROSS_CHECK, **over))
         s.run(8, amr_interval=4)
         s.materialize_host()
         runs[mode, backend] = s
@@ -1204,8 +1343,33 @@ def main() -> int:
             r = torch.from_numpy(np.concatenate([s.spec.interior(rho_r)[None], s.spec.interior(u_r)]))
             torch.testing.assert_close(a, r, **TOL[torch.float32])
             worst = max(worst, max_err(a, r))
-    say(f"cross-check: restack/arena/fused/sharded/fused_sharded on the kernels and fused/fused_sharded on "
-        f"the plain versions agree: same forest, interior rho/u max |diff| {worst:.3e} (rtol 3e-5, atol 3e-6)")
+    say(f"cross-check: restack/arena/fused/sharded/fused_sharded/device_sharded on the kernels and "
+        f"fused/fused_sharded/device_sharded on the plain versions agree: same forest, interior rho/u max |diff| "
+        f"{worst:.3e} (rtol 3e-5, atol 3e-6)")
+
+    def bitwise(a, b) -> bool:
+        want = {blk.bid: b.spec.interior(blk.data["pdf"]) for blk in b.forest.all_blocks()}
+        return all(np.array_equal(a.spec.interior(blk.data["pdf"]), want[blk.bid]) for blk in a.forest.all_blocks())
+
+    for backend in ("cuda", "ref"):
+        check(bitwise(runs["device_sharded", backend], runs["fused", backend]),
+              f"cross-check device_sharded/{backend} interiors bitwise fused/{backend}'s")
+    say("cross-check: device_sharded equals fused bitwise on the kernels and on the plain versions")
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        spread = tuple(f"cuda:{r % ncards}" for r in range(CROSS_CHECK["nranks"]))
+        t0 = time.perf_counter()
+        s = AMRLBM(LidDrivenCavityConfig(stepping_mode="device_sharded", kernel_backend="cuda", rank_devices=spread,
+                                         **CROSS_CHECK))
+        s.run(8, amr_interval=4)
+        s.materialize_host()
+        check(forest_of(s) == forest_of(runs["fused", "cuda"]) and bitwise(s, runs["fused", "cuda"]),
+              f"device_sharded with ranks on {spread} equals fused bitwise")
+        say(f"cross-check device_sharded/cuda with ranks on {','.join(spread)} (peer copies): bitwise fused/cuda, "
+            f"{time.perf_counter() - t0:.2f} s")
+        del s
+    else:
+        say(f"cross-check device_sharded with ranks on distinct cards: not run, {ncards} card visible")
     del runs, ref, ref_blocks
 
     tracer_runs = {}
@@ -1230,7 +1394,7 @@ def main() -> int:
 
     # -- 5. the kernels line and the result -------------------------------------
     by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
-               "serving": serving_launches}
+               "device_sharded": ds_launches, "serving": serving_launches}
 
     def path_launches(key):
         return {path: counts[key] for path, counts in by_path.items()}

@@ -199,6 +199,10 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device``. Every launch runs inside
+    ``torch.cuda.device(device)``, so the library launches into that card's
+    context, whichever card the process made current: a rank's tensors may
+    lie on another card than ``cuda:0``."""
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -220,11 +224,12 @@ def _check_card_operands(*tensors: torch.Tensor) -> None:
 
 def _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid, slots=None) -> None:
     B, Q, X, Y, Z = f.shape
-    err = lib.lbm_stream_collide(
-        _DTYPE_CODE[f.dtype], Q, trt, f.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        None if slots is None else slots.data_ptr(), B, B if slots is None else slots.numel(),
-        X, Y, Z, om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p), _stream_ptr(f.device),
-    )
+    with torch.cuda.device(f.device):
+        err = lib.lbm_stream_collide(
+            _DTYPE_CODE[f.dtype], Q, trt, f.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            None if slots is None else slots.data_ptr(), B, B if slots is None else slots.numel(),
+            X, Y, Z, om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p), _stream_ptr(f.device),
+        )
     _raise_on(err, "lbm_stream_collide")
 
 
@@ -320,10 +325,11 @@ def _stream_collide_members(
     if out is None:
         out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
     _Q, X, Y, Z = f.shape[2:]
-    err = lib.lbm_stream_collide_members(
-        _DTYPE_CODE[f.dtype], lattice.Q, int(members.collision == "trt"), f.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), table.data_ptr(), M, B, X, Y, Z, _stream_ptr(f.device),
-    )
+    with torch.cuda.device(f.device):
+        err = lib.lbm_stream_collide_members(
+            _DTYPE_CODE[f.dtype], lattice.Q, int(members.collision == "trt"), f.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), table.data_ptr(), M, B, X, Y, Z, _stream_ptr(f.device),
+        )
     _raise_on(err, "lbm_stream_collide (members)")
     lbm_stream_collide.launches += 1
     lbm_stream_collide.member_launches += 1
@@ -396,13 +402,15 @@ def lbm_halo_fill(
         return
     code = FILL_KINDS[kind]
     members, dst_stride, src_stride = (dst.shape[0], dst[0].numel(), src[0].numel()) if lead else (1, 0, 0)
-    err = _library().lbm_halo_fill(
-        _DTYPE_CODE[dst.dtype], Q, code, dst.data_ptr(), src.data_ptr(), N,
-        stack.shape[2] * stack.shape[3] * stack.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
-        None if src_slot is None else src_slot.data_ptr(),
-        None if src_cell is None else src_cell.data_ptr(), None,
-        members, dst_stride, src_stride, _stream_ptr(dst.device),
-    )
+    lib = _library()
+    with torch.cuda.device(dst.device):
+        err = lib.lbm_halo_fill(
+            _DTYPE_CODE[dst.dtype], Q, code, dst.data_ptr(), src.data_ptr(), N,
+            stack.shape[2] * stack.shape[3] * stack.shape[4], dst_slot.data_ptr(), dst_cell.data_ptr(),
+            None if src_slot is None else src_slot.data_ptr(),
+            None if src_cell is None else src_cell.data_ptr(), None,
+            members, dst_stride, src_stride, _stream_ptr(dst.device),
+        )
     _raise_on(err, "lbm_halo_fill")
     lbm_halo_fill.launches += 1
     lbm_halo_fill.kind_launches[(_MEMBER_KIND_NAMES if lead else _KIND_NAMES)[code]] += 1
@@ -460,11 +468,12 @@ def lbm_stream_collide_halo(
     lib = _library()
     # the slab's rows in order: row b * P + p fills block b
     slot = torch.arange(B, dtype=torch.int32, device=f.device).repeat_interleave(P)
-    err = lib.lbm_halo_fill(
-        _DTYPE_CODE[f.dtype], Q, _FILL_VALUES, f.data_ptr(), halo_vals.data_ptr(), B * P,
-        X * Y * Z, slot.data_ptr(), halo_cell.data_ptr(), None, None,
-        halo_valid.data_ptr(), 1, 0, 0, _stream_ptr(f.device),
-    )
+    with torch.cuda.device(f.device):
+        err = lib.lbm_halo_fill(
+            _DTYPE_CODE[f.dtype], Q, _FILL_VALUES, f.data_ptr(), halo_vals.data_ptr(), B * P,
+            X * Y * Z, slot.data_ptr(), halo_cell.data_ptr(), None, None,
+            halo_valid.data_ptr(), 1, 0, 0, _stream_ptr(f.device),
+        )
     _raise_on(err, "lbm_stream_collide_halo (fill)")
     out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
     _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid)

@@ -30,6 +30,11 @@ On the ``cuda`` backend both writes are fill-kernel launches in place (the
 messages through the ``"values"`` kind), all before any stencil, and the
 split steps its interior and boundary blocks into one output tensor through
 the stencil's slot list.
+
+The device superstep (:func:`make_device_superstep`) composes those pieces
+for real device ranks: per ppermute round every sender's emit, zero-padded
+to the round's shape, moves to its receiver's device in one copy, then every
+rank absorbs on its own device.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ __all__ = [
     "boundary_slot_sets",
     "make_rank_absorb",
     "make_rank_absorb_split",
+    "make_device_superstep",
     "BACKENDS",
 ]
 
@@ -643,7 +649,7 @@ def make_ensemble_superstep(
 # -- rank-sharded substep ----------------------------------------------------------
 
 
-def make_rank_emit(messages, level_index: dict[int, int], device: torch.device | str):
+def make_rank_emit(messages, level_index: dict[int, int], device: torch.device | str, rows=None):
     """Build one rank's message-building side of a sharded exchange.
 
     ``messages`` are the :class:`~..lbm.halo.CompiledRankMessage` specs whose
@@ -653,6 +659,11 @@ def make_rank_emit(messages, level_index: dict[int, int], device: torch.device |
     device (sender-side resampled by :func:`_gather_vals`, segments
     concatenated in the spec's canonical order), so ``m.nbytes`` is the
     payload's size. Returns ``None`` when the rank sends nothing.
+
+    ``rows`` optionally gives each message's payload row count, at least its
+    ``num_cells``: the payload is zero-padded to it (the device fabric ships
+    one shape a round, :class:`~..lbm.halo.PpermuteRound`), and the zero
+    rows ride in the same ``cat`` as the segments.
 
     ``emit`` only reads the pdf buffers: the absorb programs dispatched
     after it in the same substep write their ghost cells in place, and
@@ -668,11 +679,19 @@ def make_rank_emit(messages, level_index: dict[int, int], device: torch.device |
         )
         for m in messages
     )
+    pads = tuple(0 for _m in messages) if rows is None else tuple(n - m.num_cells for n, m in zip(rows, messages, strict=True))
+    assert min(pads) >= 0, pads
+    zeros = {}  # dtype -> the zero rows of the largest pad, made at the first call
 
     def emit(pdfs):
         out = []
-        for segs in specs:
+        for segs, pad in zip(specs, pads):
             parts = [_gather_vals(pdfs[li], kind, sb, sc) for li, kind, sb, sc in segs]
+            if pad:
+                z = zeros.get(parts[0].dtype)
+                if z is None:
+                    z = zeros[parts[0].dtype] = parts[0].new_zeros((max(pads), parts[0].shape[1]))
+                parts.append(z[:pad])
             out.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=0))
         return tuple(out)
 
@@ -867,3 +886,110 @@ def make_rank_absorb_split(
     interior.fill_segments = local.segments
     boundary.fill_segments = inbound.segments
     return interior, boundary
+
+
+def make_device_superstep(*, levels, plans, schedules, steppers, masks, devices, backend: str = "cuda"):
+    """One coarse step of the ``device_sharded`` mode: every rank's padded
+    block stacks on its own device, halo payloads moved device to device.
+
+    The counterpart of the JAX package's ``make_device_superstep`` (one
+    ``shard_map`` program over a mesh of ranks), built from this module's
+    rank-sharded pieces with no arithmetic of its own. Per substep, in the
+    pattern's order (:func:`substep_patterns`), and per ppermute round of
+    ``schedules[p]``: every source rank builds its one outbound message with
+    :func:`make_rank_emit`, zero-padded to the round's ``num_cells`` rows
+    (the wire shape whose pad bytes ``DeviceComm.ppermute`` accounts), and
+    the message moves to the destination rank's device in one copy into a
+    receive tensor: a peer copy when the ranks sit on two cards, an
+    on-device copy when they share one. Then every rank's
+    :func:`make_rank_absorb`, built on the rank's own device, runs its local
+    fills from their sources, writes the logical ``m.num_cells`` rows of
+    each inbound message (the fill's ``values`` kind on ``cuda``) and steps
+    the active levels, finest first. The reference's ``lax.switch`` over
+    ranks is a loop over ranks here; its ``unroll_limit`` / ``fori_loop``
+    have no counterpart, since a coarse step is a plain Python loop over its
+    ``2^lmax`` substeps, as in :func:`make_fused_superstep`. Nothing in a
+    substep touches the host: no ``Comm`` call, no synchronize, no copy to
+    or from the host.
+
+    Stacks are padded to one height a level for every rank
+    (:func:`~..lbm.halo.padded_block_counts`); rank-local slot ids address
+    the padded stacks unchanged, and no plan reads or writes a pad slot
+    (:func:`~..lbm.halo.verify_padded_plan`, asserted by the engine). Every
+    rank steps its whole padded stack of each active level: a pad slot
+    (all-WALL mask) passes through the stencil unchanged.
+
+    Args:
+        levels: refinement levels in use; every rank's buffer tuple holds
+            one padded stack a level, ascending.
+        plans: pattern index ``p`` -> :class:`~..lbm.halo.CompiledRankHaloPlan`
+            for the active set ``{l : l >= lmax - p}``, rank-local slot ids.
+        schedules: pattern index ``p`` -> the rounds of
+            :func:`~..lbm.halo.schedule_ppermute_rounds` over
+            ``plans[p].messages``.
+        steppers: level -> ``step(f, mask) -> f`` (:func:`make_stream_collide`).
+        masks: rank -> tuple of the rank's padded device mask stacks, one a
+            level; closed over, as in every superstep of this module (the
+            engine rebuilds the superstep when masks change).
+        devices: rank -> the rank's ``torch.device``.
+        backend: ``"cuda"`` (the kernels) or ``"ref"``.
+
+    Returns:
+        ``superstep(pdfs: dict[rank, tuple]) -> dict[rank, tuple]`` advancing
+        one coarse step; it consumes its input tuples. Its ``fill_segments``
+        and ``payload_copies`` attributes count the fill launches (on
+        ``cuda``) and the message copies of a coarse step.
+    """
+    _check_backend(backend)
+    levels = tuple(sorted(levels))
+    index = {l: i for i, l in enumerate(levels)}
+    lmax = levels[-1]
+    ranks = tuple(sorted(devices))
+
+    def make_branch(p: int):
+        active = {l for l in levels if l >= lmax - p}
+        rounds = schedules[p]
+        # per round, each sender's message and its emit, padded to the round
+        sends = [
+            [(m, make_rank_emit([m], index, devices[m.src_rank], rows=[rnd.num_cells])) for m in rnd.messages]
+            for rnd in rounds
+        ]
+        inbound = {r: [m for rnd in rounds for m in rnd.messages if m.dst_rank == r] for r in ranks}
+        absorbs = {
+            r: make_rank_absorb(
+                inbound[r],
+                plans[p].local.get(r),
+                index,
+                steppers=steppers,
+                masks=dict(zip(levels, masks[r])),
+                active_levels=active,
+                backend=backend,
+                device=devices[r],
+            )
+            for r in ranks
+        }
+
+        def branch(pdfs):
+            recv = {}
+            for rnd in sends:
+                for m, emit in rnd:
+                    (payload,) = emit(pdfs[m.src_rank])
+                    recv[m.key] = payload.to(devices[m.dst_rank], copy=True)
+            return {r: absorbs[r](pdfs[r], tuple(recv[m.key] for m in inbound[r])) for r in ranks}
+
+        branch.fill_segments = sum(a.fill_segments for a in absorbs.values())
+        branch.payload_copies = sum(len(rnd) for rnd in sends)
+        return branch
+
+    branches = [make_branch(p) for p in range(lmax + 1)]
+    pattern = substep_patterns(lmax)
+
+    def superstep(pdfs):
+        pdfs = dict(pdfs)
+        for p in pattern:
+            pdfs = branches[p](pdfs)
+        return pdfs
+
+    superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
+    superstep.payload_copies = sum(branches[p].payload_copies for p in pattern)
+    return superstep

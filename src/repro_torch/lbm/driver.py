@@ -15,9 +15,11 @@ Stepping modes (``LidDrivenCavityConfig.stepping_mode``), one
 :class:`~.engines.StepEngine` each: ``"restack"`` (the conformance oracle),
 ``"arena"`` (default, persistent host buffers), ``"fused"`` (the whole
 coarse step on the device), ``"sharded"`` (per-rank host arenas with p2p
-halo messages) and ``"fused_sharded"`` (per-rank device residency with
-device-built p2p messages). The device is resolved once, when the engine is
-built: ``device=None`` means the CUDA card and raises without one.
+halo messages), ``"fused_sharded"`` (per-rank device residency with
+device-built p2p messages) and ``"device_sharded"`` (one device per rank,
+``rank_devices``, with payloads moved device to device). The device is
+resolved once, when the engine is built: ``device=None`` means the CUDA card
+and raises without one.
 
 Data-plane time is attributed in :attr:`AMRLBM.data_stats`: host modes fill
 ``"halo"`` / ``"step"``; the device-resident modes report wall time plus
@@ -47,6 +49,7 @@ import torch
 from ..core import (
     AMRPipeline,
     Comm,
+    DeviceComm,
     DiffusionBalancer,
     ForestGeometry,
     SFCBalancer,
@@ -101,7 +104,12 @@ class LidDrivenCavityConfig:
     # message routing with interior stepping): None resolves once, at
     # engine build, to "split iff the engine's device is a card"
     overlap_split: bool | None = None
-    stepping_mode: str = "arena"  # | "fused" | "sharded" | "fused_sharded" | "restack"
+    # device_sharded: one device per rank, the first nranks entries. None
+    # resolves once, at engine build, to ("cpu",) * nranks on the CPU and to
+    # every visible card once on the card; fewer devices than ranks raise.
+    # Ranks share a card only when asked: rank_devices=("cuda:0",) * nranks
+    rank_devices: tuple[str, ...] | None = None
+    stepping_mode: str = "arena"  # | "fused" | "sharded" | "fused_sharded" | "device_sharded" | "restack"
     obstacle_fn: Callable[[np.ndarray], np.ndarray] | None = None  # (N,3)->bool
     # optional Lagrangian tracer layer (repro_torch.particles); None disables it
     particles: ParticlesConfig | None = None
@@ -132,7 +140,10 @@ class AMRLBM:
         self.geom = ForestGeometry(root_grid=cfg.root_grid, max_level=12)
         self.fields = make_lbm_fields(self.spec)
         self.registry = self.fields  # typed registry drives all subsystems
-        self.comm = Comm(cfg.nranks)
+        # device_sharded moves halo payloads device to device; the DeviceComm
+        # fabric attributes those bytes into the same counters
+        comm_cls = DeviceComm if cfg.stepping_mode == "device_sharded" else Comm
+        self.comm = comm_cls(cfg.nranks)
         # Lagrangian tracers: the particle set registers as one more
         # block-data item (migration comes for free) and installs the
         # cells + alpha*N load model into the pipeline

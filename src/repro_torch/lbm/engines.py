@@ -30,7 +30,10 @@ events), ``sharded`` (per-rank host arenas, cross-rank ghost data as p2p
 messages through ``Comm``) and ``fused_sharded`` (per-rank device
 residency: each rank emits its halo messages on the device, the host routes
 them through ``Comm``, and each rank absorbs them with the fill kernel and
-steps, with no host transfer between AMR events).
+steps, with no host transfer between AMR events) and ``device_sharded``
+(one device per rank: each rank's padded block stacks live on its own
+device, and every halo payload moves device to device with no host routing
+per substep; the control plane stays on the host).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..device import resolve_device, synchronize
 from ..kernels.lbm_collide.ops import (
     boundary_slot_sets,
     make_arena_stream_collide,
+    make_device_superstep,
     make_fused_superstep,
     make_halo_stream_collide,
     make_rank_absorb,
@@ -56,32 +60,31 @@ from ..kernels.lbm_collide.ops import (
     substep_patterns,
 )
 from ..telemetry import get_tracer
-from .halo import compile_ghost_plan, compile_rank_halo_plan, fill_ghost_layers, fill_ghost_layers_sharded
+from .grid import CellType
+from .halo import (
+    compile_ghost_plan,
+    compile_rank_halo_plan,
+    fill_ghost_layers,
+    fill_ghost_layers_sharded,
+    padded_block_counts,
+    schedule_ppermute_rounds,
+    verify_padded_plan,
+)
 from .lattice import omega_for_level
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from ..core.forest import Block, BlockForest
     from .driver import AMRLBM
 
-__all__ = ["StepEngine", "ENGINES", "NOT_PORTED", "make_engine"]
+__all__ = ["StepEngine", "ENGINES", "make_engine", "resolve_rank_devices"]
 
 ENGINES: dict[str, type["StepEngine"]] = {}
-
-# stepping modes of the JAX package that this port does not run yet, with
-# the ROADMAP item that queues each
-NOT_PORTED = {
-    "device_sharded": "ROADMAP Queue 1.9 (real device ranks)",
-}
 
 _TR = get_tracer()
 
 
 def make_engine(sim: "AMRLBM") -> "StepEngine":
     mode = sim.cfg.stepping_mode
-    if mode in NOT_PORTED:
-        raise NotImplementedError(
-            f"stepping_mode={mode!r} is not ported yet: {NOT_PORTED[mode]}"
-        )
     if mode not in ENGINES:
         raise ValueError(f"unknown stepping_mode {mode!r}; expected one of {sorted(ENGINES)}")
     return ENGINES[mode](sim)
@@ -658,5 +661,270 @@ class FusedShardedEngine(ShardedEngine):
         stage = StageStats.delta(s0, comm.stats.summary(), st.seconds)
         # one logical ghost-exchange round per substep, as the fused engine
         # reports (the Comm superstep count is 0 at one rank)
+        stage.exchange_rounds = coarse_steps * progs.nsub
+        self.sim.data_stats["fused"].add(stage)
+
+
+def resolve_rank_devices(rank_devices, nranks: int, device: torch.device) -> tuple[torch.device, ...]:
+    """One device per rank: the first ``nranks`` entries of ``rank_devices``.
+
+    ``None`` means ``("cpu",) * nranks`` when the engine runs on the CPU,
+    and every visible card once (``cuda:0 ... cuda:{k-1}``) when it runs on
+    the card. Fewer devices than ranks raise: ranks never wrap around onto
+    a card silently, so sharing one card is always an explicit
+    ``rank_devices=("cuda:0",) * nranks``. Every rank device must be of the
+    engine's device type."""
+    if rank_devices is None:
+        if device.type == "cpu":
+            rank_devices = ("cpu",) * nranks
+        else:
+            rank_devices = tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))
+    if len(rank_devices) < nranks:
+        raise RuntimeError(
+            f"device_sharded needs one device per rank: nranks={nranks} but "
+            f"{len(rank_devices)} rank devices ({', '.join(map(str, rank_devices)) or 'none'}). "
+            f"Pass rank_devices with {nranks} entries (rank_devices=('cuda:0',) * {nranks} "
+            "shares one card between the ranks), or lower cfg.nranks."
+        )
+    out = tuple(torch.device(d) for d in rank_devices[:nranks])
+    for d in out:
+        if d.type != device.type:
+            raise ValueError(f"rank device {d} is not a {device.type} device, as the engine's {device} is")
+        if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
+            raise RuntimeError(f"rank device {d} does not exist: {torch.cuda.device_count()} cards are visible")
+    return out
+
+
+@dataclass
+class _DevicePrograms:
+    """One device superstep for a (storage version, level set), plus the
+    per-pattern message tables the advance loop feeds
+    :meth:`~..core.comm.DeviceComm.ppermute` accounting from."""
+
+    levels: tuple[int, ...]
+    counts: dict[int, int]
+    nsub: int
+    pattern: list[int]
+    fn: Callable
+    messages: dict[int, tuple]
+    rounds: dict[int, int]
+    pad_bytes: dict[int, int]
+
+
+@dataclass
+class RankTransfers:
+    """Host<->device copies of one rank's padded stacks, in the counters a
+    :class:`~..core.fields.DeviceResidency` keeps for the other device
+    modes."""
+
+    h2d_transfers: int = 0
+    h2d_bytes: int = 0
+    d2h_transfers: int = 0
+    d2h_bytes: int = 0
+
+
+@_register
+class DeviceShardedEngine(ShardedEngine):
+    """Real device ranks: one device per rank.
+
+    Where ``fused_sharded`` simulates the distributed data plane (per-rank
+    programs on one device, payloads routed through the host ``Comm``), this
+    mode keeps each rank's block stacks on the rank's own device
+    (``cfg.rank_devices``, resolved once, here, by
+    :func:`resolve_rank_devices`) and moves every halo payload device to
+    device inside :func:`~..kernels.lbm_collide.ops.make_device_superstep`,
+    with no host involvement per substep, not even routing. One process
+    drives every rank: the control plane (AMR, balancing, migration) stays
+    on the host over a :class:`~..core.comm.DeviceComm`, as the JAX
+    package's single controller does over its mesh. Ranks on distinct cards
+    exchange payloads by peer copies; ranks that share a card (an explicit
+    ``rank_devices=("cuda:0",) * n``) by on-device copies.
+
+    Equal-blocks-per-rank padding: every level's stack is padded to the
+    largest per-rank block count with all-WALL masks and weight-vector
+    pdfs. All-WALL cells pass through the stencil unchanged, so pad slots
+    stay as they are, and no plan reads or writes one
+    (``verify_padded_plan``, asserted for every pattern's plan). The
+    ``Comm`` fabric must be a ``DeviceComm`` (``AMRLBM`` wires it) so that
+    the payload traffic lands in the same Table-1 counters as every other
+    mode's.
+    """
+
+    mode = "device_sharded"
+
+    def __init__(self, sim: "AMRLBM") -> None:
+        super().__init__(sim)
+        if not hasattr(sim.comm, "ppermute"):
+            raise TypeError(
+                "device_sharded requires a DeviceComm fabric so that its device-to-device payload "
+                f"traffic is accounted; got {type(sim.comm).__name__}"
+            )
+        self.rank_devices = resolve_rank_devices(sim.cfg.rank_devices, sim.cfg.nranks, self.device)
+        self.transfers = [RankTransfers() for _ in self.rank_devices]
+        self._dev_programs: _DevicePrograms | None = None
+        self._dev_programs_key: tuple | None = None
+        self._dev_levels: tuple[int, ...] | None = None
+        self._dev_pdfs: dict[int, tuple] | None = None
+        self._dev_masks: dict[int, tuple] | None = None
+        self._dev_version = -1
+        self._host_stale = False  # device pdfs newer than the host arenas
+
+    # -- storage / invalidation ------------------------------------------------
+    def adopt(self, forest: "BlockForest") -> None:
+        assert not self._host_stale, (
+            "materialize_host() before adopt: device-resident steps would be lost rebinding the arenas"
+        )
+        super().adopt(forest)
+
+    def masks_refreshed(self) -> None:
+        super().masks_refreshed()
+        # the superstep closes over the device masks
+        self._dev_masks = None
+        self._dev_programs = None
+        self._dev_programs_key = None
+
+    def residencies(self) -> list:
+        return list(self.transfers)
+
+    def materialize_host(self) -> None:
+        if not self._host_stale:
+            return
+        with _TR.span("device:materialize_host", cat="transfer"):
+            for r, stacks in self._dev_pdfs.items():
+                for l, t in zip(self._dev_levels, stacks):
+                    buf = self.arenas.buffer(r, l, "pdf")
+                    if buf is not None and buf.shape[0]:
+                        torch.from_numpy(buf).copy_(t[: buf.shape[0]])
+                        self.transfers[r].d2h_transfers += 1
+                        self.transfers[r].d2h_bytes += buf.nbytes
+        self._host_stale = False
+
+    def exchange_ghosts(self, active: set[int] | None = None) -> None:
+        # host-visible ghost refresh (after an AMR event, before advection):
+        # flush the device steps, then run the host exchange. The device
+        # interiors stay current and their ghosts are filled again at the
+        # next substep 0, so the device state is kept, as fused_sharded's
+        self.materialize_host()
+        super().exchange_ghosts(active)
+
+    # -- programs --------------------------------------------------------------
+    def _programs(self) -> _DevicePrograms:
+        forest = self.sim.forest
+        levels = tuple(sorted(forest.levels_in_use()))
+        key = (self.arenas.version, levels)
+        if self._dev_programs is not None and self._dev_programs_key == key:
+            return self._dev_programs
+        with _TR.span("build:device_programs", cat="compile", version=self.arenas.version):
+            self._dev_programs = self._build_programs(forest, levels)
+        self._dev_programs_key = key
+        return self._dev_programs
+
+    def _build_programs(self, forest: "BlockForest", levels: tuple[int, ...]) -> _DevicePrograms:
+        lmax = levels[-1]
+        per_rank = self.arenas.per_rank
+        nranks = self.cfg.nranks
+        rank_slots = {r: {l: per_rank[r].slots(l) for l in per_rank[r].levels()} for r in range(nranks)}
+        counts = padded_block_counts(rank_slots, nranks)
+        fs = self.sim.fields.fields["pdf"]
+        row_bytes = int(np.prod(fs.shape, dtype=np.int64)) * np.dtype(fs.dtype).itemsize
+        plans, schedules, messages, rounds_n, pad_bytes = {}, {}, {}, {}, {}
+        for p in range(lmax + 1):
+            active = {l for l in levels if l >= lmax - p}
+            plan = compile_rank_halo_plan(forest, self.sim.fields, rank_slots, fields=("pdf",), levels=active)
+            bad = verify_padded_plan(plan, rank_slots)
+            assert not bad, bad  # no plan index may touch a padded slot
+            sched = schedule_ppermute_rounds(plan.messages)
+            plans[p], schedules[p], messages[p] = plan, sched, plan.messages
+            rounds_n[p] = len(sched)
+            pad_bytes[p] = sum(rnd.pad_cells() for rnd in sched) * row_bytes
+        self._ensure_device(levels, counts)
+        fn = make_device_superstep(
+            levels=levels,
+            plans=plans,
+            schedules=schedules,
+            steppers={l: self._fused_stepper(l) for l in levels},
+            masks=self._dev_masks,
+            devices=dict(enumerate(self.rank_devices)),
+            backend=self.cfg.kernel_backend,
+        )
+        return _DevicePrograms(
+            levels=levels, counts=counts, nsub=1 << lmax, pattern=substep_patterns(lmax), fn=fn,
+            messages=messages, rounds=rounds_n, pad_bytes=pad_bytes,
+        )
+
+    # -- device residency ------------------------------------------------------
+    def _padded(self, r: int, l: int, name: str, count: int, fill: torch.Tensor) -> torch.Tensor:
+        """Rank ``r``'s level-``l`` stack of ``name`` on its device, padded
+        to ``count`` slots of ``fill`` (broadcast over a slot); one counted
+        upload of the rank's real blocks."""
+        shape = (count, *self.sim.fields.fields[name].shape, *self.sim.spec.mask_shape)
+        t = torch.empty(shape, dtype=fill.dtype, device=self.rank_devices[r])
+        t[:] = fill.to(t.device)
+        buf = self.arenas.buffer(r, l, name)
+        if buf is not None and buf.shape[0]:
+            t[: buf.shape[0]].copy_(torch.from_numpy(buf))
+            self.transfers[r].h2d_transfers += 1
+            self.transfers[r].h2d_bytes += buf.nbytes
+        return t
+
+    def _ensure_device(self, levels: tuple[int, ...], counts: dict[int, int]) -> None:
+        """Upload the padded per-rank stacks, once per storage version (and
+        the masks again after a mask refresh); called by every superstep
+        build, so a current superstep implies current stacks."""
+        version = self.arenas.version
+        if self._dev_version != version or self._dev_levels != levels:
+            assert not self._host_stale  # adopt() already enforces the flush
+            self._dev_pdfs = None
+            self._dev_masks = None
+        lattice = self.sim.spec.lattice
+        # pad slots hold the weight vector under all-WALL masks (see the
+        # class docstring)
+        w = torch.as_tensor(np.asarray(lattice.w, dtype=self.sim.fields.fields["pdf"].dtype))
+        w = w.reshape((lattice.Q, 1, 1, 1))
+        wall = torch.tensor(int(CellType.WALL), dtype=torch.int32)
+        ranks = range(len(self.rank_devices))
+        with _TR.span("device:upload", cat="transfer", version=version):
+            if self._dev_pdfs is None:
+                self._dev_pdfs = {r: tuple(self._padded(r, l, "pdf", counts[l], w) for l in levels) for r in ranks}
+            if self._dev_masks is None:
+                self._dev_masks = {r: tuple(self._padded(r, l, "mask", counts[l], wall) for l in levels) for r in ranks}
+        self._dev_version = version
+        self._dev_levels = levels
+
+    def device_held_bytes_per_rank(self) -> list[int]:
+        """Bytes of padded stepping state (pdf and mask stacks) each rank's
+        device holds: equal on every rank by construction, the Table-1
+        boundedness quantity of this fabric."""
+        self._programs()  # builds the superstep, uploading the stacks
+        return [
+            sum(t.numel() * t.element_size() for t in self._dev_pdfs[r] + self._dev_masks[r])
+            for r in range(len(self.rank_devices))
+        ]
+
+    # -- stepping --------------------------------------------------------------
+    def advance(self, coarse_steps: int) -> None:
+        """Run whole coarse steps: upload once per storage version, then
+        every substep's emits, payload copies, fills and stencils run on the
+        rank devices; the host only attributes the known message traffic to
+        the ``DeviceComm`` counters."""
+        progs = self._programs()  # a current superstep implies current device stacks
+        comm = self.sim.comm
+        s0 = comm.stats.summary()
+        with _TR.stage("fused", cat="stage", coarse_steps=coarse_steps) as st:
+            pdfs = self._dev_pdfs
+            for _ in range(coarse_steps):
+                with _TR.span("device_superstep", cat="substep", nsub=progs.nsub):
+                    pdfs = progs.fn(pdfs)
+                for p in progs.pattern:
+                    if progs.messages[p]:
+                        comm.ppermute(progs.messages[p], rounds=progs.rounds[p], pad_bytes=progs.pad_bytes[p])
+            # timing fence: StageStats seconds must not hide queued device work
+            for d in dict.fromkeys(self.rank_devices):
+                synchronize(d)
+            self._dev_pdfs = pdfs
+        self._host_stale = True
+        stage = StageStats.delta(s0, comm.stats.summary(), st.seconds)
+        # one logical ghost exchange per substep, as the other fused engines
+        # report, even where the fabric saw no cross-rank bytes
         stage.exchange_rounds = coarse_steps * progs.nsub
         self.sim.data_stats["fused"].add(stage)

@@ -373,3 +373,87 @@ def test_service_batch_equals_solo_fused_runs_on_card():
         want = {b.bid: b.data["pdf"] for b in ref.forest.all_blocks()}
         for b in sim.forest.all_blocks():
             np.testing.assert_array_equal(sim.spec.interior(b.data["pdf"]), ref.spec.interior(want[b.bid]))
+
+
+_BASE4 = dict(
+    root_grid=(2, 2, 2), cells_per_block=(8, 8, 8), omega=1.5, u_lid=(0.08, 0.0, 0.0),
+    max_level=1, refine_upper=0.03, refine_lower=0.004, nranks=4, kernel_backend="cuda",
+)
+
+
+def _assert_runs_bitwise(got, ref):
+    assert {(b.bid, b.level, b.owner) for b in got.forest.all_blocks()} == {
+        (b.bid, b.level, b.owner) for b in ref.forest.all_blocks()
+    }
+    want = {b.bid: ref.spec.interior(b.data["pdf"]) for b in ref.forest.all_blocks()}
+    for b in got.forest.all_blocks():
+        np.testing.assert_array_equal(got.spec.interior(b.data["pdf"]), want[b.bid])
+
+
+def _run_on_card(mode, **over):
+    sim = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, **_BASE4, **over))
+    sim.run(8, amr_interval=4)
+    sim.materialize_host()
+    return sim
+
+
+@pytest.mark.gpu
+def test_device_sharded_on_one_card_matches_fused_bitwise_on_card():
+    """Four ranks that share the card (``rank_devices=("cuda:0",) * 4``):
+    payloads move by on-device copies, the stacks are padded, and every
+    block's interior ends with ``fused``'s bits."""
+    _require_card()
+    n0 = (lbm_stream_collide.launches, lbm_halo_fill.kind_launches["values"])
+    got = _run_on_card("device_sharded", rank_devices=("cuda:0",) * 4)
+    assert got.engine.rank_devices == (torch.device("cuda:0"),) * 4
+    assert lbm_stream_collide.launches > n0[0] and lbm_halo_fill.kind_launches["values"] > n0[1]
+    assert got.comm.ppermute_rounds > 0
+    _assert_runs_bitwise(got, _run_on_card("fused"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_stencil_leaves_an_all_wall_weight_slot_unchanged_on_card(dtype):
+    """A device_sharded pad slot (weight pdfs under an all-WALL mask) comes
+    out of the CUDA stencil bitwise unchanged, beside real blocks."""
+    _require_card()
+    rng = np.random.default_rng(5)
+    f, mask = _random_state(rng, 3, D3Q19, (10, 10, 10), dtype)
+    w = np.broadcast_to(np.asarray(D3Q19.w, dtype)[None, :, None, None, None], (2, 19, 10, 10, 10))
+    fd = torch.from_numpy(np.concatenate([f, w])).cuda()
+    md = torch.from_numpy(np.concatenate([mask, np.full((2, 10, 10, 10), CT_WALL, np.int32)])).cuda()
+    kw = dict(omega=1.4, lattice=D3Q19, collision="trt", u_wall=(0.05, 0.01, 0.0))
+    got = lbm_stream_collide(fd, md, **kw)
+    real = lbm_stream_collide(fd[:3].contiguous(), md[:3].contiguous(), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[3:], fd[3:], rtol=0, atol=0)
+    torch.testing.assert_close(got[:3], real, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_kernels_and_device_sharded_on_a_second_card_on_card():
+    """Tensors on ``cuda:1`` while ``cuda:0`` is current: each wrapper
+    launches into its operand's card, and ``device_sharded`` with ranks on
+    two cards (peer copies) ends bitwise ``fused``'s. Needs two cards."""
+    _require_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(9)
+    f, mask = _random_state(rng, 3, D3Q19, (10, 12, 14), np.float32)
+    kw = dict(omega=1.4, lattice=D3Q19, collision="trt", u_wall=(0.05, 0.01, 0.0))
+    f1, m1 = torch.from_numpy(f).to("cuda:1"), torch.from_numpy(mask).to("cuda:1")
+    got = lbm_stream_collide(f1, m1, **kw)
+    torch.cuda.synchronize(1)
+    assert got.device == torch.device("cuda:1")
+    torch.testing.assert_close(got.cpu(), stream_collide_ref(f1.cpu(), m1.cpu(), **kw), **TOL[np.float32])
+    seg = torch.from_numpy(rng.standard_normal((4, 19)).astype(np.float32))
+    ds, dc = torch.tensor([0, 1, 2, 2], dtype=torch.int32), torch.tensor([0, 5, 7, 9], dtype=torch.int32)
+    want = torch.from_numpy(f).clone()
+    halo_fill_ref(want, seg, "values", ds, dc)
+    lbm_halo_fill(f1, seg.to("cuda:1"), "values", ds.to("cuda:1"), dc.to("cuda:1"))
+    torch.cuda.synchronize(1)
+    torch.testing.assert_close(f1.cpu(), want, rtol=0, atol=0)
+    got = _run_on_card("device_sharded", rank_devices=("cuda:0", "cuda:1", "cuda:0", "cuda:1"))
+    assert {d.index for d in got.engine.rank_devices} == {0, 1}
+    _assert_runs_bitwise(got, _run_on_card("fused"))

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX package,
-never falls back from the card to the CPU unasked, keeps its copied modules
-equal to their originals, and its CUDA lattice tables equal the lattice."""
+never falls back from the card to the CPU unasked (nor puts a rank on a
+device it was not given), keeps its copied modules equal to their
+originals, and its CUDA lattice tables equal the lattice."""
 
 import ast
 import os
@@ -13,12 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import Comm
 from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
+from repro_torch.lbm.engines import DeviceShardedEngine, resolve_rank_devices
 from repro_torch.lbm.lattice import D3Q19, D3Q27
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 ORIGINAL = REPO / "src" / "repro"
+EXAMPLE = REPO / "examples" / "lbm_cavity_amr_torch.py"
 
 # modules copied whole from the JAX package (only import lines may differ)
 COPIED = [
@@ -58,7 +62,10 @@ SMALL = dict(root_grid=(1, 1, 1), cells_per_block=(4, 4, 4), max_level=1, nranks
 
 def test_import_leaves_jax_and_repro_unloaded():
     code = (
-        "import sys, repro_torch.lbm.driver, repro_torch.state, repro_torch.serving; "
+        "import sys, importlib.util, repro_torch.lbm.driver, repro_torch.lbm.engines, "
+        "repro_torch.kernels.lbm_collide.ops, repro_torch.state, repro_torch.serving; "
+        f"spec = importlib.util.spec_from_file_location('cavity_cli', {str(EXAMPLE)!r}); "
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -96,6 +103,13 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
         assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), f"chip_smoke.py imports {name}"
 
 
+def test_cavity_cli_imports_neither_jax_nor_repro():
+    names = _imports(EXAMPLE)
+    assert "repro_torch.lbm.driver" in names
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), f"{EXAMPLE.name} imports {name}"
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_matches_its_original(rel):
     def body(p: Path) -> list[str]:
@@ -114,16 +128,25 @@ def test_default_device_without_a_card_raises(monkeypatch):
         AMRLBM(LidDrivenCavityConfig(**SMALL))
 
 
-@pytest.mark.parametrize(
-    "over, item",
-    [
-        (dict(stepping_mode="device_sharded"), "Queue 1.9"),
-    ],
-    ids=["device_sharded"],
-)
-def test_unported_features_name_their_roadmap_item(over, item):
-    with pytest.raises(NotImplementedError, match=item):
-        AMRLBM(LidDrivenCavityConfig(device="cpu", **SMALL, **over))
+def test_device_sharded_refuses_too_few_rank_devices():
+    """Ranks take the first ``nranks`` rank devices and never wrap around:
+    too few raise, naming both counts; a rank device of another type than
+    the engine's is refused."""
+    cfg = dict(SMALL, nranks=4, stepping_mode="device_sharded", device="cpu")
+    with pytest.raises(RuntimeError, match=r"nranks=4 but 2 rank devices"):
+        AMRLBM(LidDrivenCavityConfig(rank_devices=("cpu", "cpu"), **cfg))
+    with pytest.raises(RuntimeError, match=r"nranks=3 but 0 rank devices"):
+        resolve_rank_devices((), 3, torch.device("cpu"))
+    assert resolve_rank_devices(("cpu",) * 5, 2, torch.device("cpu")) == (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError, match="not a cpu device"):
+        AMRLBM(LidDrivenCavityConfig(rank_devices=("cpu", "cuda:0", "cpu", "cpu"), **cfg))
+
+
+def test_device_sharded_refuses_a_fabric_without_ppermute():
+    sim = AMRLBM(LidDrivenCavityConfig(device="cpu", **dict(SMALL, nranks=2, stepping_mode="device_sharded")))
+    sim.comm = Comm(2)
+    with pytest.raises(TypeError, match="DeviceComm"):
+        DeviceShardedEngine(sim)
 
 
 def test_unknown_backend_is_refused():

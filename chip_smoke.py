@@ -64,6 +64,27 @@ finding per line:
    at the cross-check's depth: ``fused_sharded`` resized 4 -> 2 at step 4,
    in memory and through a disk checkpoint, ends step 8 bitwise equal to an
    uninterrupted ``fused`` run; so must ``device_sharded`` resized 4 -> 2.
+2c. analysis and telemetry, at the full cavity's width. Launch counts are
+   zeroed just before and read just after. (a) ``fused``,
+   ``fused_sharded`` and ``device_sharded`` (4 ranks on ``cuda:0``) each
+   run the canonical build scenario (advance 2, one executed
+   ``adapt(force_rebalance=True)``, advance 2) under
+   ``RetraceSentinel``: the ``build:*`` counts by name must stay within the
+   budgets of ``repro_torch.analysis.config``, and a warm ``advance(2)``
+   must build nothing. (b) The protocol verifier on the plans the
+   ``fused`` and ``fused_sharded`` runs of phase 2 held after each of
+   their 3 AMR events (each pattern's ghost plan, each pattern's rank
+   plan), with the engines' own slot maps: zero findings, seconds printed.
+   (c) The ``fused_sharded`` run of (a) is traced: its Chrome trace must
+   pass ``tools/trace_report.py``'s ``check_trace`` with all four substep
+   phases and an ``amr.event``, its ``stage`` spans must sum exactly to
+   ``data_stats``, its AMR report's stages must equal their spans, and no
+   ring may evict. (d) Steady ``fused_sharded`` coarse steps/s with
+   telemetry on and off, 8 alternating turns of 32 coarse steps; the
+   quartiles of each mode, the ratio of the medians, and whether the
+   interquartile ranges separate (else the ratio is unresolved).
+   (e) ``examples/trace_fused_sharded_torch.py``'s ``main`` on the card
+   into a temporary file: a valid trace. Prints the phase's wall time.
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
@@ -90,6 +111,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import re
 import subprocess
@@ -279,6 +301,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
+    from repro_torch import telemetry
+    from repro_torch.analysis import RetraceSentinel, budget_findings, load_config, render
+    from repro_torch.analysis.engine_plans import verify_engine_plans
     from repro_torch.kernels.lbm_collide import build as kbuild
     from repro_torch.kernels.lbm_collide.lbm_collide import (
         kernel_attributes,
@@ -373,11 +398,17 @@ def main() -> int:
         res_ = sim.engine.residencies()
         return sum(r.h2d_transfers for r in res_), sum(r.d2h_transfers for r in res_)
 
-    def drive_cavity(mode: str, **over):
+    def drive_cavity(mode: str, protocol: list | None = None, **over):
         """``AMRLBM(cfg).run(12, amr_interval=4)``, unrolled so each coarse
         step and AMR event is timed; launch counts zeroed just before and
         read just after. Peak memory is counted above what was allocated
-        before the run (an earlier run's simulation stays resident)."""
+        before the run (an earlier run's simulation stays resident). With
+        ``protocol`` (a list), the plans the engine holds after the first two
+        AMR events are verified, and (event, findings, seconds) appended to
+        it: event 1's after step 5, event 2's after step 11, the last step
+        before event 3, so that the checks' host work and allocations stay
+        out of the steady window (steps 10 and 11); the main path's wall
+        time leaves those seconds out."""
         cfg = LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **FULL_CAVITY, **over)
         say(f"[{mode}] main path config:",
             json.dumps({k: v for k, v in vars(cfg).items() if k != "obstacle_fn"}))
@@ -390,6 +421,7 @@ def main() -> int:
         check(sim.device.type == "cuda", "the main path runs on the card")
         mass0 = sim.total_mass()
         step_s, amr_s, transfers, levels_at, comm_at, forests = [], [], [], [], [], []
+        verify_s = 0.0
         for i in range(12):
             levels_at.append(blocks_per_level(sim))
             transfers.append(transfers_of(sim))
@@ -398,6 +430,10 @@ def main() -> int:
             t0 = time.perf_counter()
             sim.advance(1)  # device modes: ends in a device synchronize; arena: copies back
             step_s.append(time.perf_counter() - t0)
+            if protocol is not None and i in (4, 10):  # the engine now holds the plans of event i // 4
+                t0 = time.perf_counter()
+                protocol.append((i // 4, verify_engine_plans(sim), time.perf_counter() - t0))
+                verify_s += protocol[-1][2]
             if (i + 1) % 4 == 0:
                 t0 = time.perf_counter()
                 sim.adapt()
@@ -407,7 +443,7 @@ def main() -> int:
         comm_at.append({**sim.comm.stats.summary(), "pad": getattr(sim.comm, "ppermute_pad_bytes", 0)})
         mass1 = sim.total_mass()
         torch.cuda.synchronize()
-        main_s = time.perf_counter() - t_main
+        main_s = time.perf_counter() - t_main - verify_s
         launches = launch_counts()
         peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
         # steady state: steps 10 and 11 (step 9 follows the second AMR event:
@@ -459,13 +495,16 @@ def main() -> int:
     # fused: every level's fill from its sources, then every level's stencil;
     # arena: the stencil alone, with a host round trip every substep;
     # fused_sharded: the same kernels per rank, with device-built messages
-    sim, fused_launches, fused_forests, _ = drive_cavity("fused")
+    # the protocol verifier's findings at the AMR events of the fused and
+    # fused_sharded runs, read in phase 2c
+    protocol_at = {"fused": [], "fused_sharded": []}
+    sim, fused_launches, fused_forests, _ = drive_cavity("fused", protocol=protocol_at["fused"])
     check(fused_launches["lbm_halo_fill"] > 0, "the fill kernel launched on the fused path")
     check(fused_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the fused path")
     _arena_sim, arena_launches, _, _ = drive_cavity("arena")
     check(arena_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the arena path")
     del _arena_sim
-    fs, fs_launches, fs_forests, fs_info = drive_cavity("fused_sharded")
+    fs, fs_launches, fs_forests, fs_info = drive_cavity("fused_sharded", protocol=protocol_at["fused_sharded"])
     check(fs.engine.split, "fused_sharded splits interior and boundary blocks on the card")
     for key in ("lbm_stream_collide", "lbm_stream_collide[slots]", "lbm_halo_fill[copy]",
                 "lbm_halo_fill[fine]", "lbm_halo_fill[values]"):
@@ -497,8 +536,9 @@ def main() -> int:
         f"{ds_info['comm']['p2p_messages']:.1f} messages (fused_sharded's Comm: {fs_info['comm']['p2p_bytes']:.0f} "
         f"bytes, {fs_info['comm']['p2p_messages']:.1f} messages), {ds_info['comm']['pad']:.0f} pad bytes; "
         f"{ds.comm.ppermute_rounds} ppermute rounds and {ds.comm.ppermute_pad_bytes} pad bytes over the run")
-    held = ds.engine.device_held_bytes_per_rank()
+    held = ds.engine.device_held_bytes_by_rank()
     check(len(set(held)) == 1, f"every rank's device holds the same bytes: {held}")
+    check(ds.engine.device_held_bytes_per_rank() == held[0], "device_held_bytes_per_rank is the bytes of each rank")
     say(f"[device_sharded] padded stacks held per rank device after step 12: {held[0] / 1e9:.3f} GB on each of "
         f"{len(held)} ranks; peak device memory {ds_info['peak_gb']:.3f} GB against fused_sharded's "
         f"{fs_info['peak_gb']:.3f} GB; steady rate {ds_info['rate']:.3f} against fused_sharded's "
@@ -945,6 +985,132 @@ def main() -> int:
             f"bitwise equal to an uninterrupted fused run")
         del s
     del e_want
+
+    # -- 2c. analysis and telemetry at the full cavity's width ------------------
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tools"))
+    from trace_report import PHASES, check_trace
+
+    tracer = telemetry.get_tracer()
+    capacity0 = tracer.capacity
+    budgets = load_config(ROOT).section("retrace")["budgets"]
+    reset_launches()
+
+    # (b) the protocol verifier on the plans the fused and fused_sharded runs
+    # held after each AMR event: events 1 and 2 were verified in phase 2,
+    # event 3's plans were built by phase 2's profiles
+    for mode, run_ in (("fused", sim), ("fused_sharded", fs)):
+        t0 = time.perf_counter()
+        protocol_at[mode].append((3, verify_engine_plans(run_), time.perf_counter() - t0))
+        for event, findings, seconds in protocol_at[mode]:
+            for f in findings[:5]:
+                say("  " + render(f)[:300])
+            check(not findings, f"[{mode}] protocol findings on the plans held after AMR event {event}")
+        check([e for e, _, _ in protocol_at[mode]] == [1, 2, 3], f"[{mode}] plans verified at every AMR event")
+        say(f"[analysis] protocol: {mode}'s plans held after AMR events 1, 2, 3 ({run_.forest.num_blocks()} "
+            f"blocks after event 3): 0 findings; verified in "
+            f"{', '.join(f'{sec:.3f}' for _, _, sec in protocol_at[mode])} s")
+
+    def canonical(mode: str, **over):
+        """The canonical build scenario at the full cavity's width under the
+        sentinel: advance(2), one executed adapt(force_rebalance=True),
+        advance(2); then a warm advance(2) that must build nothing."""
+        t0 = time.perf_counter()
+        with RetraceSentinel() as builds:
+            run_ = AMRLBM(LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **FULL_CAVITY, **over))
+            run_.advance(2)
+            report_ = run_.adapt(force_rebalance=True)
+            check(report_.executed, f"[{mode}] the canonical AMR event executes")
+            run_.advance(2)
+        with RetraceSentinel() as warm:
+            run_.advance(2)
+        over_budget = budget_findings(mode, builds.counts, budgets[mode])
+        say(f"[analysis] builds of {mode} (advance 2, AMR event, advance 2; {run_.forest.num_blocks()} blocks after "
+            f"the event): {json.dumps(builds.counts)}, total {builds.total()} against a budget of {budgets[mode]}; "
+            f"warm advance(2): {warm.total()} builds; {time.perf_counter() - t0:.2f} s")
+        check(not over_budget, "; ".join(render(f) for f in over_budget))
+        check(warm.total() == 0, f"[{mode}] a warm advance builds nothing: {warm.counts}")
+        return run_, report_
+
+    # (a) + (c): fused_sharded runs traced; the sentinel leaves the tracer as is
+    telemetry.configure(enabled=True, capacity=1 << 16)
+    tracer.reset()
+    tfs, t_report = canonical("fused_sharded")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = json.loads(telemetry.export.write_chrome_trace(Path(tmp) / "fused_sharded.trace.json").read_text())
+    errors = check_trace(trace, require_substep_phases=True)
+    check(errors == [], f"the traced fused_sharded run's trace is valid: {errors[:5]}")
+    substep_names = {ev["name"] for ev in trace["traceEvents"] if ev.get("cat") == "substep"}
+    check(set(PHASES) <= substep_names, f"all four substep phases in the trace: {sorted(substep_names)}")
+    check(any(ev["name"] == "amr.event" and ev["ph"] == "i" for ev in trace["traceEvents"]), "an amr.event instant")
+    stage_sums = telemetry.export.stage_seconds(tracer, cat="stage")
+    for stage in ("halo", "step", "fused"):
+        check(stage_sums.get(stage, 0.0) == tfs.data_stats[stage].seconds,
+              f"stage spans of {stage!r} sum exactly to data_stats: {stage_sums.get(stage)} vs "
+              f"{tfs.data_stats[stage].seconds}")
+    amr_sums = telemetry.export.stage_seconds(tracer, cat="amr")
+    for stage in ("refine", "proxy", "balance", "migrate"):
+        check(amr_sums[stage] == t_report.stages[stage].seconds, f"the AMR report's {stage} equals its span")
+    rings = tracer.buffer_stats()
+    check(all(r["entries"] <= r["capacity"] and r["evicted"] == 0 for r in rings.values()),
+          f"every ring within its capacity: {rings}")
+    say(f"[analysis] telemetry: traced fused_sharded trace valid ({len(trace['traceEvents'])} events, phases "
+        f"{sorted(substep_names)}, an amr.event); stage spans = data_stats exactly "
+        f"({', '.join(f'{k} {stage_sums.get(k, 0.0):.6f} s' for k in ('halo', 'step', 'fused'))}); the AMR report's "
+        f"4 stages = their spans exactly; rings {max(r['entries'] for r in rings.values())} of "
+        f"{tracer.capacity} records at most, none evicted")
+
+    # (d) the cost of telemetry: steady fused_sharded coarse steps/s with
+    # telemetry on and off, in alternating turns (on/off, then off/on, so a
+    # drift of the host's speed falls on both modes alike). The ratio of the
+    # medians is resolved only where the two modes' interquartile ranges do
+    # not overlap.
+    turns, steps_a_turn = 8, 32
+    rates = {True: [], False: []}
+    for turn in range(turns):
+        for enabled in ((True, False) if turn % 2 == 0 else (False, True)):
+            telemetry.configure(enabled=enabled)
+            tracer.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tfs.advance(steps_a_turn)  # ends in a device synchronize
+            rates[enabled].append(steps_a_turn / (time.perf_counter() - t0))
+    telemetry.configure(enabled=False)
+    tracer.reset()
+    q = {k: [float(np.percentile(v, p)) for p in (25, 50, 75)] for k, v in rates.items()}
+    separated = q[True][2] < q[False][0] or q[False][2] < q[True][0]
+    say(f"[analysis] telemetry cost, steady fused_sharded, {turns} turns of {steps_a_turn} coarse steps each way: "
+        f"on {json.dumps([round(r, 3) for r in rates[True]])}, off {json.dumps([round(r, 3) for r in rates[False]])} "
+        f"coarse steps/s; quartiles on {', '.join(f'{x:.3f}' for x in q[True])}, off "
+        f"{', '.join(f'{x:.3f}' for x in q[False])}; on/off of the medians {q[True][1] / q[False][1]:.3f}, "
+        + ("resolved: the interquartile ranges do not overlap" if separated
+           else "unresolved: the interquartile ranges overlap"))
+    del tfs
+
+    # (a) fused and device_sharded, untraced
+    for mode, over in (("fused", {}), ("device_sharded", dict(rank_devices=SHARED_CARD))):
+        run_, _ = canonical(mode, **over)
+        del run_
+
+    # (e) the trace twin, on the card, into a temporary path
+    spec = importlib.util.spec_from_file_location("trace_twin", ROOT / "examples" / "trace_fused_sharded_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    with tempfile.TemporaryDirectory() as tmp:
+        twin_path = twin.main(["--out", str(Path(tmp) / "twin.trace.json")])
+        twin_trace = json.loads(Path(twin_path).read_text())
+    telemetry.configure(enabled=False, capacity=capacity0)
+    tracer.reset()
+    errors = check_trace(twin_trace, require_substep_phases=True)
+    check(errors == [], f"the trace twin's trace is valid: {errors[:5]}")
+    say(f"[analysis] examples/trace_fused_sharded_torch.py main on the card: trace valid, "
+        f"{len(twin_trace['traceEvents'])} events")
+    analysis_launches = launch_counts()
+    for key in ("lbm_stream_collide", "lbm_halo_fill", "lbm_stream_collide[slots]", "lbm_halo_fill[values]"):
+        check(analysis_launches[key] > 0, f"{key} launched in phase 2c")
+    say(f"[analysis] kernel launches in phase 2c: {json.dumps(analysis_launches)}")
+    say(f"[analysis] phase 2c wall time {time.perf_counter() - t_phase:.2f} s (plus phase 2's protocol checks, "
+        f"{sum(sec for runs_ in protocol_at.values() for _, _, sec in runs_[:2]):.3f} s)")
 
     # -- 3. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
@@ -1394,7 +1560,7 @@ def main() -> int:
 
     # -- 5. the kernels line and the result -------------------------------------
     by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
-               "device_sharded": ds_launches, "serving": serving_launches}
+               "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches}
 
     def path_launches(key):
         return {path: counts[key] for path, counts in by_path.items()}

@@ -101,7 +101,7 @@ def main() -> None:
               f"{fused.p2p_messages} p2p messages over {fused.exchange_rounds} "
               f"in-program exchanges; {sim.comm.ppermute_rounds} ppermute "
               f"rounds, {sim.comm.ppermute_pad_bytes} pad bytes, "
-              f"{max(held)} held bytes/device on "
+              f"{held} held bytes/device on "
               f"{','.join(str(d) for d in sim.engine.rank_devices)}")
     print(f"done: {sim.amr_cycles} AMR cycles executed")
 

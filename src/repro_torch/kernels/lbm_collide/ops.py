@@ -178,6 +178,7 @@ def _pad_fill_layout(
     return entry, cell, valid
 
 
+# repro: host-ok(plan index arrays are host numpy, uploaded once per program build)
 def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
@@ -199,6 +200,7 @@ class FillTable:
     src_cell: torch.Tensor
 
 
+# repro: host-ok(build-time sort of host plan arrays, once per superstep build)
 def fill_tables(fill, level_index: dict[int, int], device: torch.device | str) -> tuple[FillTable, ...]:
     """Lower a :class:`~..lbm.halo.LevelHaloFill` into one sorted
     :class:`FillTable` per segment (built once per superstep build)."""
@@ -227,6 +229,7 @@ def fill_tables(fill, level_index: dict[int, int], device: torch.device | str) -
     return tuple(tables)
 
 
+# repro: host-ok(build-time check over host plan arrays, once per branch build)
 def _assert_fills_disjoint(
     fills: dict, level_index: dict[int, int], nblocks: list[int], cells: int, messages=()
 ) -> None:
@@ -308,7 +311,7 @@ def make_halo_stream_collide(
     over as a constant (programs are rebuilt on mask refresh / AMR events).
     """
     _check_backend(backend)
-    mask = np.asarray(mask)
+    mask = np.asarray(mask)  # repro: host-ok(the host mask stack closed over at program build)
     device = torch.device(device)
     assert fill.num_cells > 0, "use make_stream_collide when there is no fill"
     kw = dict(omega=omega, lattice=lattice, u_wall=u_wall, collision=collision, magic=magic)
@@ -582,6 +585,7 @@ def make_ensemble_superstep(
     levels = tuple(sorted(levels))
     index = {l: i for i, l in enumerate(levels)}
     lmax = levels[-1]
+    # repro: host-ok(host mask stacks of the arena, read once per program build)
     masks_host = tuple(np.asarray(masks[l]) for l in levels)
     masks_t = tuple(torch.tensor(m, device=device) for m in masks_host)  # copies
     nblocks = [m.shape[0] for m in masks_host]

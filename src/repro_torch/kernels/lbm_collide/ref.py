@@ -102,9 +102,9 @@ def collision_coeffs(
     ``coefficient * tensor``, so passing them as per-member tensors (a later
     batched ensemble path) gives the same bits as passing scalars.
     """
-    c = np.asarray(lattice.c)
-    w = np.asarray(lattice.w)
-    uw = np.asarray(u_wall, dtype=np.float64)
+    c = np.asarray(lattice.c)  # repro: host-ok(lattice constants are host numpy, folded into the program)
+    w = np.asarray(lattice.w)  # repro: host-ok(lattice constants are host numpy, folded into the program)
+    uw = np.asarray(u_wall, dtype=np.float64)  # repro: host-ok(lattice constants are host numpy, folded into the program)
     # velocity bounce-back momentum term per direction: 6 w_q (c_q . u_wall)
     lid = np.array(
         [6.0 * w[q] * float(c[q] @ uw) for q in range(lattice.Q)], dtype=dtype
@@ -144,9 +144,10 @@ def precompute_stream_masks(mask, lattice: Lattice = D3Q19) -> dict[str, np.ndar
     rolls act on the trailing three axes and the ``q`` axis leads:
     ``fluid_src``/``lid_src`` are ``(Q, *mask.shape)`` bool.
     """
+    # repro: host-ok(mask selector precompute is host-side by design, once per program build)
     m = np.asarray(mask)
     Q = lattice.Q
-    c = np.asarray(lattice.c)
+    c = np.asarray(lattice.c)  # repro: host-ok(lattice constants are host numpy, folded into the program)
     fluid_src = np.empty((Q,) + m.shape, dtype=bool)
     lid_src = np.empty((Q,) + m.shape, dtype=bool)
     for q in range(Q):
@@ -186,8 +187,8 @@ def stream_collide_coeffs(
     selectors and ``mask`` may be None.
     """
     Q = lattice.Q
-    c = np.asarray(lattice.c)
-    opp = np.asarray(lattice.opposite)
+    c = np.asarray(lattice.c)  # repro: host-ok(lattice constants are host numpy, folded into the program)
+    opp = np.asarray(lattice.opposite)  # repro: host-ok(lattice constants are host numpy, folded into the program)
     lid = torch.as_tensor(coeffs["lid"], dtype=f.dtype, device=f.device)  # (Q,) or (M, Q)
 
     # -- pull streaming with bounce-back ------------------------------------

@@ -263,6 +263,7 @@ class RestackEngine(StepEngine):
             return
         f = torch.from_numpy(np.stack([b.data["pdf"] for b in blocks])).to(self.device)
         m = torch.from_numpy(np.stack([b.data["mask"] for b in blocks])).to(self.device)
+        # repro: host-ok(restack-mode copy-out contract: results return to host block storage)
         out = self._stepper(level)(f, m).cpu().numpy()
         for i, b in enumerate(blocks):
             b.data["pdf"] = out[i]
@@ -320,6 +321,9 @@ class FusedEngine(ArenaEngine):
         # superstep cache: (arena version, level tuple) -> fn
         self._fused_fn = None
         self._fused_key: tuple | None = None
+        # (slot map, ghost plan of each activity pattern) the superstep was
+        # built from, for the protocol verifier
+        self.held_plans: tuple | None = None
 
     def masks_refreshed(self) -> None:
         super().masks_refreshed()
@@ -359,6 +363,7 @@ class FusedEngine(ArenaEngine):
                 for p in range(lmax + 1)
             }
             res = self.arena.device()
+            # repro: host-ok(host mask copy at program build, once per arena version)
             masks_host = {l: np.array(self.arena.buffer(l, "mask")) for l in levels}
             self._fused_fn = make_fused_superstep(
                 levels=levels,
@@ -367,6 +372,7 @@ class FusedEngine(ArenaEngine):
                 masks={l: res.fetch(l, "mask") for l in levels},
                 halo_stepper_factory=self._halo_stepper_factory(masks_host),
             )
+            self.held_plans = (slots, plans)
         self._fused_key = key
         return self._fused_fn, levels
 
@@ -383,7 +389,7 @@ class FusedEngine(ArenaEngine):
         with _TR.stage("fused", cat="stage", coarse_steps=coarse_steps) as sp:
             for _ in range(coarse_steps):
                 pdfs = fn(pdfs)
-            # timing fence: StageStats seconds must not hide queued device work
+            # repro: host-ok(timing fence: StageStats seconds must not hide queued device work)
             synchronize(self.device)
             for l, arr in zip(levels, pdfs):
                 res.store(l, "pdf", arr)
@@ -490,6 +496,10 @@ class _RankPrograms:
     sends: dict[int, dict[int, list]] = field(default_factory=dict)
     recvs: dict[int, dict[int, list]] = field(default_factory=dict)
     has_messages: dict[int, bool] = field(default_factory=dict)
+    # the compiled rank plan of each activity pattern and the slot map they
+    # index, for the protocol verifier
+    plans: dict[int, object] = field(default_factory=dict)
+    rank_slots: dict[int, dict[int, dict[int, int]]] = field(default_factory=dict)
 
 
 @_register
@@ -551,11 +561,12 @@ class FusedShardedEngine(ShardedEngine):
         rank_levels = {r: tuple(per_rank[r].levels()) for r in ranks}
         rank_slots = {r: {l: per_rank[r].slots(l) for l in rank_levels[r]} for r in ranks}
         progs = _RankPrograms(levels=levels, nsub=nsub, pattern=substep_patterns(lmax), ranks=ranks,
-                              rank_levels=rank_levels)
+                              rank_levels=rank_levels, rank_slots=rank_slots)
         backend = self.cfg.kernel_backend
         for p in range(lmax + 1):
             active = {l for l in levels if l >= lmax - p}
             plan = compile_rank_halo_plan(forest, self.sim.fields, rank_slots, fields=("pdf",), levels=active)
+            progs.plans[p] = plan
             progs.has_messages[p] = bool(plan.messages)
             for d in (progs.emits, progs.absorbs, progs.interiors, progs.boundaries, progs.sends, progs.recvs):
                 d[p] = {}
@@ -653,7 +664,7 @@ class FusedShardedEngine(ShardedEngine):
                             continue
                         with _TR.span("absorb", cat="substep", rank=r, substep=s, pattern=p, split=False):
                             pdfs[r] = absorb(pdfs[r], msgs)
-            # timing fence: StageStats seconds must not hide queued device work
+            # repro: host-ok(timing fence: StageStats seconds must not hide queued device work)
             synchronize(self.device)
             for r in progs.ranks:
                 for l, arr in zip(progs.rank_levels[r], pdfs[r]):
@@ -879,6 +890,7 @@ class DeviceShardedEngine(ShardedEngine):
         lattice = self.sim.spec.lattice
         # pad slots hold the weight vector under all-WALL masks (see the
         # class docstring)
+        # repro: host-ok(lattice weights are a host constant)
         w = torch.as_tensor(np.asarray(lattice.w, dtype=self.sim.fields.fields["pdf"].dtype))
         w = w.reshape((lattice.Q, 1, 1, 1))
         wall = torch.tensor(int(CellType.WALL), dtype=torch.int32)
@@ -891,15 +903,23 @@ class DeviceShardedEngine(ShardedEngine):
         self._dev_version = version
         self._dev_levels = levels
 
-    def device_held_bytes_per_rank(self) -> list[int]:
-        """Bytes of padded stepping state (pdf and mask stacks) each rank's
-        device holds: equal on every rank by construction, the Table-1
-        boundedness quantity of this fabric."""
+    def device_held_bytes_by_rank(self) -> list[int]:
+        """Bytes of padded stepping state (pdf and mask stacks) on each
+        rank's device, one entry a rank: equal on every rank by
+        construction, which this asserts."""
         self._programs()  # builds the superstep, uploading the stacks
-        return [
+        held = [
             sum(t.numel() * t.element_size() for t in self._dev_pdfs[r] + self._dev_masks[r])
             for r in range(len(self.rank_devices))
         ]
+        assert len(set(held)) == 1, f"padded stacks differ between rank devices: {held}"
+        return held
+
+    def device_held_bytes_per_rank(self) -> int:
+        """Bytes of padded stepping state each rank's device holds, one
+        ``int`` as the JAX package returns: the Table-1 boundedness quantity
+        of this fabric (per rank: :meth:`device_held_bytes_by_rank`)."""
+        return self.device_held_bytes_by_rank()[0]
 
     # -- stepping --------------------------------------------------------------
     def advance(self, coarse_steps: int) -> None:
@@ -917,9 +937,11 @@ class DeviceShardedEngine(ShardedEngine):
                     pdfs = progs.fn(pdfs)
                 for p in progs.pattern:
                     if progs.messages[p]:
+                        # repro: collective-ok(accounting mirror of the in-program payload copies — p2p bytes, not a collective)
                         comm.ppermute(progs.messages[p], rounds=progs.rounds[p], pad_bytes=progs.pad_bytes[p])
-            # timing fence: StageStats seconds must not hide queued device work
+            # timing fence on every rank device
             for d in dict.fromkeys(self.rank_devices):
+                # repro: host-ok(timing fence: StageStats seconds must not hide queued device work)
                 synchronize(d)
             self._dev_pdfs = pdfs
         self._host_stale = True

@@ -315,7 +315,7 @@ class Ensemble:
             pdfs = tuple(self._dev[l] for l in levels)
             for _ in range(coarse_steps):
                 pdfs = fn(pdfs, coeffs)
-            # timing fence: advance latency is the serving metric
+            # repro: host-ok(timing fence: advance latency is the serving metric)
             synchronize(self.device)
             for l, arr in zip(levels, pdfs):
                 self._dev[l] = arr

@@ -269,13 +269,15 @@ def test_device_held_bytes_are_equal_per_rank_and_do_not_grow_with_ranks():
         sim.adapt()  # padding derived again for the refined forest
         sim.advance(2)
         sim.materialize_host()
-        per_rank = sim.engine.device_held_bytes_per_rank()
+        per_rank = sim.engine.device_held_bytes_by_rank()
         assert len(per_rank) == nranks and len(set(per_rank)) == 1, per_rank
+        held = sim.engine.device_held_bytes_per_rank()
+        assert type(held) is int and held == per_rank[0], (held, per_rank)
         # the padded pdf and mask stacks, each level at the largest rank's count
         progs = sim.engine._programs()
         cells = int(np.prod(sim.spec.mask_shape))
-        assert per_rank[0] == sum(n * cells * (19 * 4 + 4) for n in progs.counts.values())
-        return per_rank[0]
+        assert held == sum(n * cells * (19 * 4 + 4) for n in progs.counts.values())
+        return held
 
     h2, h4 = held(2), held(4)
     assert 0 < h4 <= h2, (h2, h4)

@@ -55,21 +55,38 @@ COPIED = [
     "serving/__init__.py",
     "serving/service.py",
     "serving/elastic.py",
+    "analysis/findings.py",
+    "analysis/protocol.py",
+]
+# the port's example twins and its lint driver: each imports only repro_torch
+TWINS = [
+    "examples/quickstart_torch.py",
+    "examples/resilience_demo_torch.py",
+    "examples/particles_in_cavity_torch.py",
+    "examples/trace_fused_sharded_torch.py",
+    "tools/repro_lint_torch.py",
 ]
 
 SMALL = dict(root_grid=(1, 1, 1), cells_per_block=(4, 4, 4), max_level=1, nranks=1)
 
 
 def test_import_leaves_jax_and_repro_unloaded():
-    code = (
-        "import sys, importlib.util, repro_torch.lbm.driver, repro_torch.lbm.engines, "
-        "repro_torch.kernels.lbm_collide.ops, repro_torch.state, repro_torch.serving; "
-        f"spec = importlib.util.spec_from_file_location('cavity_cli', {str(EXAMPLE)!r}); "
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
+    """Importing the port, its analyzer, the cavity CLI, the example twins,
+    the port's lint driver and ``tools/trace_report.py`` loads neither jax
+    nor any module of the JAX package."""
+    scripts = [EXAMPLE, *(REPO / t for t in TWINS), REPO / "tools" / "trace_report.py"]
+    code = "\n".join([
+        "import sys, importlib.util, repro_torch.lbm.driver, repro_torch.lbm.engines",
+        "import repro_torch.kernels.lbm_collide.ops, repro_torch.state, repro_torch.serving",
+        "import repro_torch.analysis, repro_torch.analysis.engine_plans",
+        f"for i, path in enumerate({[str(p) for p in scripts]!r}):",
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', path)",
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'repro' or m.startswith('repro.')); "
-        "print(bad); sys.exit(1 if bad else 0)"
-    )
+        "or m == 'repro' or m.startswith('repro.'))",
+        "print(bad)",
+        "sys.exit(1 if bad else 0)",
+    ])
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run(
         [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
@@ -108,6 +125,14 @@ def test_cavity_cli_imports_neither_jax_nor_repro():
     assert "repro_torch.lbm.driver" in names
     for name in names:
         assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), f"{EXAMPLE.name} imports {name}"
+
+
+@pytest.mark.parametrize("rel", TWINS)
+def test_twin_imports_only_the_port(rel):
+    names = _imports(REPO / rel)
+    assert any(name.split(".")[0] == "repro_torch" for name in names), f"{rel} imports no repro_torch module"
+    for name in names:
+        assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), f"{rel} imports {name}"
 
 
 @pytest.mark.parametrize("rel", COPIED)

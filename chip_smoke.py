@@ -85,7 +85,21 @@ finding per line:
    interquartile ranges separate (else the ratio is unresolved).
    (e) ``examples/trace_fused_sharded_torch.py``'s ``main`` on the card
    into a temporary file: a valid trace. Prints the phase's wall time.
-3. each kernel against its plain PyTorch version on the card, at the shapes
+3. ``[lm]``, the LM scaffold's serving path at full width: qwen2-0.5b
+   (24 layers, d_model 896, GQA 14/2, vocab 151,936, tied embeddings) from
+   one seeded generator, through ``build_model``, ``Model.logits``,
+   ``Model.decode`` and ``make_serve_step``; no kernel of the port runs
+   here (the LM scaffold reaches no Pallas kernel). f32: 4 requests of 32
+   prompt tokens served one token at a time, then 32 greedy tokens; decode
+   logits within 2e-3 of the teacher-forced logits at every step, served
+   tokens equal to the teacher-forced argmax except at counted near-ties;
+   the same weights cut to 2 layers on the card and on the CPU within 1e-5.
+   bf16: prefill at B = 1, S = 8192 and decode at B = 32 against a full
+   32,768-slot cache, timed against the ``repro_torch.launch.perf_model``
+   bounds, with peak memory, a profile of 2 decode steps (idle share,
+   device operations) and one step under sync debug mode ``error``.
+   ``torch.backends.cuda.matmul.allow_tf32`` must stay off.
+4. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
    the stencil; the padded-slab form once; the stencil over a real rank's
@@ -96,7 +110,7 @@ finding per line:
    the level-2 fill for 4 members (each bitwise M solo launches). Then small D3Q27 / BGK / f64 / odd-extent cases for the
    stencil and every fill segment kind (``same``, ``coarse``, ``fine``) in
    f32/f64 x D3Q19/D3Q27. Max error, kernel time, plain time and the bound.
-4. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
+5. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
    ``sharded``, ``fused_sharded`` and ``device_sharded`` on the kernels and
    ``fused``, ``fused_sharded`` and ``device_sharded`` on the plain
    versions grow the same forest and agree on the interior fields
@@ -104,7 +118,8 @@ finding per line:
    cards ``device_sharded`` runs again with its ranks spread over them;
    ``restack`` and ``fused_sharded`` with 24 tracers a block under the lid
    agree on every tracer's position within 1e-10.
-5. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+6. the card line, the ``lm_serve`` and ``kernels`` JSON lines, and the final
+   ``ok`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -163,6 +178,14 @@ TRACERS_CROSS = dict(per_block=24, seed=1, alpha=0.05, region=((0.0, 0.0, 1.7), 
 KERNEL1_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:212"
 KERNEL2_REPLACES = "src/repro/kernels/lbm_collide/lbm_collide.py:248"
 KERNEL_SOURCE = "src/repro_torch/kernels/lbm_collide/csrc/lbm_collide.cu"
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+# the LM serving phase: qwen2-0.5b at full width from one seed
+LM_ARCH = "qwen2-0.5b"
+LM_SEED = 0
+LM_CONSISTENCY = dict(rtol=2e-3, atol=2e-3)  # tests/test_models_smoke.py's prefill/decode consistency
+LM_F32 = dict(rtol=1e-5, atol=1e-5)  # tests/test_torch_lm_serve.py's f32 tolerance
+LM_PREFILL = dict(B=1, S=8192)  # prefill_32k's shape, cut from 32 x 32,768 to fit one card
+LM_DECODE = dict(B=32, T=32768, steps=32, warmup=3)  # decode_32k's cache length, batch cut from 128
 
 
 def check(cond: bool, what: str) -> None:
@@ -294,6 +317,178 @@ def device_profile(run, host_rows: list | None = None) -> tuple[list, float, flo
         host_rows += sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
                              if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0), key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows), wall_ms
+
+
+def lm_serving_phase() -> dict:
+    """Phase 3: the LM scaffold's serving path at full width (qwen2-0.5b,
+    weights from ``torch.Generator().manual_seed(LM_SEED)``). (a) f32
+    self-consistency: 4 requests of 32 prompt tokens through ``serve_step``
+    one token at a time from a 64-slot cache at ``pos = 0``, then 32
+    greedy tokens fed back; ``Model.decode``'s logits at every one of the 64
+    steps (a second pass over the same tokens) against ``Model.logits``
+    over the 64 tokens, and the served tokens against the teacher-forced
+    argmax (a mismatch is allowed only where the top-2 gap is under the
+    tolerance: counted). (b) The same weights cut to 2 layers on the card
+    and on the CPU over the same tokens. (c) bf16 prefill timing, ``B x S =
+    LM_PREFILL``. (d) bf16 decode timing, ``LM_DECODE``, every step reading
+    the whole cache (``pos = cache_len``), a profile of 2 steps, and one step
+    under ``torch.cuda.set_sync_debug_mode("error")``: no host sync."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.perf_model import hbm_bytes_estimate, model_flops
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    check(not torch.backends.cuda.matmul.allow_tf32, "f32 matmuls stay off TF32 (PyTorch's default)")
+    cfg = get_config(LM_ARCH)
+    dev = torch.device("cuda")
+
+    # -- a. full width, f32, self-consistency ---------------------------------
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv} kv heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params:,} parameters ({cfg.params_count():,} by "
+        f"ArchConfig.params_count, which leaves out biases and norms), drawn in {time.perf_counter() - t0:.2f} s")
+    B, P, G = 4, 32, 32
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=torch.Generator().manual_seed(LM_SEED + 1)).to(dev)
+    serve_step = make_serve_step(model)
+    cache = model.init_cache(B, P + G)
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+    fed, served = [], []
+    for t in range(P + G):
+        tok = prompt[:, t : t + 1] if t < P else served[-1]
+        fed.append(tok)
+        nxt, cache = serve_step(tok, cache)
+        if t >= P - 1:
+            served.append(nxt)
+    seq = torch.cat(fed, dim=1)
+    served = torch.cat(served, dim=1)  # the outputs at positions P-1 .. P+G-1
+    full = model.logits({"tokens": seq})
+    check(full.shape == (B, P + G, cfg.vocab) and bool(torch.isfinite(full).all()), "full-width logits finite")
+    cache = model.init_cache(B, P + G)
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+    err_steps = []
+    for t in range(P + G):
+        step_logits, cache = model.decode(seq[:, t : t + 1], cache)
+        torch.testing.assert_close(step_logits[:, 0], full[:, t], **LM_CONSISTENCY)
+        err_steps.append(max_err(step_logits[:, 0], full[:, t]))
+    teacher = full[:, P - 1 :].argmax(dim=-1)
+    top2 = full[:, P - 1 :].topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    mismatch = served.long() != teacher
+    near_ties = int((gap < LM_CONSISTENCY["atol"]).sum())
+    check(bool((~mismatch | (gap < LM_CONSISTENCY["atol"])).all()),
+          "served tokens equal the teacher-forced argmax except at near-ties")
+    a = dict(requests=B, prompt=P, generated=G, decode_vs_logits_max_err_last_step=err_steps[-1],
+             decode_vs_logits_max_err=max(err_steps), served_tokens=int(served.numel()),
+             mismatches=int(mismatch.sum()), near_ties=near_ties)
+    say(f"[lm] a. f32 self-consistency: decode logits vs Model.logits max |diff| {a['decode_vs_logits_max_err']:.3e} "
+        f"over {P + G} steps (last step {err_steps[-1]:.3e}; tolerance 2e-3); served {a['served_tokens']} tokens, "
+        f"{a['mismatches']} differ from the teacher-forced argmax, at {near_ties} near-ties (top-2 gap < 2e-3) "
+        f"[{card}]")
+
+    # -- b. the same weights, cut to 2 layers, on the card and on the CPU -------
+    cut = replace(cfg, n_layers=2)
+    cpu2 = build_model(cut, device="cpu", generator=torch.Generator().manual_seed(LM_SEED))
+    ref2 = dict(model.named_parameters())
+    for name, p in cpu2.named_parameters():
+        check(torch.equal(p, ref2[name].cpu()), f"the 2-layer model's {name} is the full model's")
+    card2 = build_model(cut, device=dev)
+    card2.load_state_dict(cpu2.state_dict())
+    got, want = card2.logits({"tokens": seq}).cpu(), cpu2.logits({"tokens": seq.cpu()})
+    torch.testing.assert_close(got, want, **LM_F32)
+    b = dict(layers=2, tokens=list(seq.shape), max_err=max_err(got, want))
+    say(f"[lm] b. 2 layers at full width, card against CPU over {B}x{P + G} tokens: logits max |diff| "
+        f"{b['max_err']:.3e} (rtol 1e-5, atol 1e-5) [{card}]")
+    del cpu2, card2, got, want, full
+
+    # -- c. prefill timing, bf16 ------------------------------------------------
+    model16 = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())  # weights rounded to bf16, norms stay f32
+    del model, cache
+    Bp, Sp = LM_PREFILL["B"], LM_PREFILL["S"]
+    tokens = torch.randint(0, cfg.vocab, (Bp, Sp), generator=torch.Generator().manual_seed(LM_SEED + 2)).to(dev)
+    logits = model16.logits({"tokens": tokens})
+    check(logits.shape == (Bp, Sp, cfg.vocab) and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()), "bf16 prefill logits finite")
+    del logits
+    # the peak of the timed calls alone: the finiteness check's temporaries
+    # are larger than the logits
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = time_ms(lambda: model16.logits({"tokens": tokens}), iters=3, warmup=1)
+    shape = ShapeConfig("prefill", Sp, Bp, "prefill")
+    flops, nbytes = model_flops(cfg, shape), hbm_bytes_estimate(cfg, shape)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    c = dict(B=Bp, S=Sp, ms=prefill_ms, tokens_per_s=Bp * Sp / prefill_ms * 1e3,
+             peak_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9, model_flops=flops, hbm_bytes=nbytes,
+             bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+    say(f"[lm] c. bf16 prefill B={Bp} S={Sp}: {prefill_ms:.3f} ms ({c['tokens_per_s']:.1f} tokens/s), peak "
+        f"{c['peak_gb']:.3f} GB above the weights; bound {c['bound_ms']:.3f} ms by {c['bound_by']} "
+        f"({flops / 1e12:.3f} TFLOP at 989 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s) [{card}]")
+
+    # -- d. decode timing, bf16, against a full cache ---------------------------
+    Bd, T = LM_DECODE["B"], LM_DECODE["T"]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model16.init_cache(Bd, T, torch.bfloat16)  # pos = cache_len: every step reads all T slots
+    cache_bytes = sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+    serve16 = make_serve_step(model16)
+    tok = torch.randint(0, cfg.vocab, (Bd, 1), generator=torch.Generator().manual_seed(LM_SEED + 3)).to(dev)
+    tok = tok.to(torch.int32)
+    for _ in range(LM_DECODE["warmup"]):
+        tok, cache = serve16(tok, cache)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok, cache = serve16(tok, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LM_DECODE["steps"]):
+        tok, cache = serve16(tok, cache)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / LM_DECODE["steps"]
+    check(tok.shape == (Bd, 1) and bool(((tok >= 0) & (tok < cfg.vocab)).all()), "decode tokens in the vocabulary")
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+
+    def two_steps():
+        nonlocal tok, cache
+        for _ in range(2):
+            tok, cache = serve16(tok, cache)
+        torch.cuda.synchronize()
+
+    rows, busy_ms, wall_ms = device_profile(two_steps)
+    shape = ShapeConfig("decode", T, Bd, "decode")
+    nbytes = hbm_bytes_estimate(cfg, shape)
+    d = dict(B=Bd, T=T, steps=LM_DECODE["steps"], ms_per_step=step_ms, tokens_per_s=Bd / step_ms * 1e3,
+             peak_gb=peak_gb, cache_gb=cache_bytes / 1e9, hbm_bytes=nbytes,
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", model_flops=model_flops(cfg, shape),
+             profile_busy_ms=busy_ms, profile_wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms,
+             launches_2_steps=sum(r[2] for r in rows), sync_free=True)
+    say(f"[lm] d. bf16 decode B={Bd} against T={T} ({d['cache_gb']:.3f} GB of k/v): {step_ms:.3f} ms a step "
+        f"({d['tokens_per_s']:.1f} tokens/s) over {LM_DECODE['steps']} steps, peak {peak_gb:.3f} GB above the "
+        f"weights; bound {d['bound_ms']:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s); 2 steps: device busy "
+        f"{busy_ms:.3f} of {wall_ms:.3f} ms wall, idle {d['idle_share']:.1%}, {d['launches_2_steps']} device "
+        f"operations; one step ran under sync debug mode 'error' [{card}]")
+    for name, ms, count in rows[:8]:
+        say(f"[lm]   {ms:9.3f} ms {count:6d}x {name[:110]}")
+    del model16, cache
+    torch.cuda.empty_cache()
+    out = dict(arch=LM_ARCH, card=card, params=n_params, consistency_f32=a, card_vs_cpu=b, prefill_bf16=c,
+               decode_bf16=d, seconds=time.perf_counter() - t_phase)
+    say(f"[lm] phase 3 wall time {out['seconds']:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -1112,7 +1307,10 @@ def main() -> int:
     say(f"[analysis] phase 2c wall time {time.perf_counter() - t_phase:.2f} s (plus phase 2's protocol checks, "
         f"{sum(sec for runs_ in protocol_at.values() for _, _, sec in runs_[:2]):.3f} s)")
 
-    # -- 3. kernels against their plain versions, main-path shapes ---------------
+    # -- 3. the LM scaffold's serving path at full width --------------------------
+    lm_serve = lm_serving_phase()
+
+    # -- 4. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
     kw_l = {l: dict(omega=omega_for_level(cfg.omega, l), lattice=lattice,
                     u_wall=cfg.u_lid, collision=cfg.collision) for l in levels}
@@ -1481,7 +1679,7 @@ def main() -> int:
             say(f"small case fill {lat.name} {str(dtype)[6:]} (same/coarse/fine segments of a "
                 f"{len(levels_s)}-level forest): max |err| {worst:.3e}")
 
-    # -- 4. cross-check at a smaller depth ----------------------------------------
+    # -- 5. cross-check at a smaller depth ----------------------------------------
     runs = {}
     for mode, backend in (("restack", "cuda"), ("arena", "cuda"), ("fused", "cuda"), ("fused", "ref"),
                           ("sharded", "cuda"), ("fused_sharded", "cuda"), ("fused_sharded", "ref"),
@@ -1558,7 +1756,7 @@ def main() -> int:
     say(f"cross-check tracers: restack and fused_sharded agree on {pa['id'].size} tracers, "
         f"max |position diff| {tr_err:.3e} (limit 1e-10)")
 
-    # -- 5. the kernels line and the result -------------------------------------
+    # -- 6. the lm_serve and kernels lines and the result -------------------------
     by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
                "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches}
 
@@ -1614,6 +1812,7 @@ def main() -> int:
              shape=f"M={M} x level {lmax} fill, {rows2} ghost rows a member, D3Q19 f32"),
     ]
     say("card:", card_line())
+    print(json.dumps({"lm_serve": lm_serve}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

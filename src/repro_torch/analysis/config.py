@@ -43,6 +43,12 @@ DEFAULTS: dict = {
             # imported by every hot-path module: its own code must stay free
             # of device->host syncs too
             "src/repro_torch/telemetry",
+            # the LM serving path: a decode step makes no host sync (the
+            # parameter converter, models/convert.py, is host code by design)
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/zoo.py",
+            "src/repro_torch/train",
         ],
     },
     "collective": {

@@ -1,0 +1,136 @@
+"""Attention: chunked (flash-style) prefill path and ring-buffer KV-cache
+decode, with sliding windows and GQA.
+
+The PyTorch twin of the JAX package's ``models/attention.py``. The chunked
+path never materializes the full (S x S) score matrix: it loops over KV
+chunks with an online-softmax accumulator inside a loop over Q chunks, so
+peak memory is O(S * chunk), as in the reference. The distributed
+flash-decode (``sharded_decode_attention``) needs a collective and is not
+part of this module yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["chunked_attention", "decode_attention"]
+
+_NEG = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, T, Hkv, d) -> (B, T, Hkv*groups, d) for GQA."""
+    if groups == 1:
+        return k
+    b, t, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, t, h, groups, d).reshape(b, t, h * groups, d)
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, S, H, d)
+    k: torch.Tensor,  # (B, T, Hkv, d)
+    v: torch.Tensor,  # (B, T, Hkv, d)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Flash-style attention with online softmax over KV chunks, in f32."""
+    B, S, H, d = q.shape
+    _, T, Hkv, _ = k.shape
+    groups = H // Hkv
+    k = _repeat_kv(k, groups)
+    v = _repeat_kv(v, groups)
+    scale = 1.0 / np.sqrt(d)
+
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, T)
+    # pad to multiples
+    S_pad = -S % q_chunk
+    T_pad = -T % kv_chunk
+    qp = F.pad(q, (0, 0, 0, 0, 0, S_pad))
+    kp = F.pad(k, (0, 0, 0, 0, 0, T_pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, T_pad))
+    nq, nkv = (S + S_pad) // q_chunk, (T + T_pad) // kv_chunk
+
+    dev = q.device
+    q_pos_base = torch.arange(q_chunk, device=dev) + q_offset
+    kv_pos_base = torch.arange(kv_chunk, device=dev)
+
+    qp = qp.float().reshape(B, nq, q_chunk, H, d).permute(1, 0, 3, 2, 4)  # (nq,B,H,qc,d)
+    kp = kp.float().reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
+    vp = vp.float().reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
+
+    out = torch.empty((nq, B, H, q_chunk, d), dtype=torch.float32, device=dev)
+    for qi in range(nq):
+        q_blk = qp[qi]
+        q_pos = q_pos_base + qi * q_chunk
+        m = torch.full((B, H, q_chunk), _NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, q_chunk, d), dtype=torch.float32, device=dev)
+        for kj in range(nkv):
+            k_blk, v_blk = kp[kj], vp[kj]
+            kv_pos = kv_pos_base + kj * kv_chunk
+            s = (q_blk @ k_blk.transpose(-1, -2)) * scale
+            mask = kv_pos[None, :] < T  # drop padded kv
+            if causal:
+                mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask[None, None], s, _NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p @ v_blk
+            m = m_new
+        out[qi] = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(1, 0, 3, 2, 4).reshape(B, S + S_pad, H, d)[:, :S]
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, d)
+    k_cache: torch.Tensor,  # (B, T, Hkv, d)
+    v_cache: torch.Tensor,
+    *,
+    window: int | None = None,
+    fill: torch.Tensor | int | None = None,
+    slot: torch.Tensor | int | None = None,
+) -> torch.Tensor:
+    """Single-token decode against a ring-buffer KV cache.
+
+    ``slot`` is the index the newest entry was just written to; entry ages
+    are ``(slot - idx) mod T`` (a floor modulo: torch's ``%``, never
+    ``fmod``). A roll-by-one layout (newest = last) is the ``slot = T-1``
+    special case. ``fill`` masks warm-up slots (age >= fill); ``window``
+    masks beyond the sliding window.
+
+    Grouped-query contraction without repeating the cache: q is reshaped to
+    (B, Hkv, G, d) and contracted against the cache's Hkv heads. The
+    reference accumulates both products in f32 over the cache in its storage
+    dtype; here q, the cache and the probabilities (rounded to the cache's
+    dtype first, as the reference rounds them) are upcast to f32 before the
+    products, which computes the same sums and, for a bf16 cache, reads it
+    once and writes and reads an f32 copy."""
+    B, _, H, d = q.shape
+    _, T, Hkv, _ = k_cache.shape
+    groups = H // Hkv
+    scale = 1.0 / np.sqrt(d)
+    qg = q.reshape(B, Hkv, groups, d).float()
+    kt = k_cache.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)  # (B,Hkv,T,d)
+    s = (qg @ kt.transpose(-1, -2)) * scale  # (B, Hkv, G, T)
+    idx = torch.arange(T, device=q.device)
+    age = (slot - idx) % T if slot is not None else T - 1 - idx
+    if window is not None:
+        s = torch.where(age < window, s, _NEG)
+    if fill is not None:
+        s = torch.where(age < fill, s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    vt = v_cache.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+    out = p.to(v_cache.dtype).float() @ vt  # (B, Hkv, G, d)
+    return out.reshape(B, 1, H, d).to(q.dtype)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels.lbm_collide.lbm_collide import (
     lbm_halo_fill,
     lbm_stream_collide,
@@ -23,7 +24,9 @@ from repro_torch.kernels.lbm_collide.ops import _pad_fill_layout, fill_tables
 from repro_torch.kernels.lbm_collide.ref import CT_LID, CT_WALL, halo_fill_ref, stream_collide_ref
 from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
 from repro_torch.lbm.lattice import D3Q19, D3Q27
+from repro_torch.models import build_model
 from repro_torch.serving import JobSpec, SimulationService
+from repro_torch.train import make_serve_step
 from torch_fill_cases import branch_fills, random_buffers, refined_forest
 
 TOL = {np.float32: dict(rtol=3e-5, atol=3e-6), np.float64: dict(rtol=1e-11, atol=1e-12)}
@@ -457,3 +460,38 @@ def test_kernels_and_device_sharded_on_a_second_card_on_card():
     got = _run_on_card("device_sharded", rank_devices=("cuda:0", "cuda:1", "cuda:0", "cuda:1"))
     assert {d.index for d in got.engine.rank_devices} == {0, 1}
     _assert_runs_bitwise(got, _run_on_card("fused"))
+
+
+@pytest.mark.gpu
+def test_reduced_qwen2_card_matches_cpu_on_card():
+    """The reduced qwen2-0.5b from one seed on the card and on the CPU: f32
+    logits and 6 decode steps within the CPU tests' f32 tolerance (rtol /
+    atol 1e-5, TF32 off), the same greedy tokens, and a decode step that
+    makes no host sync."""
+    _require_card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("qwen2-0.5b").reduced()
+    models = {d: build_model(cfg, device=d, generator=torch.Generator().manual_seed(0)) for d in ("cpu", "cuda")}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (3, 12)))
+    want = models["cpu"].logits({"tokens": toks})
+    got = models["cuda"].logits({"tokens": toks.cuda()})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    caches = {d: m.init_cache(3, 8) for d, m in models.items()}
+    for t in range(6):
+        logits = {}
+        for d, m in models.items():
+            tok = toks[:, t : t + 1]
+            logits[d], caches[d] = m.decode(tok.cuda() if d == "cuda" else tok, caches[d])
+        torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"], rtol=1e-5, atol=1e-5)
+    caches = {d: m.init_cache(3, 8) for d, m in models.items()}
+    steps = {d: make_serve_step(m) for d, m in models.items()}
+    tok = {"cpu": toks[:, :1].to(torch.int32), "cuda": toks[:, :1].to(torch.int32).cuda()}
+    for t in range(6):
+        tok["cpu"], caches["cpu"] = steps["cpu"](tok["cpu"], caches["cpu"])
+        if t == 5:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            tok["cuda"], caches["cuda"] = steps["cuda"](tok["cuda"], caches["cuda"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(tok["cuda"].cpu(), tok["cpu"])

@@ -57,6 +57,21 @@ COPIED = [
     "serving/elastic.py",
     "analysis/findings.py",
     "analysis/protocol.py",
+    "configs/__init__.py",
+    "configs/base.py",
+    "configs/shapes.py",
+    "configs/olmo_1b.py",
+    "configs/qwen2_0_5b.py",
+    "configs/yi_9b.py",
+    "configs/granite_20b.py",
+    "configs/zamba2_2_7b.py",
+    "configs/granite_moe_1b_a400m.py",
+    "configs/mixtral_8x7b.py",
+    "configs/rwkv6_3b.py",
+    "configs/qwen2_vl_72b.py",
+    "configs/whisper_small.py",
+    "launch/__init__.py",
+    "launch/perf_model.py",
 ]
 # the port's example twins and its lint driver: each imports only repro_torch
 TWINS = [
@@ -71,14 +86,18 @@ SMALL = dict(root_grid=(1, 1, 1), cells_per_block=(4, 4, 4), max_level=1, nranks
 
 
 def test_import_leaves_jax_and_repro_unloaded():
-    """Importing the port, its analyzer, the cavity CLI, the example twins,
-    the port's lint driver and ``tools/trace_report.py`` loads neither jax
-    nor any module of the JAX package."""
+    """Importing the port, its analyzer, its LM serving path (configs,
+    models, the parameter converter, ``train``, ``launch.perf_model``), the
+    cavity CLI, the example twins, the port's lint driver and
+    ``tools/trace_report.py`` loads neither jax nor any module of the JAX
+    package."""
     scripts = [EXAMPLE, *(REPO / t for t in TWINS), REPO / "tools" / "trace_report.py"]
     code = "\n".join([
         "import sys, importlib.util, repro_torch.lbm.driver, repro_torch.lbm.engines",
         "import repro_torch.kernels.lbm_collide.ops, repro_torch.state, repro_torch.serving",
         "import repro_torch.analysis, repro_torch.analysis.engine_plans",
+        "import repro_torch.configs, repro_torch.models.zoo, repro_torch.models.convert, repro_torch.train",
+        "import repro_torch.launch.perf_model",
         f"for i, path in enumerate({[str(p) for p in scripts]!r}):",
         "    spec = importlib.util.spec_from_file_location(f'script{i}', path)",
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",

@@ -92,13 +92,32 @@ finding per line:
    here (the LM scaffold reaches no Pallas kernel). f32: 4 requests of 32
    prompt tokens served one token at a time, then 32 greedy tokens; decode
    logits within 2e-3 of the teacher-forced logits at every step, served
-   tokens equal to the teacher-forced argmax except at counted near-ties;
-   the same weights cut to 2 layers on the card and on the CPU within 1e-5.
-   bf16: prefill at B = 1, S = 8192 and decode at B = 32 against a full
-   32,768-slot cache, timed against the ``repro_torch.launch.perf_model``
-   bounds, with peak memory, a profile of 2 decode steps (idle share,
-   device operations) and one step under sync debug mode ``error``.
-   ``torch.backends.cuda.matmul.allow_tf32`` must stay off.
+   tokens equal to the teacher-forced argmax except at counted near-ties.
+   The float64 witness at 2 layers and full width: the card against the
+   CPU, both in float64, within 1e-9 of the largest logit, and the card's
+   f32 against its own f64 within ``LM_F32_VS_F64`` (no f32 result of the
+   host's CPU is compared). bf16: prefill at B = 1, S = 8192 and decode at
+   B = 32 against a full 32,768-slot cache, timed against the
+   ``repro_torch.launch.perf_model`` bounds, with peak memory, a profile of
+   2 decode steps (idle share, device operations) and one step under sync
+   debug mode ``error``. TF32 stays off for f32 matmuls and cuDNN.
+3b. ``[lm-families]``: granite-moe-1b-a400m, rwkv6-3b, zamba2-2.7b and
+   whisper-small at full width from one seed, each through the same entry
+   points: (a) f32 at full depth, 4 requests of 96 prompt and 64 greedy
+   tokens, decode logits against ``Model.logits`` at every step (in f32
+   at 2e-3; rwkv6 against the f64 prefill on the card at
+   ``LM_DECODE_VS_F64``), served tokens against the teacher-forced argmax;
+   (b, c) the float64 witness at a cut depth (2 layers, zamba2 6 with one
+   shared-attention site, whisper 2 + 2 encoder layers) over 2 x 160
+   tokens; (d) bf16 prefill at B = 1, S = 8192 (whisper 448 tokens over
+   1500 frames) and decode (granite-moe B = 8, zamba2 B = 4 against 32,768
+   slots; rwkv6 B = 32, state only; whisper B = 32 against its 448
+   positions), timed against ``perf_model`` with peak memory, a profile of
+   2 steps and one step under sync debug mode ``error``. moe runs a to c
+   at capacity factor 4, where nothing drops, and leaves out each request
+   from its first flipped route on (at most ``LM_ROUTE_FLIPS_MAX``). The
+   phase sets its own numerics and passes alone (``--only lm-families``)
+   as after the others; it prints an ``lm_families`` JSON line.
 4. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
@@ -118,8 +137,11 @@ finding per line:
    cards ``device_sharded`` runs again with its ranks spread over them;
    ``restack`` and ``fused_sharded`` with 24 tracers a block under the lid
    agree on every tracer's position within 1e-10.
-6. the card line, the ``lm_serve`` and ``kernels`` JSON lines, and the final
-   ``ok`` line.
+6. the card line, the ``lm_serve``, ``lm_families`` and ``kernels`` JSON
+   lines, the script's wall time and the final ``ok`` line.
+
+``python3 chip_smoke.py --only lm,lm-families`` runs just the named LM
+phases, in that order, and ends with their JSON lines and the ``ok`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -128,6 +150,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
@@ -183,9 +206,43 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 LM_ARCH = "qwen2-0.5b"
 LM_SEED = 0
 LM_CONSISTENCY = dict(rtol=2e-3, atol=2e-3)  # tests/test_models_smoke.py's prefill/decode consistency
-LM_F32 = dict(rtol=1e-5, atol=1e-5)  # tests/test_torch_lm_serve.py's f32 tolerance
 LM_PREFILL = dict(B=1, S=8192)  # prefill_32k's shape, cut from 32 x 32,768 to fit one card
 LM_DECODE = dict(B=32, T=32768, steps=32, warmup=3)  # decode_32k's cache length, batch cut from 128
+# the float64 witness: the card against the CPU, both in float64, at a cut
+# depth and full width. Their sums differ only in order, about 1e-13 of the
+# logits' scale, so this bound holds on any host by orders of magnitude
+F64_REL = 1e-9
+# the CPU threads of the float64 witness (its result does not depend on them
+# beyond F64_REL)
+LM_CPU_THREADS = min(8, os.cpu_count() or 1)
+# the card's f32 against the card's f64, same weights, the witness's depth:
+# each bound is 4x or more the largest error measured on an H100 (PERF.md,
+# section 6, PR 19)
+LM_F32_VS_F64 = {"qwen2-0.5b": 3e-5, "granite-moe-1b-a400m": 5e-5, "rwkv6-3b": 1.5e-4, "zamba2-2.7b": 4e-4,
+                 "whisper-small": 4e-5}
+# phase 3b: the moe, ssm, hybrid and audio families at full width from one
+# seed. ``cut``: the witness's depth (whisper cuts its encoder alike);
+# decode batch and cache length (rwkv6 carries state only; whisper's cache
+# stops at its 448 positions); prefill length (whisper: 448 tokens over
+# 1500 frames)
+LM_FAMILIES = {
+    "granite-moe-1b-a400m": dict(cut=2, decode_B=8, decode_T=32768, prefill_S=8192),
+    "rwkv6-3b": dict(cut=2, decode_B=32, decode_T=None, prefill_S=8192),
+    "zamba2-2.7b": dict(cut=6, decode_B=4, decode_T=32768, prefill_S=8192),
+    "whisper-small": dict(cut=2, decode_B=32, decode_T=448, prefill_S=448),
+}
+LM_FAMILY_SEED = 0
+LM_FAMILY_REQUESTS = dict(B=4, prompt=96, generated=64)
+LM_FAMILY_DECODE = dict(steps=16, warmup=3)
+# f32 decode against prefill: LM_CONSISTENCY against the f32 prefill, except
+# for a family whose measured error there exceeded half of it; that family
+# is held to the f64 prefill on the card at 4x or more its largest measured
+# error (PERF.md, section 6, PR 19)
+LM_DECODE_VS_F64 = {"rwkv6-3b": 3e-3}
+# routes (the top-k expert sets) that differ between two runs at a router
+# near-tie: the request is compared only up to the first such token, and at
+# most this many tokens a family may flip over checks a to c
+LM_ROUTE_FLIPS_MAX = 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -328,8 +385,9 @@ def lm_serving_phase() -> dict:
     steps (a second pass over the same tokens) against ``Model.logits``
     over the 64 tokens, and the served tokens against the teacher-forced
     argmax (a mismatch is allowed only where the top-2 gap is under the
-    tolerance: counted). (b) The same weights cut to 2 layers on the card
-    and on the CPU over the same tokens. (c) bf16 prefill timing, ``B x S =
+    tolerance: counted). (b) ``witness_checks`` at 2 layers over the same
+    tokens: the card against the CPU in float64, and the card's f32 against
+    its f64. (c) bf16 prefill timing, ``B x S =
     LM_PREFILL``. (d) bf16 decode timing, ``LM_DECODE``, every step reading
     the whole cache (``pos = cache_len``), a profile of 2 steps, and one step
     under ``torch.cuda.set_sync_debug_mode("error")``: no host sync."""
@@ -342,8 +400,8 @@ def lm_serving_phase() -> dict:
     from repro_torch.train import make_serve_step
 
     t_phase = time.perf_counter()
+    set_numerics()
     card = card_line()
-    check(not torch.backends.cuda.matmul.allow_tf32, "f32 matmuls stay off TF32 (PyTorch's default)")
     cfg = get_config(LM_ARCH)
     dev = torch.device("cuda")
 
@@ -393,20 +451,17 @@ def lm_serving_phase() -> dict:
         f"{a['mismatches']} differ from the teacher-forced argmax, at {near_ties} near-ties (top-2 gap < 2e-3) "
         f"[{card}]")
 
-    # -- b. the same weights, cut to 2 layers, on the card and on the CPU -------
-    cut = replace(cfg, n_layers=2)
-    cpu2 = build_model(cut, device="cpu", generator=torch.Generator().manual_seed(LM_SEED))
-    ref2 = dict(model.named_parameters())
-    for name, p in cpu2.named_parameters():
-        check(torch.equal(p, ref2[name].cpu()), f"the 2-layer model's {name} is the full model's")
-    card2 = build_model(cut, device=dev)
-    card2.load_state_dict(cpu2.state_dict())
-    got, want = card2.logits({"tokens": seq}).cpu(), cpu2.logits({"tokens": seq.cpu()})
-    torch.testing.assert_close(got, want, **LM_F32)
-    b = dict(layers=2, tokens=list(seq.shape), max_err=max_err(got, want))
-    say(f"[lm] b. 2 layers at full width, card against CPU over {B}x{P + G} tokens: logits max |diff| "
-        f"{b['max_err']:.3e} (rtol 1e-5, atol 1e-5) [{card}]")
-    del cpu2, card2, got, want, full
+    # -- b. the float64 witness, cut to 2 layers ---------------------------------
+    del full
+    b = witness_checks(replace(cfg, n_layers=2), {"tokens": seq.cpu()}, LM_SEED, "[lm] b")
+    check(b["card_vs_cpu_f64"] <= b["f64_bound"],
+          f"card f64 within {b['f64_bound']:.3e} of the CPU's f64 ({b['card_vs_cpu_f64']:.3e})")
+    check(b["card_f32_vs_f64"] <= b["f32_bound"],
+          f"card f32 within {b['f32_bound']:g} of the card's f64 ({b['card_f32_vs_f64']:.3e})")
+    say(f"[lm] b. 2 layers at full width, card against CPU over {B}x{P + G} tokens, both float64: logits max "
+        f"|diff| {b['card_vs_cpu_f64']:.3e} (bound {F64_REL:g} x max|logits| = {b['f64_bound']:.3e}); the card's "
+        f"f32 against its f64: {b['card_f32_vs_f64']:.3e} (bound {b['f32_bound']:g}) [{card}]")
+    set_numerics()
 
     # -- c. prefill timing, bf16 ------------------------------------------------
     model16 = build_model(cfg, device=dev, dtype=torch.bfloat16)
@@ -491,10 +546,375 @@ def lm_serving_phase() -> dict:
     return out
 
 
+def set_numerics() -> None:
+    """The global numerics state the phases rely on, set at the script's
+    start and again at each LM phase's (so that a phase passes alone or
+    after any other): f32 products in full f32 (no TF32 in matmuls or
+    cuDNN), float32 as the default dtype, ``LM_CPU_THREADS`` CPU threads.
+    Each phase seeds its own generators."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.set_default_dtype(torch.float32)
+    torch.set_num_threads(LM_CPU_THREADS)
+
+
+def record_routes(model, on: bool = True) -> None:
+    """Start (``on``) or stop each moe layer's record of its expert ids."""
+    for layer in model.layers:
+        if hasattr(layer, "routes"):
+            layer.routes = [] if on else None
+
+
+def take_routes(model) -> list | None:
+    """Each moe layer's expert ids since the last take, (B, S, K) with its
+    calls joined along S; None for a model without moe layers."""
+    out = []
+    for layer in model.layers:
+        if getattr(layer, "routes", None) is not None:
+            out.append(torch.cat(layer.routes, dim=1))
+            layer.routes = []
+    return out or None
+
+
+def first_flips(a: list | None, b: list | None, B: int, S: int) -> torch.Tensor:
+    """Per request, the first position whose expert set differs between two
+    runs' routes in any layer (S where none does). A flipped token reaches
+    its request's later positions through attention, so a comparison keeps
+    only the positions before it."""
+    first = torch.full((B,), S, dtype=torch.long)
+    for x, y in zip(a or [], b or []):
+        differ = (x.cpu().sort(dim=-1).values != y.cpu().sort(dim=-1).values).any(dim=-1)
+        first = torch.minimum(first, torch.where(differ, torch.arange(S), S).amin(dim=1))
+    return first
+
+
+def held_positions(first: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, S) mask of the positions before each request's first flip."""
+    return torch.arange(S)[None, :] < first[:, None]
+
+
+def masked_max_err(got: torch.Tensor, want: torch.Tensor, held: torch.Tensor) -> tuple[float, list]:
+    """Largest |got - want| over the held (B, S) positions, and where."""
+    diff = (got.double() - want.double()).abs().amax(dim=-1).cpu()
+    diff = torch.where(held, diff, torch.zeros_like(diff))
+    at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    return float(diff.max()), [int(i) for i in at]
+
+
+def witness_checks(cfg, batch: dict, seed: int, tag: str) -> dict:
+    """Checks b and c of the LM phases at ``cfg``'s (cut) depth and full
+    width, one seed's weights drawn on the card in f32. (b) The card in
+    float64 against the CPU in float64 over ``batch``: within ``F64_REL``
+    of the CPU's largest logit. (c) The card's f32 against the card's f64:
+    within ``LM_F32_VS_F64[arch]``. No f32 result of the host's CPU is
+    compared. Routes that flip are left out from their position on (counted)."""
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    set_numerics()
+    card32 = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    state = card32.state_dict()
+    card64 = build_model(cfg, device=dev, dtype=torch.float64)
+    card64.load_state_dict(state)
+    cpu64 = build_model(cfg, device="cpu", dtype=torch.float64)
+    cpu64.load_state_dict(state)
+    del state
+    B, S = batch["tokens"].shape
+    out, routes = {}, {}
+    for name, model, dt in (("card64", card64, torch.float64), ("cpu64", cpu64, torch.float64),
+                            ("card32", card32, torch.float32)):
+        d = next(model.parameters()).device
+        record_routes(model)
+        t0 = time.perf_counter()
+        logits = model.logits({k: (v.to(d, dt) if v.is_floating_point() else v.to(d)) for k, v in batch.items()})
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = logits.cpu()
+        out[name + "_s"] = time.perf_counter() - t0
+        routes[name] = take_routes(model)
+        record_routes(model, on=False)
+    check(all(bool(torch.isfinite(out[k]).all()) for k in ("card64", "cpu64", "card32")), f"{tag} finite logits")
+    first_b = first_flips(routes["card64"], routes["cpu64"], B, S)
+    first_c = first_flips(routes["card32"], routes["card64"], B, S)
+    scale = float(out["cpu64"].abs().max())
+    err_b, at_b = masked_max_err(out["card64"], out["cpu64"], held_positions(first_b, S))
+    err_c, at_c = masked_max_err(out["card32"], out["card64"], held_positions(first_c, S))
+    flips = int((first_b < S).sum()) + int((first_c < S).sum())
+    res = dict(layers=cfg.n_layers, encoder_layers=cfg.encoder_layers, tokens=[B, S], max_abs_logit=scale,
+               card_vs_cpu_f64=err_b, card_vs_cpu_f64_at=at_b, f64_bound=F64_REL * scale,
+               card_f32_vs_f64=err_c, card_f32_vs_f64_at=at_c, f32_bound=LM_F32_VS_F64[cfg.arch_id],
+               route_flips=flips, positions_left_out=int((S - first_b).sum() + (S - first_c).sum()),
+               cpu64_seconds=out["cpu64_s"], cpu_threads=torch.get_num_threads())
+    del card32, card64, cpu64
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_families_phase() -> dict:
+    """Phase 3b: the moe, ssm, hybrid and audio families at full width
+    (``LM_FAMILIES``), weights from ``torch.Generator("cuda")`` seeded
+    ``LM_FAMILY_SEED``, through ``build_model``, ``Model.logits``,
+    ``Model.decode`` and ``make_serve_step``. Per family:
+    (a) f32 on the card, full depth: ``LM_FAMILY_REQUESTS`` served one token
+    at a time through ``serve_step`` from ``pos = 0``, then a second pass
+    of ``Model.decode`` over the same tokens; its logits at every step
+    against ``Model.logits`` in f32 (``LM_CONSISTENCY``) or, for the
+    families of ``LM_DECODE_VS_F64``, against ``Model.logits`` of the same
+    weights in f64 on the card; served tokens equal the teacher-forced
+    argmax except at counted near-ties (top-2 gap under the bound).
+    (b, c) ``witness_checks`` at the family's cut depth over 2 x 160 tokens.
+    (d) bf16 prefill at B = 1 and decode at the family's batch against a
+    full cache (whisper: its 448 positions; rwkv6: state only), timed
+    against the ``repro_torch.launch.perf_model`` bounds, peak memory, a
+    profile of 2 decode steps and one step under sync debug mode ``error``.
+    moe runs a, b and c at capacity factor ``n_experts / top_k``, where no
+    token drops (a prefill of 640 tokens drops at the config's 1.25; a
+    decode step never does), and leaves out each request's positions from
+    its first flipped route on, at most ``LM_ROUTE_FLIPS_MAX`` tokens. The
+    phase sets its numerics (``set_numerics``) and runs alone as well as
+    after the others. Every family runs to its end; a failed check fails
+    the phase after the last."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.perf_model import hbm_bytes_estimate, model_flops
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    t_phase = time.perf_counter()
+    set_numerics()
+    card = card_line()
+    dev = torch.device("cuda")
+    failures: list[str] = []
+
+    def soft(cond: bool, what: str) -> None:
+        if not cond:
+            failures.append(what)
+            say(f"[lm-families] FAILED: {what}")
+
+    results = {}
+    for arch, spec in LM_FAMILIES.items():
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if cfg.family == "moe":
+            cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        gen = lambda off=0: torch.Generator(device=dev).manual_seed(LM_FAMILY_SEED + off)  # noqa: E731
+
+        def enc_embeds(n: int, g: torch.Generator, dtype=torch.float32):
+            if not cfg.is_encoder_decoder:
+                return {}
+            e = 0.5 * torch.randn((n, cfg.encoder_len, cfg.d_model), generator=g, device=dev)
+            return {"enc_embeds": e.to(dtype)}
+
+        # -- a. full depth, f32, decode against prefill ----------------------
+        set_numerics()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, generator=gen())
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        enc_l = f" + {cfg.encoder_layers} encoder layers over {cfg.encoder_len} frames" if cfg.encoder_layers else ""
+        say(f"[lm-families] {arch} ({cfg.family}): {cfg.n_layers} layers{enc_l}, d_model {cfg.d_model}, vocab "
+            f"{cfg.vocab}; {n_params:,} parameters, drawn in {time.perf_counter() - t0:.2f} s [{card}]")
+        B, P, G = LM_FAMILY_REQUESTS["B"], LM_FAMILY_REQUESTS["prompt"], LM_FAMILY_REQUESTS["generated"]
+        S = P + G
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen(1), device=dev)
+        extras = enc_embeds(B, gen(2))
+
+        def fresh_cache(m):
+            c = m.init_cache(B, S)
+            if "pos" in c:
+                c["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+            if extras:
+                m.fill_cross_cache(c, extras["enc_embeds"])
+            return c
+
+        serve_step = make_serve_step(model)
+        cache = fresh_cache(model)
+        fed, served = [], []
+        for t in range(S):
+            tok = prompt[:, t : t + 1] if t < P else served[-1]
+            fed.append(tok)
+            nxt, cache = serve_step(tok, cache)
+            if t >= P - 1:
+                served.append(nxt)
+        seq = torch.cat(fed, dim=1)
+        served = torch.cat(served, dim=1)  # outputs at positions P-1 .. S-1
+        record_routes(model)
+        cache = fresh_cache(model)
+        steps = []
+        for t in range(S):
+            step_logits, cache = model.decode(seq[:, t : t + 1], cache)
+            steps.append(step_logits[:, 0])
+        decoded = torch.stack(steps, dim=1)
+        del steps, cache
+        routes_decode = take_routes(model)
+        full32 = model.logits({"tokens": seq, **extras})
+        routes32 = take_routes(model)
+        record_routes(model, on=False)
+        check(full32.shape == (B, S, cfg.vocab) and bool(torch.isfinite(full32).all()), f"{arch} f32 logits finite")
+        model64 = build_model(cfg, device=dev, dtype=torch.float64)
+        model64.load_state_dict(model.state_dict())
+        record_routes(model64)
+        full64 = model64.logits({"tokens": seq, **{k: v.double() for k, v in extras.items()}})
+        routes64 = take_routes(model64)
+        del model64
+        first = torch.minimum(first_flips(routes_decode, routes32, B, S), first_flips(routes_decode, routes64, B, S))
+        held = held_positions(first, S)
+        err32, at32 = masked_max_err(decoded, full32, held)
+        err64, at64 = masked_max_err(decoded, full64, held)
+        last32 = masked_max_err(decoded[:, -1:], full32[:, -1:], held[:, -1:])[0]
+        against_f64 = arch in LM_DECODE_VS_F64
+        bound_a = LM_DECODE_VS_F64[arch] if against_f64 else LM_CONSISTENCY["atol"]
+        ref = full64 if against_f64 else full32
+        err_a = err64 if against_f64 else err32
+        soft(err_a <= bound_a, f"{arch} a. decode logits within {bound_a:g} of the "
+                               f"{'f64' if against_f64 else 'f32'} prefill ({err_a:.3e})")
+        tail = ref[:, P - 1 :]
+        teacher = tail.argmax(dim=-1)
+        top2 = tail.topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) < bound_a
+        kept = held[:, P - 1 :].to(dev)
+        mismatch = (served.long() != teacher) & kept
+        soft(bool((~mismatch | near).all()), f"{arch} a. served tokens equal the teacher-forced argmax except at "
+                                               f"near-ties ({int(mismatch.sum())} differ)")
+        flips_a = int((first < S).sum())
+        a = dict(requests=B, prompt=P, generated=G, reference="f64 prefill" if against_f64 else "f32 prefill",
+                 bound=bound_a, decode_vs_f32_prefill=err32, decode_vs_f32_prefill_at=at32,
+                 decode_vs_f32_prefill_last_step=last32, decode_vs_f64_prefill=err64, decode_vs_f64_prefill_at=at64,
+                 served_tokens=int(served.numel()), mismatches=int(mismatch.sum()),
+                 near_ties=int((near & kept).sum()), route_flips=flips_a,
+                 positions_left_out=int((~held).sum()))
+        cf = f"; capacity factor {cfg.capacity_factor:g}, {flips_a} routes flipped" if cfg.family == "moe" else ""
+        say(f"[lm-families] {arch} a. f32 over {S} steps x {B} requests: decode logits vs Model.logits max |diff| "
+            f"f32 {err32:.3e} at {at32} (last step {last32:.3e}), f64 {err64:.3e} at {at64}; held to the "
+            f"{a['reference']} within {bound_a:g}; served {a['served_tokens']} tokens, {a['mismatches']} off the "
+            f"teacher-forced argmax, {a['near_ties']} near-ties (top-2 gap < {bound_a:g}){cf} [{card}]")
+        del full32, full64, decoded, model
+        torch.cuda.empty_cache()
+
+        # -- b, c. the float64 witness at a cut depth --------------------------
+        cut = replace(cfg, n_layers=spec["cut"], encoder_layers=spec["cut"] if cfg.encoder_layers else 0)
+        g = torch.Generator().manual_seed(LM_FAMILY_SEED + 3)
+        wbatch = {"tokens": torch.randint(0, cfg.vocab, (2, 160), generator=g)}
+        if cfg.is_encoder_decoder:
+            wbatch["enc_embeds"] = 0.5 * torch.randn((2, cfg.encoder_len, cfg.d_model), generator=g)
+        w = witness_checks(cut, wbatch, LM_FAMILY_SEED, f"{arch} b/c")
+        soft(w["card_vs_cpu_f64"] <= w["f64_bound"], f"{arch} b. card f64 within {w['f64_bound']:.3e} of the "
+                                                       f"CPU's f64 ({w['card_vs_cpu_f64']:.3e})")
+        soft(w["card_f32_vs_f64"] <= w["f32_bound"], f"{arch} c. card f32 within {w['f32_bound']:g} of the card's "
+                                                       f"f64 ({w['card_f32_vs_f64']:.3e})")
+        soft(a["route_flips"] + w["route_flips"] <= LM_ROUTE_FLIPS_MAX,
+             f"{arch}: at most {LM_ROUTE_FLIPS_MAX} routes flip ({a['route_flips'] + w['route_flips']})")
+        enc_c = f" + {cut.encoder_layers} encoder layers" if cut.encoder_layers else ""
+        say(f"[lm-families] {arch} b. {cut.n_layers} layers{enc_c} at full width over 2x160 tokens, float64: card "
+            f"against CPU logits max |diff| {w['card_vs_cpu_f64']:.3e} at {w['card_vs_cpu_f64_at']} (bound "
+            f"{F64_REL:g} x max|logits| {w['max_abs_logit']:.3f} = {w['f64_bound']:.3e}; CPU {w['cpu_threads']} "
+            f"threads, {w['cpu64_seconds']:.2f} s) [{card}]")
+        say(f"[lm-families] {arch} c. the card's f32 against its f64, same weights: max |diff| "
+            f"{w['card_f32_vs_f64']:.3e} at {w['card_f32_vs_f64_at']} (bound {w['f32_bound']:g}); "
+            f"{w['route_flips']} routes flipped, {w['positions_left_out']} positions left out [{card}]")
+
+        # -- d. bf16 timing -------------------------------------------------
+        set_numerics()
+        cfg16 = get_config(arch)  # the config's own capacity factor
+        model16 = build_model(cfg16, device=dev, dtype=torch.bfloat16, generator=gen(4))
+        Sp = spec["prefill_S"]
+        pbatch = {"tokens": torch.randint(0, cfg.vocab, (1, Sp), generator=gen(5), device=dev),
+                  **enc_embeds(1, gen(6), torch.bfloat16)}
+        logits = model16.logits(pbatch)
+        check(logits.shape == (1, Sp, cfg.vocab) and bool(torch.isfinite(logits).all()), f"{arch} bf16 prefill finite")
+        del logits
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prefill_ms = time_ms(lambda: model16.logits(pbatch), iters=3, warmup=1)
+        shape = ShapeConfig("prefill", Sp, 1, "prefill")
+        flops, nbytes = model_flops(cfg16, shape), hbm_bytes_estimate(cfg16, shape)
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        c = dict(B=1, S=Sp, frames=cfg.encoder_len if cfg.is_encoder_decoder else None, ms=prefill_ms,
+                 tokens_per_s=Sp / prefill_ms * 1e3, peak_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9,
+                 model_flops=flops, hbm_bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+        del pbatch
+        frames = f" (+{cfg.encoder_len} frames)" if cfg.is_encoder_decoder else ""
+        say(f"[lm-families] {arch} d. bf16 prefill B=1 S={Sp}{frames}: {prefill_ms:.3f} ms ({c['tokens_per_s']:.1f} "
+            f"tokens/s), peak {c['peak_gb']:.3f} GB above the weights; bound {c['bound_ms']:.3f} ms by "
+            f"{c['bound_by']} ({flops / 1e12:.3f} TFLOP at 989 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s) [{card}]")
+
+        Bd, T = spec["decode_B"], spec["decode_T"]
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cache = model16.init_cache(Bd, T or 1, torch.bfloat16)  # pos = cache_len: every step reads every slot
+        if cfg.is_encoder_decoder:
+            model16.fill_cross_cache(cache, enc_embeds(Bd, gen(7), torch.bfloat16)["enc_embeds"])
+        state_bytes = 0
+        for v in cache.values():
+            for leaf in (v.values() if isinstance(v, dict) else [v]):
+                state_bytes += leaf.numel() * leaf.element_size()
+        serve16 = make_serve_step(model16)
+        tok = torch.randint(0, cfg.vocab, (Bd, 1), generator=gen(8), device=dev).to(torch.int32)
+        for _ in range(LM_FAMILY_DECODE["warmup"]):
+            tok, cache = serve16(tok, cache)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tok, cache = serve16(tok, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(LM_FAMILY_DECODE["steps"]):
+            tok, cache = serve16(tok, cache)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / LM_FAMILY_DECODE["steps"]
+        check(tok.shape == (Bd, 1) and bool(((tok >= 0) & (tok < cfg.vocab)).all()), f"{arch} decode tokens in range")
+        peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+
+        def two_steps():
+            nonlocal tok, cache
+            for _ in range(2):
+                tok, cache = serve16(tok, cache)
+            torch.cuda.synchronize()
+
+        rows, busy_ms, wall_ms = device_profile(two_steps)
+        # a state-only cache (rwkv6) is read and written whole each step:
+        # perf_model's decode bytes read the cache once and write 1/T of it
+        shape = ShapeConfig("decode", T or 1, Bd, "decode")
+        nbytes = hbm_bytes_estimate(cfg16, shape)
+        d = dict(B=Bd, T=T, steps=LM_FAMILY_DECODE["steps"], ms_per_step=step_ms, tokens_per_s=Bd / step_ms * 1e3,
+                 peak_gb=peak_gb, state_gb=state_bytes / 1e9, hbm_bytes=nbytes,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", model_flops=model_flops(cfg16, shape),
+                 profile_busy_ms=busy_ms, profile_wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms,
+                 launches_2_steps=sum(r[2] for r in rows), sync_free=True,
+                 top_ops=[[name[:120], ms, count] for name, ms, count in rows[:6]])
+        against = f"against T={T}" if T else "state only"
+        say(f"[lm-families] {arch} d. bf16 decode B={Bd} {against} ({d['state_gb']:.3f} GB of cache and state): "
+            f"{step_ms:.3f} ms a step ({d['tokens_per_s']:.1f} tokens/s) over {d['steps']} steps, peak "
+            f"{peak_gb:.3f} GB above the weights; bound {d['bound_ms']:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s); "
+            f"2 steps: device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall, idle {d['idle_share']:.1%}, "
+            f"{d['launches_2_steps']} device operations; one step ran under sync debug mode 'error' [{card}]")
+        for name, ms, count in rows[:6]:
+            say(f"[lm-families]   {ms:9.3f} ms {count:6d}x {name[:110]}")
+        del model16, cache
+        torch.cuda.empty_cache()
+        results[arch] = dict(family=cfg.family, source=cfg.source, params=n_params, consistency_f32=a,
+                             witness=w, prefill_bf16=c, decode_bf16=d, seconds=time.perf_counter() - t_arch)
+        say(f"[lm-families] {arch} wall time {results[arch]['seconds']:.2f} s [{card}]")
+    out = dict(card=card, archs=results, failures=failures, seconds=time.perf_counter() - t_phase)
+    say(f"[lm-families] phase 3b wall time {out['seconds']:.2f} s [{card}]")
+    check(not failures, f"phase 3b: {failures}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    set_numerics()
 
     from repro_torch import telemetry
     from repro_torch.analysis import RetraceSentinel, budget_findings, load_config, render
@@ -1309,6 +1729,8 @@ def main() -> int:
 
     # -- 3. the LM scaffold's serving path at full width --------------------------
     lm_serve = lm_serving_phase()
+    # -- 3b. the moe, ssm, hybrid and audio families at full width ---------------
+    lm_families = lm_families_phase()
 
     # -- 4. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
@@ -1813,12 +2235,40 @@ def main() -> int:
     ]
     say("card:", card_line())
     print(json.dumps({"lm_serve": lm_serve}))
+    print(json.dumps({"lm_families": lm_families}))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-    }}))
+    ok_line()
     return 0
 
 
+def ok_line() -> None:
+    say(f"chip_smoke wall time {time.perf_counter() - T_START:.2f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+
+
+def only(phases: list[str]) -> int:
+    """``--only lm,lm-families``: just the named LM phases, in the order
+    given, each with its JSON line, then the ok line (no kernel runs, so no
+    ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    runs = {"lm": ("lm_serve", lm_serving_phase), "lm-families": ("lm_families", lm_families_phase)}
+    check(phases and set(phases) <= set(runs), f"--only takes a comma list of {sorted(runs)}")
+    lines = [{runs[p][0]: runs[p][1]()} for p in phases]
+    say("card:", card_line())
+    for line in lines:
+        print(json.dumps(line))
+    ok_line()
+    return 0
+
+
+T_START = time.perf_counter()
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        sys.exit(only(sys.argv[2].split(",")))
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only lm,lm-families]")
     sys.exit(main())

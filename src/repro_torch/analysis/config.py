@@ -48,6 +48,9 @@ DEFAULTS: dict = {
             "src/repro_torch/models/layers.py",
             "src/repro_torch/models/attention.py",
             "src/repro_torch/models/zoo.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/rwkv6.py",
+            "src/repro_torch/models/mamba2.py",
             "src/repro_torch/train",
         ],
     },

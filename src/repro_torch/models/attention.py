@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .layers import acc_dtype
+
 __all__ = ["chunked_attention", "decode_attention"]
 
 _NEG = -1e30
@@ -39,7 +41,8 @@ def chunked_attention(
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
 ) -> torch.Tensor:
-    """Flash-style attention with online softmax over KV chunks, in f32."""
+    """Flash-style attention with online softmax over KV chunks, in f32
+    (f64 for f64 inputs)."""
     B, S, H, d = q.shape
     _, T, Hkv, _ = k.shape
     groups = H // Hkv
@@ -61,17 +64,18 @@ def chunked_attention(
     q_pos_base = torch.arange(q_chunk, device=dev) + q_offset
     kv_pos_base = torch.arange(kv_chunk, device=dev)
 
-    qp = qp.float().reshape(B, nq, q_chunk, H, d).permute(1, 0, 3, 2, 4)  # (nq,B,H,qc,d)
-    kp = kp.float().reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
-    vp = vp.float().reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
+    acc = acc_dtype(q.dtype)
+    qp = qp.to(acc).reshape(B, nq, q_chunk, H, d).permute(1, 0, 3, 2, 4)  # (nq,B,H,qc,d)
+    kp = kp.to(acc).reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
+    vp = vp.to(acc).reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
 
-    out = torch.empty((nq, B, H, q_chunk, d), dtype=torch.float32, device=dev)
+    out = torch.empty((nq, B, H, q_chunk, d), dtype=acc, device=dev)
     for qi in range(nq):
         q_blk = qp[qi]
         q_pos = q_pos_base + qi * q_chunk
-        m = torch.full((B, H, q_chunk), _NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, H, q_chunk, d), dtype=torch.float32, device=dev)
+        m = torch.full((B, H, q_chunk), _NEG, dtype=acc, device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=acc, device=dev)
+        o = torch.zeros((B, H, q_chunk, d), dtype=acc, device=dev)
         for kj in range(nkv):
             k_blk, v_blk = kp[kj], vp[kj]
             kv_pos = kv_pos_base + kj * kv_chunk
@@ -86,9 +90,9 @@ def chunked_attention(
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + p @ v_blk
+            o = o * alpha[..., None] + p @ v_blk
             m = m_new
-        out[qi] = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[qi] = o / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(1, 0, 3, 2, 4).reshape(B, S + S_pad, H, d)[:, :S]
     return out.to(q.dtype)
 
@@ -121,8 +125,9 @@ def decode_attention(
     _, T, Hkv, _ = k_cache.shape
     groups = H // Hkv
     scale = 1.0 / np.sqrt(d)
-    qg = q.reshape(B, Hkv, groups, d).float()
-    kt = k_cache.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)  # (B,Hkv,T,d)
+    acc = acc_dtype(q.dtype)
+    qg = q.reshape(B, Hkv, groups, d).to(acc)
+    kt = k_cache.transpose(1, 2).to(acc, memory_format=torch.contiguous_format)  # (B,Hkv,T,d)
     s = (qg @ kt.transpose(-1, -2)) * scale  # (B, Hkv, G, T)
     idx = torch.arange(T, device=q.device)
     age = (slot - idx) % T if slot is not None else T - 1 - idx
@@ -131,6 +136,6 @@ def decode_attention(
     if fill is not None:
         s = torch.where(age < fill, s, _NEG)
     p = torch.softmax(s, dim=-1)
-    vt = v_cache.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
-    out = p.to(v_cache.dtype).float() @ vt  # (B, Hkv, G, d)
+    vt = v_cache.transpose(1, 2).to(acc, memory_format=torch.contiguous_format)
+    out = p.to(v_cache.dtype).to(acc) @ vt  # (B, Hkv, G, d)
     return out.reshape(B, 1, H, d).to(q.dtype)

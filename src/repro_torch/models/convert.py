@@ -1,10 +1,11 @@
 """Carry parameters between the JAX package's pytree and the port's ``Model``.
 
 The reference stacks every layer's parameters on a leading layer axis
-(``tree["layers"]["attn"]["wq"]`` has shape (L, D, H*hd)); the port holds
-one ``DenseLayer`` a layer. Every other name and every orientation is the
-same, so a leaf ``("layers", *path)`` row ``i`` is the port's parameter
-``layers.{i}.{path}`` and any other leaf ``path`` is ``{path}``. The tree
+(``tree["layers"]["attn"]["wq"]`` has shape (L, D, H*hd)), and so it does
+whisper's ``encoder`` and ``cross`` trees; the port holds one module a
+layer. Every other name and every orientation is the same, so a leaf
+``(key, *path)`` of a stacked tree (``STACKED``) row ``i`` is the port's
+parameter ``{key}.{i}.{path}`` and any other leaf ``path`` is ``{path}``. The tree
 comes as numpy arrays (bfloat16 ones as ``ml_dtypes.bfloat16``, the dtype
 JAX hands to numpy); nothing here imports JAX.
 """
@@ -17,7 +18,10 @@ import torch
 from ..configs.base import ArchConfig
 from .zoo import DistContext, Model
 
-__all__ = ["from_reference_params", "to_reference_params"]
+__all__ = ["from_reference_params", "to_reference_params", "STACKED"]
+
+# the reference's trees stacked on a leading layer axis
+STACKED = ("layers", "encoder", "cross")
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -62,8 +66,8 @@ def from_reference_params(
     seen = set()
     for path, leaf in _leaves(tree):
         t = _to_torch(leaf)
-        if path[0] == "layers":
-            rows = [(f"layers.{i}.{'.'.join(path[1:])}", t[i]) for i in range(t.shape[0])]
+        if path[0] in STACKED:
+            rows = [(f"{path[0]}.{i}.{'.'.join(path[1:])}", t[i]) for i in range(t.shape[0])]
         else:
             rows = [(".".join(path), t)]
         for name, val in rows:
@@ -87,15 +91,15 @@ def to_reference_params(model: Model) -> dict:
     stacked: dict = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
-            stacked.setdefault(tuple(parts[2:]), []).append(_to_numpy(p))
+        if parts[0] in STACKED:
+            stacked.setdefault((parts[0], *parts[2:]), []).append(_to_numpy(p))
             continue
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = _to_numpy(p)
     for path, rows in stacked.items():
-        node = tree.setdefault("layers", {})
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.stack(rows)

@@ -4,6 +4,11 @@ The PyTorch twin of the JAX package's ``models/layers.py``: the same
 functions on tensors, computing in the reference's precisions and casting
 in its order (norms in f32, then to ``x.dtype``, then times the scale in
 ``x.dtype``; rotary angles in f32; the tanh form of GELU).
+
+Where the reference computes in f32, the port computes in
+``acc_dtype(dtype)``: f32 for bf16 and f32 models, as there, and f64 for a
+float64 model, so that a float64 model is float64 throughout and can
+witness the f32 model's rounding error.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "acc_dtype",
     "rms_norm",
     "layer_norm",
     "norm",
@@ -26,8 +32,13 @@ __all__ = [
 ]
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the reference's f32 steps take: f32, or f64 for f64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = x.to(acc_dtype(x.dtype))
     var = xf.square().mean(dim=-1, keepdim=True)
     y = (xf * torch.rsqrt(var + eps)).to(x.dtype)
     return y * scale.to(x.dtype) if scale is not None else y
@@ -39,7 +50,7 @@ def layer_norm(
     bias: torch.Tensor | None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    xf = x.float()
+    xf = x.to(acc_dtype(x.dtype))
     mean = xf.mean(dim=-1, keepdim=True)
     # population variance, as jnp.var (torch.var defaults to the unbiased one)
     var = xf.var(dim=-1, keepdim=True, correction=0)
@@ -76,10 +87,13 @@ def _inv_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tenso
     return torch.tensor(inv, dtype=torch.float32, device=device)
 
 
-def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables, shape positions.shape + (head_dim//2,)."""
-    inv = _inv_freqs(head_dim, float(theta), positions.device)
-    ang = positions[..., None].float() * inv
+def rope_freqs(
+    positions: torch.Tensor, head_dim: int, theta: float, dtype: torch.dtype = torch.float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables, shape positions.shape + (head_dim//2,), with the
+    angles in ``dtype`` (f32 as the reference; f64 for a float64 model)."""
+    inv = _inv_freqs(head_dim, float(theta), positions.device).to(dtype)
+    ang = positions[..., None].to(dtype) * inv
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -88,12 +102,13 @@ def mrope_freqs(
     head_dim: int,
     theta: float,
     sections: tuple[int, int, int],
+    dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """M-RoPE (qwen2-vl): the head_dim/2 frequency slots are split into
     (t, h, w) sections, each driven by its own position stream."""
     assert sum(sections) == head_dim // 2, (sections, head_dim)
-    inv = _inv_freqs(head_dim, float(theta), positions.device)
-    ang_all = positions[..., None].float() * inv  # (B,3,S,hd/2)
+    inv = _inv_freqs(head_dim, float(theta), positions.device).to(dtype)
+    ang_all = positions[..., None].to(dtype) * inv  # (B,3,S,hd/2)
     parts = []
     start = 0
     for i, sec in enumerate(sections):

@@ -495,3 +495,63 @@ def test_reduced_qwen2_card_matches_cpu_on_card():
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert torch.equal(tok["cuda"].cpu(), tok["cpu"])
+
+
+# the reduced moe, ssm, hybrid and audio archs: the card and the CPU in
+# float64, where reduction order costs about 1e-15 relative
+FAMILY_ARCHS = ["granite-moe-1b-a400m", "rwkv6-3b", "zamba2-2.7b", "whisper-small"]
+F64_REL = 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_reduced_family_card_matches_cpu_in_f64_on_card(arch):
+    """One seed's weights in float64 on the card and on the CPU, over 150
+    tokens (across rwkv6's 64-token and mamba2's 128-token chunks): logits
+    and 6 decode steps within ``1e-9 * max|logits|``, moe routes equal in
+    every layer, the same greedy tokens, and a decode step that makes no
+    host sync."""
+    _require_card()
+    cfg = get_config(arch).reduced()
+    drawn = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    models = {}
+    for d in ("cpu", "cuda"):
+        models[d] = build_model(cfg, device=d, dtype=torch.float64)
+        models[d].load_state_dict(drawn.state_dict())
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 150)))
+    batch = {"tokens": toks}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.from_numpy(0.5 * rng.standard_normal((2, cfg.encoder_len, cfg.d_model)))
+    moe_layers = {d: [l for l in m.layers if hasattr(l, "moe")] for d, m in models.items()}
+    for layers in moe_layers.values():
+        for layer in layers:
+            layer.routes = []
+    want = models["cpu"].logits(batch)
+    got = models["cuda"].logits({k: v.cuda() for k, v in batch.items()}).cpu()
+    bound = F64_REL * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=bound)
+    for lc, lg in zip(moe_layers["cpu"], moe_layers["cuda"]):
+        assert torch.equal(lg.routes[0].cpu(), lc.routes[0])
+        lc.routes = lg.routes = None
+    caches = {}
+    for d, m in models.items():
+        caches[d] = m.init_cache(2, 8, torch.float64)
+        if cfg.is_encoder_decoder:
+            m.fill_cross_cache(caches[d], batch["enc_embeds"].to(d))
+    tok = {"cpu": toks[:, :1].to(torch.int32), "cuda": toks[:, :1].to(torch.int32).cuda()}
+    for t in range(5):
+        logits = {}
+        for d, m in models.items():
+            logits[d], caches[d] = m.decode(tok[d], caches[d])
+            tok[d] = logits[d][:, -1:].argmax(dim=-1).to(torch.int32)
+        torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"], rtol=0, atol=bound)
+        assert torch.equal(tok["cuda"].cpu(), tok["cpu"])
+    steps = {d: make_serve_step(m) for d, m in models.items()}
+    tok["cpu"], caches["cpu"] = steps["cpu"](tok["cpu"], caches["cpu"])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok["cuda"], caches["cuda"] = steps["cuda"](tok["cuda"], caches["cuda"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(tok["cuda"].cpu(), tok["cpu"])

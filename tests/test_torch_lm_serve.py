@@ -27,7 +27,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import zoo as jzoo
 from repro.train.train_step import make_serve_step as jax_make_serve_step
-from repro_torch.configs import get_config
+from repro_torch.configs import all_arch_ids, get_config
 from repro_torch.models import Model, build_model
 from repro_torch.models.convert import from_reference_params, to_reference_params
 from repro_torch.models import zoo as tzoo
@@ -209,16 +209,19 @@ def test_init_draws_the_reference_layout():
     assert set(cut_params) < set(dict(deep.named_parameters()))
 
 
-@pytest.mark.parametrize(
-    "arch, family",
-    [("granite-moe-1b-a400m", "moe"), ("mixtral-8x7b", "moe"), ("zamba2-2.7b", "hybrid"),
-     ("rwkv6-3b", "ssm"), ("whisper-small", "audio")],
-)
-def test_families_outside_the_slice_raise(arch, family):
+@pytest.mark.parametrize("arch", all_arch_ids())
+def test_every_arch_builds_and_decodes_a_step(arch):
+    """``build_model`` builds every family at its reduced config on the CPU
+    and runs one decode step from a fresh cache: finite logits of the
+    vocabulary's width and a cache of the same structure."""
     cfg = get_config(arch).reduced()
-    assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert model.cfg.family == get_config(arch).family
+    cache = model.init_cache(2, 8)
+    keys = sorted(cache)
+    logits, cache = model.decode(torch.full((2, 1), 7, dtype=torch.int32), cache)
+    assert logits.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert sorted(cache) == keys
 
 
 def test_build_model_without_a_card_raises(monkeypatch):

@@ -118,7 +118,26 @@ finding per line:
    from its first flipped route on (at most ``LM_ROUTE_FLIPS_MAX``). The
    phase sets its own numerics and passes alone (``--only lm-families``)
    as after the others; it prints an ``lm_families`` JSON line.
-4. each kernel against its plain PyTorch version on the card, at the shapes
+4. ``[lm-train]``, the LM training path (``adamw_init``,
+   ``make_train_step``, ``save_train_state`` / ``load_train_state``,
+   ``SyntheticTokenPipeline``): (a) the gradient witness at each phase 3 /
+   3b arch's cut depth and full width over 2 x 160 tokens, ``Model.loss``
+   and every gradient of the card in float64 against the CPU in float64
+   (within 1e-9 of each leaf's max|g|) and of the card's f32 against its
+   f64 (``LM_TRAIN_F32_VS_F64``); (b) remat on against off, gradients
+   bitwise, and one step of 2 microbatches against 1 within
+   ``tests/test_train.py``'s tolerances (but for moe, whose balance loss
+   depends on the split); (c) a checkpoint of qwen2-0.5b at
+   full width (2 layers, bf16 with f32 masters) restored bitwise, and the
+   next step from it bitwise the live one's; (d) qwen2-0.5b at full width
+   and depth learning 30 structured batches of 16 x 256, its loss falling
+   by more than ``LM_TRAIN_LEARN_MARGIN``; (e) its bf16 train step at
+   train_4k's length, global batch 8 in 2 microbatches, remat: ms a step,
+   tokens/s against ``perf_model``'s bound, the optimizer update alone,
+   peak memory, a profile of one step and one step under sync debug mode
+   ``error``. It passes alone (``--only lm-train``) and prints an
+   ``lm_train`` JSON line.
+5. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
    the stencil; the padded-slab form once; the stencil over a real rank's
@@ -129,7 +148,7 @@ finding per line:
    the level-2 fill for 4 members (each bitwise M solo launches). Then small D3Q27 / BGK / f64 / odd-extent cases for the
    stencil and every fill segment kind (``same``, ``coarse``, ``fine``) in
    f32/f64 x D3Q19/D3Q27. Max error, kernel time, plain time and the bound.
-5. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
+6. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
    ``sharded``, ``fused_sharded`` and ``device_sharded`` on the kernels and
    ``fused``, ``fused_sharded`` and ``device_sharded`` on the plain
    versions grow the same forest and agree on the interior fields
@@ -137,11 +156,12 @@ finding per line:
    cards ``device_sharded`` runs again with its ranks spread over them;
    ``restack`` and ``fused_sharded`` with 24 tracers a block under the lid
    agree on every tracer's position within 1e-10.
-6. the card line, the ``lm_serve``, ``lm_families`` and ``kernels`` JSON
-   lines, the script's wall time and the final ``ok`` line.
+7. the card line, the ``lm_serve``, ``lm_families``, ``lm_train`` and
+   ``kernels`` JSON lines, the script's wall time and the final ``ok`` line.
 
-``python3 chip_smoke.py --only lm,lm-families`` runs just the named LM
-phases, in that order, and ends with their JSON lines and the ``ok`` line.
+``python3 chip_smoke.py --only lm,lm-families,lm-train`` runs just the
+named LM phases, in that order, and ends with their JSON lines and the
+``ok`` line. The serving phases build no autograd graph.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -150,6 +170,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import re
 import subprocess
@@ -243,6 +264,28 @@ LM_DECODE_VS_F64 = {"rwkv6-3b": 3e-3}
 # near-tie: the request is compared only up to the first such token, and at
 # most this many tokens a family may flip over checks a to c
 LM_ROUTE_FLIPS_MAX = 4
+# phase 4: the LM training path. The gradient witness runs at phase 3's
+# depth for qwen2-0.5b and phase 3b's for the others, over 2 x 160 tokens
+# (across rwkv6's 64-token and mamba2's 128-token scan chunks)
+LM_TRAIN_WITNESS = {LM_ARCH: 2, **{arch: spec["cut"] for arch, spec in LM_FAMILIES.items()}}
+LM_TRAIN_WITNESS_BATCH = dict(B=2, S=160)
+# the card's f32 gradients against its f64 ones, the largest per-leaf error
+# relative to the leaf's max|g|: each bound 4x or more the largest measured
+# on an H100 (PERF.md, section 6: 5.655e-06, 3.103e-06, 1.888e-05,
+# 4.157e-05 and 4.607e-06)
+LM_TRAIN_F32_VS_F64 = {"qwen2-0.5b": 3e-5, "granite-moe-1b-a400m": 2e-5, "rwkv6-3b": 8e-5, "zamba2-2.7b": 2e-4,
+                       "whisper-small": 2e-5}
+# remat on against off: the same operations, recomputed
+LM_TRAIN_REMAT_BOUND = 0.0
+# d. learning at full width and depth: structured batches (token t+1 =
+# token t + 1) over the first ``data_vocab`` ids of the vocabulary, short
+# enough that the steps see each id many times
+LM_TRAIN_LEARN = dict(B=16, S=256, steps=30, data_vocab=2048, lr=1e-3, warmup=5)
+# the loss must fall by more than this: at most a quarter of the smallest
+# drop measured on an H100 (PERF.md, section 6: 6.1325)
+LM_TRAIN_LEARN_MARGIN = 1.5
+# e. timing at train_4k's sequence length, its global batch of 256 cut to 8
+LM_TRAIN_TIMING = dict(B=8, S=4096, microbatches=2, steps=2)
 
 
 def check(cond: bool, what: str) -> None:
@@ -376,6 +419,7 @@ def device_profile(run, host_rows: list | None = None) -> tuple[list, float, flo
     return rows, sum(r[1] for r in rows), wall_ms
 
 
+@torch.no_grad()
 def lm_serving_phase() -> dict:
     """Phase 3: the LM scaffold's serving path at full width (qwen2-0.5b,
     weights from ``torch.Generator().manual_seed(LM_SEED)``). (a) f32
@@ -560,7 +604,9 @@ def set_numerics() -> None:
 
 
 def record_routes(model, on: bool = True) -> None:
-    """Start (``on``) or stop each moe layer's record of its expert ids."""
+    """Start (``on``) or stop each moe layer's record of its expert ids. A
+    layer that remat recomputes in the backward pass records again, so a
+    record of a training forward takes a model with remat off."""
     for layer in model.layers:
         if hasattr(layer, "routes"):
             layer.routes = [] if on else None
@@ -651,6 +697,7 @@ def witness_checks(cfg, batch: dict, seed: int, tag: str) -> dict:
     return res
 
 
+@torch.no_grad()
 def lm_families_phase() -> dict:
     """Phase 3b: the moe, ssm, hybrid and audio families at full width
     (``LM_FAMILIES``), weights from ``torch.Generator("cuda")`` seeded
@@ -907,6 +954,354 @@ def lm_families_phase() -> dict:
     out = dict(card=card, archs=results, failures=failures, seconds=time.perf_counter() - t_phase)
     say(f"[lm-families] phase 3b wall time {out['seconds']:.2f} s [{card}]")
     check(not failures, f"phase 3b: {failures}")
+    return out
+
+
+def grad_leaf_err(got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-leaf ``max|got - want| / max|want|`` over two
+    parameter-name -> gradient maps (CPU tensors, ``None`` for a leaf
+    outside the loss), and its leaf. Both sides must leave out the same
+    leaves, and a leaf whose ``want`` is all zero must be all zero."""
+    check(got.keys() == want.keys(), "the same parameters")
+    worst, at = 0.0, ""
+    for name, w in want.items():
+        g = got[name]
+        check((g is None) == (w is None), f"{name}: a gradient on both sides or on neither")
+        if w is None:
+            continue
+        scale = float(w.abs().max())
+        diff = float((g.double() - w.double()).abs().max())
+        err = diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+        if err > worst or not at:
+            worst, at = err, name
+    return worst, at
+
+
+def grad_witness(cfg, batch: dict, seed: int, tag: str):
+    """Phase 4a at ``cfg``'s (cut) depth and full width, one seed's weights
+    drawn on the card in f32 (as ``witness_checks``): ``Model.loss`` and
+    every gradient of the card in float64 against the CPU in float64
+    (within ``F64_REL`` of each leaf's max|g|), and of the card's f32
+    against the card's f64 (within ``LM_TRAIN_F32_VS_F64[arch]``). No f32
+    result of the host's CPU is compared. The models run with remat off, so
+    that each moe layer records its routes once a forward (a layer
+    recomputed in the backward pass would record again); every route must
+    agree. Returns the result, the card's f32 model and its gradients."""
+    from repro_torch.models import build_model
+    from repro_torch.models.zoo import DistContext
+
+    dev = torch.device("cuda")
+    set_numerics()
+    plain = DistContext(remat=False)
+    card32 = build_model(cfg, plain, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    state = card32.state_dict()
+    card64 = build_model(cfg, plain, device=dev, dtype=torch.float64)
+    card64.load_state_dict(state)
+    cpu64 = build_model(cfg, plain, device="cpu", dtype=torch.float64)
+    cpu64.load_state_dict(state)
+    del state
+    B, S = batch["tokens"].shape
+    grads, losses, routes, secs = {}, {}, {}, {}
+    for name, model, dt in (("card64", card64, torch.float64), ("cpu64", cpu64, torch.float64),
+                            ("card32", card32, torch.float32)):
+        d = next(model.parameters()).device
+        record_routes(model)
+        t0 = time.perf_counter()
+        loss, _ = model.loss({k: (v.to(d, dt) if v.is_floating_point() else v.to(d)) for k, v in batch.items()})
+        loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        losses[name] = float(loss.detach())
+        grads[name] = {n: (p.grad.detach().cpu() if p.grad is not None else None) for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        routes[name] = take_routes(model)
+        record_routes(model, on=False)
+    check(all(math.isfinite(v) for v in losses.values()), f"{tag} finite losses")
+    check(all(g is None or bool(torch.isfinite(g).all()) for gs in grads.values() for g in gs.values()),
+          f"{tag} finite gradients")
+    flips = int((first_flips(routes["card64"], routes["cpu64"], B, S) < S).sum()
+                + (first_flips(routes["card32"], routes["card64"], B, S) < S).sum())
+    err_b, at_b = grad_leaf_err(grads["card64"], grads["cpu64"])
+    err_c, at_c = grad_leaf_err(grads["card32"], grads["card64"])
+    res = dict(layers=cfg.n_layers, encoder_layers=cfg.encoder_layers, tokens=[B, S], loss_f64=losses["cpu64"],
+               loss_card_vs_cpu_f64=abs(losses["card64"] - losses["cpu64"]),
+               loss_card_f32_vs_f64=abs(losses["card32"] - losses["card64"]),
+               grad_card_vs_cpu_f64=err_b, grad_card_vs_cpu_f64_at=at_b, f64_bound=F64_REL,
+               grad_card_f32_vs_f64=err_c, grad_card_f32_vs_f64_at=at_c, f32_bound=LM_TRAIN_F32_VS_F64[cfg.arch_id],
+               leaves=len(grads["cpu64"]), leaves_outside_the_loss=sum(g is None for g in grads["cpu64"].values()),
+               route_flips=flips, cpu64_seconds=secs["cpu64"], cpu_threads=torch.get_num_threads())
+    del card64, cpu64
+    torch.cuda.empty_cache()
+    return res, card32, grads["card32"]
+
+
+@torch.no_grad()
+def clone_state(x):
+    """A copy of an optimizer state (or any nest of dicts of tensors)."""
+    return {k: clone_state(v) for k, v in x.items()} if isinstance(x, dict) else x.clone()
+
+
+def states_bitwise(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        states_bitwise(a[k], b[k]) if isinstance(a[k], dict) else torch.equal(a[k], b[k]) for k in a)
+
+
+def lm_train_phase() -> dict:
+    """Phase 4: the LM training path through ``build_model``,
+    ``adamw_init``, ``make_train_step``, ``save_train_state`` /
+    ``load_train_state`` and ``SyntheticTokenPipeline``. (a) The gradient
+    witness (``grad_witness``) for qwen2-0.5b and the four archs of phase
+    3b at their witness depths (``LM_TRAIN_WITNESS``) and full width, over
+    ``LM_TRAIN_WITNESS_BATCH`` tokens from phase 3b's witness generator and
+    their next tokens as labels. (b) On the card's f32 models of (a):
+    ``remat=True`` against ``remat=False``, gradients bitwise; one step of
+    ``microbatches=2`` against 1 from the same state, loss within 2e-3 and
+    parameters within rtol 2e-2 / atol 2e-4 (``tests/test_train.py``'s
+    microbatch tolerances), except for the moe arch, whose balance loss
+    depends on the split (printed, not held). (c) qwen2-0.5b at the witness depth and full
+    width, bf16 parameters and f32 masters, 2 steps, then a checkpoint
+    saved and loaded into a zero model and a fresh state: every leaf
+    bitwise, and one step from the restored state bitwise one step from the
+    live state. (d) qwen2-0.5b at full width and depth, bf16 parameters, f32
+    masters, ``remat=True``: ``LM_TRAIN_LEARN`` structured batches, every
+    loss and grad norm finite and the loss falling by more than
+    ``LM_TRAIN_LEARN_MARGIN``. (e) The same model at ``train_4k``'s length
+    (``LM_TRAIN_TIMING``): ms a step and tokens/s against ``perf_model``'s
+    bound for that cut shape, the optimizer update's ms alone, peak memory,
+    a profile of one step and one step under sync debug mode ``error``.
+    The phase sets its numerics and runs alone (``--only lm-train``) as well
+    as after the others."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.perf_model import hbm_bytes_estimate, model_flops
+    from repro_torch.models import build_model
+    from repro_torch.models.zoo import DistContext
+    from repro_torch.train import AdamWConfig, SyntheticTokenPipeline, adamw_init, adamw_update, make_train_step
+    from repro_torch.train.checkpoint import load_train_state, save_train_state
+
+    t_phase = time.perf_counter()
+    set_numerics()
+    card = card_line()
+    dev = torch.device("cuda")
+    out: dict = dict(card=card)
+    failures: list[str] = []
+
+    def soft(cond: bool, what: str) -> None:
+        if not cond:
+            failures.append(what)
+            say(f"[lm-train] FAILED: {what}")
+
+    def on_card(b: dict) -> dict:
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    # -- a, b. the gradient witness; remat and microbatches ---------------------
+    out["witness"], out["remat_microbatches"] = {}, {}
+    for arch, cut in LM_TRAIN_WITNESS.items():
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if cfg.family == "moe":  # as phase 3b: no token drops
+            cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        cfg = replace(cfg, n_layers=cut, encoder_layers=cut if cfg.encoder_layers else 0)
+        g = torch.Generator().manual_seed(LM_FAMILY_SEED + 3)
+        B, S = LM_TRAIN_WITNESS_BATCH["B"], LM_TRAIN_WITNESS_BATCH["S"]
+        tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=g)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if cfg.is_encoder_decoder:
+            batch["enc_embeds"] = 0.5 * torch.randn((B, cfg.encoder_len, cfg.d_model), generator=g)
+        w, model, grads = grad_witness(cfg, batch, LM_FAMILY_SEED, f"[lm-train] {arch} a")
+        soft(w["route_flips"] == 0, f"{arch} a. every moe route agrees ({w['route_flips']} flipped)")
+        soft(w["loss_card_vs_cpu_f64"] <= F64_REL * abs(w["loss_f64"]),
+              f"{arch} a. card f64 loss within {F64_REL:g} of the CPU's ({w['loss_card_vs_cpu_f64']:.3e})")
+        soft(w["grad_card_vs_cpu_f64"] <= F64_REL, f"{arch} a. card f64 gradients within {F64_REL:g} x max|g| of "
+                                                   f"the CPU's ({w['grad_card_vs_cpu_f64']:.3e} at {w['grad_card_vs_cpu_f64_at']})")
+        soft(w["grad_card_f32_vs_f64"] <= w["f32_bound"],
+              f"{arch} a. card f32 gradients within {w['f32_bound']:g} x max|g| of its f64 "
+              f"({w['grad_card_f32_vs_f64']:.3e} at {w['grad_card_f32_vs_f64_at']})")
+        enc_c = f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else ""
+        say(f"[lm-train] {arch} a. {cut} layers{enc_c} at full width over {B}x{S} tokens: loss {w['loss_f64']:.6f}; "
+            f"float64 card against CPU: loss |diff| {w['loss_card_vs_cpu_f64']:.3e}, gradients {w['grad_card_vs_cpu_f64']:.3e} "
+            f"of max|g| at {w['grad_card_vs_cpu_f64_at']} (bound {F64_REL:g}; CPU {w['cpu_threads']} threads, "
+            f"{w['cpu64_seconds']:.2f} s); the card's f32 against its f64: loss |diff| {w['loss_card_f32_vs_f64']:.3e}, "
+            f"gradients {w['grad_card_f32_vs_f64']:.3e} of max|g| at {w['grad_card_f32_vs_f64_at']} (bound "
+            f"{w['f32_bound']:g}); {w['leaves']} leaves, {w['leaves_outside_the_loss']} outside the loss, "
+            f"{w['route_flips']} routes flipped [{card}]")
+        out["witness"][arch] = w
+
+        # b. remat against no remat, and 2 microbatches against 1
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        model.dist = DistContext(remat=True)
+        loss, _ = model.loss(batch)
+        loss.backward()
+        soft(all((p.grad is None) == (grads[n] is None) for n, p in model.named_parameters()),
+             f"{arch} b. remat leaves out the same leaves")
+        remat_err = max(max_err(p.grad, grads[n].to(dev)) for n, p in model.named_parameters() if p.grad is not None)
+        model.zero_grad(set_to_none=True)
+        soft(remat_err <= LM_TRAIN_REMAT_BOUND, f"{arch} b. remat gradients within {LM_TRAIN_REMAT_BOUND:g} of "
+                                                 f"the plain ones ({remat_err:.3e})")
+        state = clone_state(model.state_dict())
+        opt0 = adamw_init(model)
+        steps, losses_b = {}, {}
+        for mb in (1, 2):
+            model.load_state_dict(state)
+            _, m = make_train_step(model, AdamWConfig(lr=1e-3), microbatches=mb)(clone_state(opt0), batch)
+            losses_b[mb] = float(m["loss"])
+            steps[mb] = clone_state(model.state_dict())
+        mb_loss = abs(losses_b[1] - losses_b[2])
+        mb_ok = all(torch.allclose(steps[2][k], steps[1][k], rtol=2e-2, atol=2e-4) for k in steps[1])
+        mb_err = max(max_err(steps[2][k], steps[1][k]) for k in steps[1])
+        # the moe's Switch balance loss is a product of per-batch routing
+        # fractions, so a split batch has another loss: held for the others
+        held = cfg.family != "moe"
+        soft(not held or (mb_loss < 2e-3 and mb_ok),
+             f"{arch} b. 2 microbatches against 1: loss |diff| {mb_loss:.3e} < 2e-3, parameters within rtol 2e-2 / "
+             f"atol 2e-4 ({mb_ok}, max |diff| {mb_err:.3e})")
+        out["remat_microbatches"][arch] = dict(remat_max_abs_err=remat_err, remat_bound=LM_TRAIN_REMAT_BOUND,
+                                               microbatch_loss_diff=mb_loss, microbatch_param_max_abs_diff=mb_err,
+                                               microbatch_held=held)
+        limits = "(< 2e-3)" if held else "(not held: the moe balance loss depends on the split)"
+        say(f"[lm-train] {arch} b. remat on against off: gradients max |diff| {remat_err:.3e} (bound "
+            f"{LM_TRAIN_REMAT_BOUND:g}); one step of 2 microbatches against 1: loss |diff| {mb_loss:.3e} {limits}, "
+            f"parameters max |diff| {mb_err:.3e} (rtol 2e-2, atol 2e-4); {time.perf_counter() - t_arch:.2f} s [{card}]")
+        del model, grads, state, steps, opt0
+        torch.cuda.empty_cache()
+    check(not failures, f"phase 4 a, b: {failures}")
+
+    # -- c. checkpoint at full width ----------------------------------------------
+    t0 = time.perf_counter()
+    set_numerics()
+    cfg = get_config(LM_ARCH)
+    cut = replace(cfg, n_layers=LM_TRAIN_WITNESS[LM_ARCH])
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2)
+    pipe = SyntheticTokenPipeline(vocab=LM_TRAIN_LEARN["data_vocab"], seq_len=128, global_batch=4, seed=LM_SEED)
+    cbatches = [on_card(b) for b in pipe.structured_batches(3)]
+    live = build_model(cut, device=dev, dtype=torch.bfloat16, generator=torch.Generator(device=dev).manual_seed(LM_SEED))
+    step = make_train_step(live, opt_cfg)
+    opt = adamw_init(live)
+    for b in cbatches[:2]:
+        opt, _ = step(opt, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        t_save = time.perf_counter()
+        save_train_state(tmp, params=live, opt_state=opt, step=2, meta={"arch": LM_ARCH})
+        t_save = time.perf_counter() - t_save
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        restored = build_model(cut, device=dev, dtype=torch.bfloat16)
+        t_load = time.perf_counter()
+        restored, ropt, meta = load_train_state(tmp, restored, adamw_init(restored))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t_load
+    check(meta == {"step": 2, "arch": LM_ARCH}, f"c. meta restored ({meta})")
+    check(states_bitwise(restored.state_dict(), live.state_dict()) and states_bitwise(ropt, opt),
+          "c. every parameter and optimizer leaf restored bitwise")
+    opt, m_live = step(opt, cbatches[2])
+    ropt, m_rest = make_train_step(restored, opt_cfg)(ropt, cbatches[2])
+    check(states_bitwise(restored.state_dict(), live.state_dict()) and states_bitwise(ropt, opt)
+          and torch.equal(m_live["loss"], m_rest["loss"]), "c. one step from the restored state equals one from the "
+                                                           "live state, bitwise")
+    n_leaves = len(dict(live.named_parameters()))
+    out["checkpoint"] = dict(layers=cut.n_layers, params=sum(p.numel() for p in live.parameters()), leaves=n_leaves,
+                             bytes=ckpt_bytes, save_s=t_save, load_s=t_load, bitwise=True)
+    say(f"[lm-train] c. checkpoint of {cut.n_layers} layers at full width (bf16, f32 masters) after 2 steps: "
+        f"{ckpt_bytes / 1e9:.3f} GB, saved in {t_save:.2f} s, loaded in {t_load:.2f} s; {n_leaves} parameters and "
+        f"{3 * n_leaves + 1} optimizer leaves bitwise, and the next step from the restored state bitwise the live "
+        f"one's; {time.perf_counter() - t0:.2f} s [{card}]")
+    del live, restored, opt, ropt, step, cbatches
+    torch.cuda.empty_cache()
+
+    # -- d. learning at full width and depth --------------------------------------
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, generator=torch.Generator(device=dev).manual_seed(LM_SEED))
+    opt = adamw_init(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    L = LM_TRAIN_LEARN
+    step = make_train_step(model, AdamWConfig(lr=L["lr"], warmup_steps=L["warmup"]))
+    pipe = SyntheticTokenPipeline(vocab=L["data_vocab"], seq_len=L["S"], global_batch=L["B"], seed=LM_SEED)
+    metrics = []
+    for b in pipe.structured_batches(L["steps"]):
+        opt, m = step(opt, on_card(b))
+        metrics.append(torch.stack([m["loss"], m["grad_norm"]]))
+    lg = torch.stack(metrics).cpu()
+    losses, gnorms = lg[:, 0].tolist(), lg[:, 1].tolist()
+    check(all(math.isfinite(x) for x in losses + gnorms), "d. every loss and grad norm finite")
+    drop = losses[0] - losses[-1]
+    check(drop > LM_TRAIN_LEARN_MARGIN, f"d. the loss falls by more than {LM_TRAIN_LEARN_MARGIN:g} ({drop:.4f})")
+    out["learning"] = dict(arch=LM_ARCH, params=n_params, steps=L["steps"], B=L["B"], S=L["S"],
+                           data_vocab=L["data_vocab"], lr=L["lr"], warmup=L["warmup"], losses=losses,
+                           grad_norms=gnorms, drop=drop, margin=LM_TRAIN_LEARN_MARGIN,
+                           seconds=time.perf_counter() - t0)
+    say(f"[lm-train] d. {LM_ARCH} at full width and depth ({n_params:,} parameters, bf16, f32 masters, remat): "
+        f"{L['steps']} steps of {L['B']}x{L['S']} structured tokens over the first {L['data_vocab']} ids, lr "
+        f"{L['lr']:g} after {L['warmup']} warmup steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} (drop {drop:.4f}, "
+        f"margin {LM_TRAIN_LEARN_MARGIN:g}), grad norm {gnorms[0]:.3f} -> {gnorms[-1]:.3f}; "
+        f"{out['learning']['seconds']:.2f} s [{card}]")
+    say(f"[lm-train]   losses {' '.join(f'{x:.4f}' for x in losses)}")
+
+    # -- e. timing at train_4k's length -------------------------------------------
+    T = LM_TRAIN_TIMING
+    tstep = make_train_step(model, AdamWConfig(lr=L["lr"], warmup_steps=L["warmup"]), microbatches=T["microbatches"])
+    tpipe = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=T["S"], global_batch=T["B"], seed=LM_SEED)
+    tbatches = [on_card(b) for b in tpipe.batches(T["steps"] + 3)]
+    state_bytes = sum(p.numel() * p.element_size() for p in model.parameters()) + sum(
+        t.numel() * t.element_size() for k in ("master", "m", "v") for t in opt[k].values())
+    opt, m = tstep(opt, tbatches[0])  # warm: the allocator's pools
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    for b in tbatches[1 : 1 + T["steps"]]:
+        opt, m = tstep(opt, b)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / T["steps"]
+    step_ms = start.elapsed_time(end) / T["steps"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(float(m["loss"])), "e. finite loss at S = 4096")
+
+    def one_step():
+        nonlocal opt
+        opt, _ = tstep(opt, tbatches[-2])
+        torch.cuda.synchronize()
+
+    rows, busy_ms, wall_ms = device_profile(one_step)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt, m = tstep(opt, tbatches[-1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 4)
+    fake = {n: 1e-3 * torch.randn(p.shape, generator=g, device=dev, dtype=opt["master"][n].dtype)
+            for n, p in model.named_parameters()}  # f32, as accumulated microbatch gradients are
+    opt_ms = time_ms(lambda: adamw_update(fake, opt, model, AdamWConfig()), iters=3, warmup=1)
+    del fake
+    shape = ShapeConfig("train_4k", T["S"], T["B"], "train")
+    flops, nbytes = model_flops(cfg, shape), hbm_bytes_estimate(cfg, shape)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    tokens = T["B"] * T["S"]
+    e = dict(B=T["B"], S=T["S"], microbatches=T["microbatches"], cut=f"global batch 256 -> {T['B']}",
+             steps=T["steps"], ms_per_step=step_ms, host_ms_per_step=host_ms, tokens_per_s=tokens / step_ms * 1e3, model_flops=flops,
+             hbm_bytes=nbytes, bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+             optimizer_ms=opt_ms, peak_gb=peak_gb, state_gb=state_bytes / 1e9, profile_busy_ms=busy_ms,
+             profile_wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms, device_ops=sum(r[2] for r in rows),
+             top_ops=[[name[:120], ms, count] for name, ms, count in rows[:5]], sync_free=True)
+    out["timing"] = e
+    say(f"[lm-train] e. {LM_ARCH} bf16 train step at B={T['B']} ({T['microbatches']} microbatches) x S={T['S']} "
+        f"(train_4k's global batch 256 cut to {T['B']}), remat: {step_ms:.3f} ms a step ({e['tokens_per_s']:.1f} "
+        f"tokens/s) over {T['steps']} steps; bound {e['bound_ms']:.3f} ms by {e['bound_by']} ({flops / 1e12:.3f} "
+        f"TFLOP at 989 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s), {step_ms / e['bound_ms']:.1f}x; the optimizer "
+        f"update alone {opt_ms:.3f} ms; peak {peak_gb:.3f} GB allocated ({e['state_gb']:.3f} GB of weights, masters "
+        f"and moments); 1 step: device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall, idle {e['idle_share']:.1%}, "
+        f"{e['device_ops']} device operations; one step ran under sync debug mode 'error' [{card}]")
+    for name, ms, count in rows[:5]:
+        say(f"[lm-train]   {ms:9.3f} ms {count:6d}x {name[:110]}")
+    del model, opt, tbatches
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[lm-train] phase 4 wall time {out['seconds']:.2f} s [{card}]")
     return out
 
 
@@ -1731,8 +2126,10 @@ def main() -> int:
     lm_serve = lm_serving_phase()
     # -- 3b. the moe, ssm, hybrid and audio families at full width ---------------
     lm_families = lm_families_phase()
+    # -- 4. the LM training path at full width ------------------------------------
+    lm_train = lm_train_phase()
 
-    # -- 4. kernels against their plain versions, main-path shapes ---------------
+    # -- 5. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
     kw_l = {l: dict(omega=omega_for_level(cfg.omega, l), lattice=lattice,
                     u_wall=cfg.u_lid, collision=cfg.collision) for l in levels}
@@ -2101,7 +2498,7 @@ def main() -> int:
             say(f"small case fill {lat.name} {str(dtype)[6:]} (same/coarse/fine segments of a "
                 f"{len(levels_s)}-level forest): max |err| {worst:.3e}")
 
-    # -- 5. cross-check at a smaller depth ----------------------------------------
+    # -- 6. cross-check at a smaller depth ----------------------------------------
     runs = {}
     for mode, backend in (("restack", "cuda"), ("arena", "cuda"), ("fused", "cuda"), ("fused", "ref"),
                           ("sharded", "cuda"), ("fused_sharded", "cuda"), ("fused_sharded", "ref"),
@@ -2178,7 +2575,7 @@ def main() -> int:
     say(f"cross-check tracers: restack and fused_sharded agree on {pa['id'].size} tracers, "
         f"max |position diff| {tr_err:.3e} (limit 1e-10)")
 
-    # -- 6. the lm_serve and kernels lines and the result -------------------------
+    # -- 7. the LM and kernels lines and the result -------------------------------
     by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
                "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches}
 
@@ -2236,6 +2633,7 @@ def main() -> int:
     say("card:", card_line())
     print(json.dumps({"lm_serve": lm_serve}))
     print(json.dumps({"lm_families": lm_families}))
+    print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"kernels": kernels}))
     ok_line()
     return 0
@@ -2249,13 +2647,14 @@ def ok_line() -> None:
 
 
 def only(phases: list[str]) -> int:
-    """``--only lm,lm-families``: just the named LM phases, in the order
+    """``--only lm,lm-families,lm-train``: just the named LM phases, in the order
     given, each with its JSON line, then the ok line (no kernel runs, so no
     ``kernels`` line)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    runs = {"lm": ("lm_serve", lm_serving_phase), "lm-families": ("lm_families", lm_families_phase)}
+    runs = {"lm": ("lm_serve", lm_serving_phase), "lm-families": ("lm_families", lm_families_phase),
+            "lm-train": ("lm_train", lm_train_phase)}
     check(phases and set(phases) <= set(runs), f"--only takes a comma list of {sorted(runs)}")
     lines = [{runs[p][0]: runs[p][1]()} for p in phases]
     say("card:", card_line())
@@ -2270,5 +2669,5 @@ T_START = time.perf_counter()
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         sys.exit(only(sys.argv[2].split(",")))
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only lm,lm-families]")
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only lm,lm-families,lm-train]")
     sys.exit(main())

@@ -12,16 +12,27 @@ JAX hands to numpy); nothing here imports JAX.
 
 from __future__ import annotations
 
+from typing import Mapping
+
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from .zoo import DistContext, Model
 
-__all__ = ["from_reference_params", "to_reference_params", "STACKED"]
+__all__ = ["from_reference_params", "to_reference_params", "reference_path", "STACKED"]
 
 # the reference's trees stacked on a leading layer axis
 STACKED = ("layers", "encoder", "cross")
+
+
+def reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """Where the port's parameter ``name`` lies in the reference's tree: the
+    leaf's path and, for a stacked tree, its row (else None)."""
+    parts = tuple(name.split("."))
+    if parts[0] in STACKED:
+        return (parts[0], *parts[2:]), int(parts[1])
+    return parts, None
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -75,7 +86,8 @@ def from_reference_params(
                 raise KeyError(f"reference leaf {name} has no parameter in the port's {cfg.arch_id}")
             if tuple(params[name].shape) != tuple(val.shape):
                 raise ValueError(f"{name}: reference shape {tuple(val.shape)}, port {tuple(params[name].shape)}")
-            params[name].copy_(val)
+            with torch.no_grad():
+                params[name].copy_(val)
             seen.add(name)
     missing = sorted(set(params) - seen)
     if missing:
@@ -83,21 +95,23 @@ def from_reference_params(
     return model
 
 
-def to_reference_params(model: Model) -> dict:
+def to_reference_params(model: Model | Mapping[str, torch.Tensor]) -> dict:
     """The reference's pytree (numpy leaves, layers stacked on a leading
-    axis) of ``model``'s parameters: the inverse of
-    ``from_reference_params``."""
+    axis) of ``model``'s parameters, or of a mapping from the model's
+    parameter names to tensors (an optimizer's masters or moments): the
+    inverse of ``from_reference_params``."""
+    named = model.named_parameters() if isinstance(model, Model) else model.items()
     tree: dict = {"final_ln": {}}
     stacked: dict = {}
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] in STACKED:
-            stacked.setdefault((parts[0], *parts[2:]), []).append(_to_numpy(p))
+    for name, p in named:
+        path, row = reference_path(name)
+        if row is not None:
+            stacked.setdefault(path, []).append(_to_numpy(p))
             continue
         node = tree
-        for key in parts[:-1]:
+        for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[parts[-1]] = _to_numpy(p)
+        node[path[-1]] = _to_numpy(p)
     for path, rows in stacked.items():
         node = tree
         for key in path[:-1]:

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, get_config
 from ..device import resolve_device
@@ -56,10 +57,9 @@ RWKV_LORA = 64
 
 
 def _param(shape, dtype, device, init: tuple = ("fill", 0.0)) -> nn.Parameter:
-    """A zero parameter that carries how ``Model.init`` draws it:
-    ``("normal", std)`` or ``("fill", value)``. Serving only: no autograd
-    graph is built over the weights."""
-    p = nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+    """A zero parameter (one that takes gradients) that carries how
+    ``Model.init`` draws it: ``("normal", std)`` or ``("fill", value)``."""
+    p = nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
     p.init_rule = init
     return p
 
@@ -303,10 +303,12 @@ class DistContext:
     """Static distribution facts the model math needs: token-group counts for
     MoE dispatch, and the mesh axis names for explicit sharding constraints.
 
-    The fields are the reference's. ``remat`` has no effect here: this slice
-    builds no autograd graph, so there is nothing to rematerialize. ``wsc``
-    is the identity when no axis is configured (one device); a context with
-    axes raises ``NotImplementedError`` until the port's sharding slice.
+    The fields are the reference's. ``remat`` recomputes each layer body in
+    the backward pass instead of keeping its activations, at the reference's
+    granularity (``_remat``); it applies only where grad mode is on, so
+    prefill and decode never pay for it. ``wsc`` is the identity when no
+    axis is configured (one device); a context with axes raises
+    ``NotImplementedError`` until the port's sharding slice.
     """
 
     n_token_groups: int = 1
@@ -332,6 +334,16 @@ class DistContext:
         )
 
 
+def _remat(dist: DistContext, fn, *args):
+    """``fn(*args)``; where ``dist.remat`` and grad mode is on, its
+    activations are recomputed in the backward pass instead of kept (a
+    non-reentrant ``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of a layer body."""
+    if dist.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _positions_and_rope(cfg: ArchConfig, batch: dict, S: int, B: int, device, dtype):
     if cfg.is_encoder_decoder:
         return None, None  # whisper: its positions are in the stubbed embeddings
@@ -354,16 +366,20 @@ def _embed(cfg: ArchConfig, model: "Model", batch: dict) -> torch.Tensor:
     return x
 
 
+def _encoder_layer(cfg: ArchConfig, x, layer: DenseLayer, dist):
+    h = norm(x, layer.ln1, cfg.norm)
+    x = x + _attention_block(cfg, h, layer.attn, None, None, dist, causal=False)
+    h = norm(x, layer.ln2, cfg.norm)
+    return x + mlp(h, layer.mlp, cfg.activation)
+
+
 def encoder_forward(model: "Model", enc_embeds: torch.Tensor) -> torch.Tensor:
     """Whisper's non-causal encoder over the frame embeddings (B, Tenc, D),
     then ``enc_final_ln``."""
     cfg = model.cfg
     x = enc_embeds.to(model.embed.dtype)
     for layer in model.encoder:
-        h = norm(x, layer.ln1, cfg.norm)
-        x = x + _attention_block(cfg, h, layer.attn, None, None, model.dist, causal=False)
-        h = norm(x, layer.ln2, cfg.norm)
-        x = x + mlp(h, layer.mlp, cfg.activation)
+        x = _remat(model.dist, _encoder_layer, cfg, x, layer, model.dist)
     return norm(x, model.enc_final_ln, cfg.norm)
 
 
@@ -374,8 +390,21 @@ def _cross_kv(cfg: ArchConfig, enc: torch.Tensor, cross: CrossLayer):
     return ek, ev
 
 
+def _audio_layer(cfg: ArchConfig, x, layer: DenseLayer, cross: CrossLayer, enc, dist):
+    h = norm(x, layer.ln1, cfg.norm)
+    x = x + _attention_block(cfg, h, layer.attn, None, None, dist, causal=True)
+    hq = norm(x, cross.ln, cfg.norm)
+    x = x + _attention_block(cfg, hq, cross.attn, None, None, dist, causal=False,
+                             kv_override=_cross_kv(cfg, enc, cross))
+    h = norm(x, layer.ln2, cfg.norm)
+    return x + mlp(h, layer.mlp, cfg.activation)
+
+
 def forward_hidden(model: "Model", batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden states (B,S,D), aux loss scalar)."""
+    """Returns (final hidden states (B,S,D), aux loss scalar). Under
+    ``dist.remat`` each layer body is rematerialized (``_remat``): every
+    layer, whisper's encoder and decoder layers, and each of the hybrid's
+    shared-attention sites."""
     cfg, dist = model.cfg, model.dist
     x = _embed(cfg, model, batch)
     B, S, D = x.shape
@@ -384,30 +413,24 @@ def forward_hidden(model: "Model", batch: dict) -> tuple[torch.Tensor, torch.Ten
     aux = torch.zeros((), dtype=acc, device=x.device)
     if cfg.family in ("dense", "vlm"):
         for layer in model.layers:
-            x = _dense_layer(cfg, x, layer, cos, sin, dist)
+            x = _remat(dist, _dense_layer, cfg, x, layer, cos, sin, dist)
     elif cfg.family == "moe":
         for layer in model.layers:
-            x, a = _moe_dense_layer(cfg, x, layer, cos, sin, dist)
+            x, a = _remat(dist, _moe_dense_layer, cfg, x, layer, cos, sin, dist)
             aux = aux + a
     elif cfg.family == "ssm":
         for layer in model.layers:
-            x = _rwkv_layer(cfg, x, layer, dist)
+            x = _remat(dist, _rwkv_layer, cfg, x, layer, dist)
     elif cfg.family == "hybrid":
         every = cfg.hybrid_attn_every
         for gi in range(cfg.n_layers // every):
             for layer in model.layers[gi * every : (gi + 1) * every]:
-                x = _mamba_layer(cfg, x, layer, dist)
-            x = _dense_layer(cfg, x, model.shared_attn, cos, sin, dist)  # the one shared block
+                x = _remat(dist, _mamba_layer, cfg, x, layer, dist)
+            x = _remat(dist, _dense_layer, cfg, x, model.shared_attn, cos, sin, dist)  # the one shared block
     elif cfg.family == "audio":
         enc = encoder_forward(model, batch["enc_embeds"].to(x.dtype))
         for layer, cross in zip(model.layers, model.cross):
-            h = norm(x, layer.ln1, cfg.norm)
-            x = x + _attention_block(cfg, h, layer.attn, None, None, dist, causal=True)
-            hq = norm(x, cross.ln, cfg.norm)
-            x = x + _attention_block(cfg, hq, cross.attn, None, None, dist, causal=False,
-                                     kv_override=_cross_kv(cfg, enc, cross))
-            h = norm(x, layer.ln2, cfg.norm)
-            x = x + mlp(h, layer.mlp, cfg.activation)
+            x = _remat(dist, _audio_layer, cfg, x, layer, cross, enc, dist)
     else:
         raise ValueError(cfg.family)
     x = norm(x, model.final_ln, cfg.norm)
@@ -420,9 +443,21 @@ def logits_from_hidden(model: "Model", h: torch.Tensor) -> torch.Tensor:
     return h @ model.head
 
 
+def _chunk_nll(model: "Model", hch: torch.Tensor, lch: torch.Tensor, acc: torch.dtype):
+    """One chunk's summed negative log-likelihood over its valid labels
+    (``>= 0``), and their count."""
+    logits = logits_from_hidden(model, hch).to(acc)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, lch.clamp(min=0)[..., None].long())[..., 0]
+    valid = (lch >= 0).to(acc)
+    return ((lse - tgt) * valid).sum(), valid.sum()
+
+
 def loss_fn(model: "Model", batch: dict, *, logit_chunk: int = 512) -> tuple[torch.Tensor, dict]:
-    """Chunked softmax cross-entropy (never materializes (B,S,V) at once);
-    forward only."""
+    """Chunked softmax cross-entropy (never materializes (B,S,V) at once).
+    Under ``dist.remat`` each chunk's logits are recomputed in the backward
+    pass too: kept, every chunk's (B, C, V) f32 logits would stay alive for
+    it, B*S*V*4 bytes in all."""
     h, aux = forward_hidden(model, batch)
     B, S, D = h.shape
     acc = acc_dtype(h.dtype)
@@ -435,13 +470,9 @@ def loss_fn(model: "Model", batch: dict, *, logit_chunk: int = 512) -> tuple[tor
     total = torch.zeros((), dtype=acc, device=h.device)
     count = torch.zeros((), dtype=acc, device=h.device)
     for c in range(0, S + pad, C):
-        lch = labels[:, c : c + C]
-        logits = logits_from_hidden(model, h[:, c : c + C]).to(acc)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, lch.clamp(min=0)[..., None].long())[..., 0]
-        valid = (lch >= 0).to(acc)
-        total = total + ((lse - tgt) * valid).sum()
-        count = count + valid.sum()
+        nll, n = _remat(model.dist, _chunk_nll, model, h[:, c : c + C], labels[:, c : c + C], acc)
+        total = total + nll
+        count = count + n
     ce = total / torch.clamp(count, min=1.0)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux, "tokens": count}
@@ -620,6 +651,9 @@ class Model(nn.Module):
     module: ``hidden(batch)``, ``logits(batch)``, ``loss(batch)``,
     ``init_cache(batch, cache_len, dtype)`` and ``decode(token, cache,
     batch_extras)``; ``audio`` adds ``fill_cross_cache(cache, enc_embeds)``.
+    The parameters take gradients: ``loss(batch)`` is what
+    ``repro_torch.train.make_train_step`` differentiates. ``decode`` and
+    ``fill_cross_cache`` write a cache in place and build no autograd graph.
     A batch is a dict of tensors on the model's device (``tokens`` (B, S)
     integer; ``labels``, ``positions`` (B, 3, S), ``frontend_embeds`` and
     ``enc_embeds`` (B, encoder_len, D) where the reference takes them)."""
@@ -657,14 +691,14 @@ class Model(nn.Module):
         families' extra blocks), and copied to the model's device: one seed
         gives the same weights on any device, and a model cut to fewer
         layers gets the first layers of the deeper one."""
-
-        for _, p in self.named_parameters():
-            kind, arg = p.init_rule
-            if kind == "normal":
-                w = torch.randn(p.shape, generator=generator, device=generator.device, dtype=torch.float32)
-                p.copy_(w * arg)
-            else:
-                p.fill_(arg)
+        with torch.no_grad():
+            for _, p in self.named_parameters():
+                kind, arg = p.init_rule
+                if kind == "normal":
+                    w = torch.randn(p.shape, generator=generator, device=generator.device, dtype=torch.float32)
+                    p.copy_(w * arg)
+                else:
+                    p.fill_(arg)
         return self
 
     def hidden(self, batch: dict):
@@ -680,9 +714,11 @@ class Model(nn.Module):
     def init_cache(self, batch: int, cache_len: int, dtype=torch.float32) -> dict:
         return init_cache(self, batch, cache_len, dtype)
 
+    @torch.no_grad()
     def fill_cross_cache(self, cache: dict, enc_embeds: torch.Tensor) -> dict:
         return fill_cross_cache(self, cache, enc_embeds)
 
+    @torch.no_grad()
     def decode(self, token: torch.Tensor, cache: dict, batch_extras: dict | None = None):
         return decode_step(self, token, cache, batch_extras)
 

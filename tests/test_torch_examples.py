@@ -10,6 +10,10 @@
   tests run ``device_sharded`` at.
 * The quickstart twin prints what its original prints; the resilience and
   particles twins run to their own checks.
+* The MoE placement twin prints what its original prints, bitwise. The
+  training twin prints its original's lines over ``TRAIN_ARGS``; its
+  weights are another draw (a torch generator, not JAX's key), so each
+  printed loss is held to the original's within ``TRAIN_LOSS_ABS``.
 
 Every example runs in a subprocess, all started together when the
 module's first test asks for them; the JAX runs' environment alone carries
@@ -72,6 +76,10 @@ def _env(**extra) -> dict:
 
 
 PORT_CLI = ["--device", "cpu", "--kernel-backend", "ref", *CLI_ARGS]
+TRAIN_ARGS = ["--steps", "41"]  # prints steps 0, 20 and 40
+# 4x the largest difference measured between the two draws' printed losses
+# (0.088 at step 40, where the losses are about 3.0 after falling from 5.6)
+TRAIN_LOSS_ABS = 0.35
 # every example run of the module: (env, argv), keyed by name
 RUNS = {
     "jax_cli": ("xla", [str(EXAMPLES / "lbm_cavity_amr.py"), *CLI_ARGS]),
@@ -82,6 +90,10 @@ RUNS = {
     "resilience_torch": ("port", [str(EXAMPLES / "resilience_demo_torch.py")]),
     "particles_torch": ("port", [str(EXAMPLES / "particles_in_cavity_torch.py"), "--device", "cpu", "--steps", "4",
                                  "--mode", "fused_sharded"]),
+    "moe_balance": ("port", [str(EXAMPLES / "moe_diffusion_balance.py")]),
+    "moe_balance_torch": ("port", [str(EXAMPLES / "moe_diffusion_balance_torch.py")]),
+    "train_lm": ("port", [str(EXAMPLES / "train_lm.py"), *TRAIN_ARGS]),
+    "train_lm_torch": ("port", [str(EXAMPLES / "train_lm_torch.py"), "--device", "cpu", *TRAIN_ARGS]),
 }
 
 
@@ -156,3 +168,26 @@ def test_particles_twin_conserves_its_tracers_on_the_cpu(runs):
     out = runs["particles_torch"]
     assert "seeded 128 tracers" in out and "device=cpu" in out and "advected 512" in out
     assert re.search(r"step +4: com=\(", out) and "weighted load per rank" in out
+
+
+def test_moe_balance_twin_prints_what_its_original_prints(runs):
+    assert runs["moe_balance_torch"] == runs["moe_balance"]
+    assert "peak overload (max/avg)" in runs["moe_balance_torch"]
+
+
+def _train_lines(out: str) -> tuple[list[str], list[tuple[int, float]], float]:
+    steps = [(int(i), float(loss)) for i, loss in re.findall(r"step +(\d+) loss= *([\d.]+) gnorm=", out)]
+    final = re.search(r"final loss: ([\d.]+)", out)
+    assert steps and final, out
+    head = [line for line in out.splitlines() if line.startswith(("arch=", "data buckets"))]
+    return head, steps, float(final.group(1))
+
+
+def test_train_lm_twin_prints_the_originals_lines(runs):
+    ours, theirs = _train_lines(runs["train_lm_torch"]), _train_lines(runs["train_lm"])
+    assert len(ours[0]) == 2 and ours[0] == theirs[0]  # parameter count, bucket balance
+    assert [i for i, _ in ours[1]] == [i for i, _ in theirs[1]] == [0, 20, 40]
+    for (i, a), (_, b) in zip(ours[1], theirs[1]):
+        assert abs(a - b) <= TRAIN_LOSS_ABS, (i, a, b)
+    assert abs(ours[2] - theirs[2]) <= TRAIN_LOSS_ABS
+    assert ours[1][-1][1] < ours[1][0][1] - 2.0  # it learns the structure

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, held against their plain versions.
+"""The port's CUDA kernels on the card, held against their plain versions;
+the LM serving and training paths on the card against the CPU.
 
 Imports no jax, so it runs on a GPU machine that has only PyTorch:
 
@@ -555,3 +556,71 @@ def test_reduced_family_card_matches_cpu_in_f64_on_card(arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(tok["cuda"].cpu(), tok["cpu"])
+
+
+# the reduced dense, moe, ssm, hybrid and audio archs for the training legs
+TRAIN_ARCHS = ["qwen2-0.5b", *FAMILY_ARCHS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_reduced_train_step_card_matches_cpu_in_f64_on_card(arch):
+    """One seed's weights in float64 on the card and on the CPU, 2 x 150
+    tokens: ``Model.loss`` and every gradient (remat on) within ``1e-9 *
+    max|g|`` of the leaf, the same leaves without a gradient; then one
+    ``make_train_step`` step of 2 microbatches each: loss and grad norm
+    within ``1e-9`` relative."""
+    _require_card()
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    cfg = get_config(arch).reduced()
+    drawn = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 150))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 150)))}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.from_numpy(0.5 * rng.standard_normal((2, cfg.encoder_len, cfg.d_model)))
+    models, losses, batches = {}, {}, {}
+    for d in ("cpu", "cuda"):
+        models[d] = build_model(cfg, device=d, dtype=torch.float64)
+        models[d].load_state_dict(drawn.state_dict())
+        batches[d] = {k: v.to(d) for k, v in batch.items()}
+        loss, _ = models[d].loss(batches[d])
+        loss.backward()
+        losses[d] = float(loss.detach())
+    assert abs(losses["cuda"] - losses["cpu"]) <= F64_REL * abs(losses["cpu"])
+    for (name, pc), pg in zip(models["cpu"].named_parameters(), models["cuda"].parameters()):
+        assert (pc.grad is None) == (pg.grad is None), name
+        if pc.grad is not None:
+            bound = F64_REL * float(pc.grad.abs().max())
+            torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=0, atol=bound, msg=name)
+    metrics = {}
+    for d, model in models.items():
+        _, m = make_train_step(model, AdamWConfig(), microbatches=2)(adamw_init(model), batches[d])
+        metrics[d] = {k: float(v) for k, v in m.items()}
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(metrics["cuda"][k] - metrics["cpu"][k]) <= F64_REL * abs(metrics["cpu"][k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_makes_no_host_sync_on_card(microbatches):
+    """The reduced granite-moe (the moe dispatch, remat, the chunked loss)
+    in f32 on the card: after a warm step, one ``make_train_step`` step
+    under ``torch.cuda.set_sync_debug_mode("error")``; its loss finite."""
+    _require_card()
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 40))).cuda() for k in ("tokens", "labels")}
+    step = make_train_step(model, AdamWConfig(), microbatches=microbatches)
+    opt, _ = step(adamw_init(model), batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt, metrics = step(opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(opt["step"]) == 2 and bool(torch.isfinite(metrics["loss"]))

@@ -72,6 +72,9 @@ COPIED = [
     "configs/whisper_small.py",
     "launch/__init__.py",
     "launch/perf_model.py",
+    "train/data.py",
+    "train/moe_balance.py",
+    "train/elastic.py",
 ]
 # the port's example twins and its lint driver: each imports only repro_torch
 TWINS = [
@@ -79,6 +82,8 @@ TWINS = [
     "examples/resilience_demo_torch.py",
     "examples/particles_in_cavity_torch.py",
     "examples/trace_fused_sharded_torch.py",
+    "examples/train_lm_torch.py",
+    "examples/moe_diffusion_balance_torch.py",
     "tools/repro_lint_torch.py",
 ]
 
@@ -86,8 +91,9 @@ SMALL = dict(root_grid=(1, 1, 1), cells_per_block=(4, 4, 4), max_level=1, nranks
 
 
 def test_import_leaves_jax_and_repro_unloaded():
-    """Importing the port, its analyzer, its LM serving path (configs,
-    models, the parameter converter, ``train``, ``launch.perf_model``), the
+    """Importing the port, its analyzer, its LM path (configs, models, the
+    parameter converter, ``train`` with its checkpoints and expert
+    placement, ``launch.perf_model``), the
     cavity CLI, the example twins, the port's lint driver and
     ``tools/trace_report.py`` loads neither jax nor any module of the JAX
     package."""
@@ -97,6 +103,7 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.kernels.lbm_collide.ops, repro_torch.state, repro_torch.serving",
         "import repro_torch.analysis, repro_torch.analysis.engine_plans",
         "import repro_torch.configs, repro_torch.models.zoo, repro_torch.models.convert, repro_torch.train",
+        "import repro_torch.train.checkpoint, repro_torch.train.moe_balance",
         "import repro_torch.launch.perf_model",
         f"for i, path in enumerate({[str(p) for p in scripts]!r}):",
         "    spec = importlib.util.spec_from_file_location(f'script{i}', path)",

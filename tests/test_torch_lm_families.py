@@ -58,6 +58,15 @@ F64_REL = 1e-10
 _F64_SCALE = 5e-6
 
 
+@pytest.fixture(autouse=True)
+def _no_autograd():
+    """Serving builds no autograd graph (``serve_step`` and ``Model.decode``
+    run under ``torch.no_grad``); neither does a prefill here, though the
+    parameters take gradients."""
+    with torch.no_grad():
+        yield
+
+
 def _bf16_tol(want: np.ndarray) -> dict:
     return dict(rtol=0, atol=2**-5 * float(np.abs(want).max()))
 

@@ -137,7 +137,21 @@ finding per line:
    peak memory, a profile of one step and one step under sync debug mode
    ``error``. It passes alone (``--only lm-train``) and prints an
    ``lm_train`` JSON line.
-5. each kernel against its plain PyTorch version on the card, at the shapes
+5. ``[lm-dist]``, the LM distribution layer (``repro_torch.sharding.specs``,
+   ``repro_torch.launch``, the active ``DistContext``,
+   ``sharded_decode_attention``) on an NCCL process group of one rank and a
+   (1, 1) ("data", "model") mesh: (a) qwen2-0.5b at full width and depth in
+   bf16, parameters placed by ``param_pspecs``, an active context against
+   the inactive model on prefill logits (B = 1, S = 512) and 8 greedy decode
+   steps (B = 8, T = 4096); (b) the one-rank flash-decode at qwen2-0.5b's
+   decode width (B = 32, T = 32,768, bf16 cache) against ``decode_attention``
+   in float64 within 1e-12, its f32 against its f64, both timed; (c) the dry
+   run's ``decode_32k`` cell at B = 32: its per-rank argument bytes equal to
+   the storage of the same tensors made on the card and to the allocator's
+   growth in 512-byte blocks, and the decode FLOPs counted on the card equal
+   to those counted on meta. It passes alone (``--only lm-dist``) and prints
+   an ``lm_dist`` JSON line.
+6. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
    the stencil; the padded-slab form once; the stencil over a real rank's
@@ -148,7 +162,7 @@ finding per line:
    the level-2 fill for 4 members (each bitwise M solo launches). Then small D3Q27 / BGK / f64 / odd-extent cases for the
    stencil and every fill segment kind (``same``, ``coarse``, ``fine``) in
    f32/f64 x D3Q19/D3Q27. Max error, kernel time, plain time and the bound.
-6. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
+7. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
    ``sharded``, ``fused_sharded`` and ``device_sharded`` on the kernels and
    ``fused``, ``fused_sharded`` and ``device_sharded`` on the plain
    versions grow the same forest and agree on the interior fields
@@ -156,10 +170,11 @@ finding per line:
    cards ``device_sharded`` runs again with its ranks spread over them;
    ``restack`` and ``fused_sharded`` with 24 tracers a block under the lid
    agree on every tracer's position within 1e-10.
-7. the card line, the ``lm_serve``, ``lm_families``, ``lm_train`` and
-   ``kernels`` JSON lines, the script's wall time and the final ``ok`` line.
+8. the card line, the ``lm_serve``, ``lm_families``, ``lm_train``,
+   ``lm_dist`` and ``kernels`` JSON lines, the script's wall time and the
+   final ``ok`` line.
 
-``python3 chip_smoke.py --only lm,lm-families,lm-train`` runs just the
+``python3 chip_smoke.py --only lm,lm-families,lm-train,lm-dist`` runs just the
 named LM phases, in that order, and ends with their JSON lines and the
 ``ok`` line. The serving phases build no autograd graph.
 
@@ -286,6 +301,20 @@ LM_TRAIN_LEARN = dict(B=16, S=256, steps=30, data_vocab=2048, lr=1e-3, warmup=5)
 LM_TRAIN_LEARN_MARGIN = 1.5
 # e. timing at train_4k's sequence length, its global batch of 256 cut to 8
 LM_TRAIN_TIMING = dict(B=8, S=4096, microbatches=2, steps=2)
+# phase 5: the LM distribution layer on a one-rank NCCL mesh. a: qwen2-0.5b
+# at full width and depth, bf16, with an active DistContext against the
+# same weights with an inactive one: prefill logits at B x S, then greedy
+# decode steps at B x T (each step's token the inactive model's argmax)
+LM_DIST = dict(prefill_B=1, prefill_S=512, decode_B=8, decode_T=4096, steps=8)
+# the active context's logits against the inactive one's: 0 is bitwise
+LM_DIST_ACTIVE_BOUND = 0.0
+# b. sharded_decode_attention at qwen2-0.5b's decode width over the group
+LM_DIST_FLASH = dict(B=32, T=32768)
+# the card's f32 flash-decode (bf16 cache) against its f64 one: 4x or more
+# the largest error measured on an H100 80GB HBM3 at 700 W (7.433e-08; PERF.md, section 6)
+LM_DIST_FLASH_F32_VS_F64 = 3e-7
+# c. the dry run's decode_32k cell at a batch of 32 on the (1, 1) mesh
+LM_DIST_DRYRUN_B = 32
 
 
 def check(cond: bool, what: str) -> None:
@@ -1305,6 +1334,175 @@ def lm_train_phase() -> dict:
     return out
 
 
+def lm_dist_phase() -> dict:
+    """Phase 5: the LM distribution layer (``repro_torch.sharding.specs``,
+    ``repro_torch.launch``, the active ``DistContext`` and
+    ``sharded_decode_attention``) on an NCCL process group of one rank
+    (``HashStore``) and a (1, 1) ("data", "model") mesh on the card. (a)
+    qwen2-0.5b at full width and depth in bf16 from phase 3's seed, its
+    parameters placed by ``param_pspecs`` as DTensors and
+    ``DistContext(batch_axes=("data",), model_axis="model")`` active inside
+    ``mesh_scope``, against the same weights with an inactive context:
+    prefill logits and greedy decode steps (``LM_DIST``), within
+    ``LM_DIST_ACTIVE_BOUND`` (0: bitwise). (b) ``sharded_decode_attention``
+    over the one-rank group at qwen2-0.5b's decode width (``LM_DIST_FLASH``,
+    14 heads over 2 kv heads of 64, bf16 cache) against ``decode_attention``
+    on the same cache in float64 within 1e-12, and the card's f32 (bf16
+    cache) against its f64 within ``LM_DIST_FLASH_F32_VS_F64``; both timed
+    by CUDA events. (c) ``run_cell`` of qwen2-0.5b ``decode_32k`` at a batch
+    of ``LM_DIST_DRYRUN_B`` on the mesh: its per-rank argument bytes equal
+    the storage bytes of those parameters, cache and tokens materialized on
+    the card, and the growth of ``torch.cuda.memory_allocated()`` with each
+    tensor rounded up to the caching allocator's 512-byte block; the decode
+    step's FLOPs counted on the card equal those counted on meta. The phase
+    destroys its process group at its end."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import mesh_axis_sizes, mesh_scope
+    from repro_torch.launch.step_analysis import analyze_step
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import decode_attention, sharded_decode_attention
+    from repro_torch.models.zoo import DistContext
+    from repro_torch.sharding.specs import batch_pspecs, cache_pspecs, param_pspecs, place, place_model, place_tree
+
+    t_phase = time.perf_counter()
+    set_numerics()
+    card = card_line()
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        axes, sizes = tuple(mesh.mesh_dim_names), mesh_axis_sizes(mesh)
+
+        # -- a. the active context at full width ---------------------------------
+        t0 = time.perf_counter()
+        plain = build_model(cfg, device=dev, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(LM_SEED))
+        active = build_model(cfg, DistContext(batch_axes=("data",), model_axis="model"), device=dev,
+                             dtype=torch.bfloat16)
+        active.load_state_dict(plain.state_dict())
+        place_model(active, param_pspecs(cfg, active, axes, sizes), mesh)
+        g = torch.Generator().manual_seed(LM_SEED + 5)
+        Bp, Sp = LM_DIST["prefill_B"], LM_DIST["prefill_S"]
+        tokens = torch.randint(0, cfg.vocab, (Bp, Sp), generator=g).to(dev)
+        b_spec = batch_pspecs(cfg, SHAPES["prefill_32k"], axes)
+        with torch.no_grad():
+            want = plain.logits({"tokens": tokens})
+            with mesh_scope(mesh):
+                got = active.logits({"tokens": place(tokens, b_spec["tokens"], mesh)}).full_tensor()
+        check(got.shape == want.shape == (Bp, Sp, cfg.vocab) and bool(torch.isfinite(want).all()),
+              "phase 5 a: prefill logits finite")
+        prefill_err = max_err(got, want)
+        Bd, T = LM_DIST["decode_B"], LM_DIST["decode_T"]
+        cache = plain.init_cache(Bd, T, torch.bfloat16)
+        placed = place_tree({k: v.clone() for k, v in cache.items()},
+                            cache_pspecs(cfg, SHAPES["decode_32k"], cache, axes, sizes), mesh)
+        t_spec = batch_pspecs(cfg, SHAPES["decode_32k"], axes)["tokens"]
+        tok = torch.randint(0, cfg.vocab, (Bd, 1), generator=g).to(dev)
+        decode_errs = []
+        for _ in range(LM_DIST["steps"]):
+            want_step, cache = plain.decode(tok, cache)
+            with mesh_scope(mesh):
+                got_step, placed = active.decode(place(tok, t_spec, mesh), placed)
+            decode_errs.append(max_err(got_step.full_tensor(), want_step))
+            tok = want_step[:, -1:].argmax(dim=-1)
+        cache_err = max(max_err(placed[k].full_tensor(), cache[k]) for k in ("k", "v"))
+        a = dict(prefill_B=Bp, prefill_S=Sp, prefill_max_err=prefill_err, decode_B=Bd, decode_T=T,
+                 decode_steps=LM_DIST["steps"], decode_max_err=max(decode_errs), cache_max_err=cache_err,
+                 bound=LM_DIST_ACTIVE_BOUND, seconds=time.perf_counter() - t0)
+        say(f"[lm-dist] a. {LM_ARCH} full width and depth, bf16, active DistContext on the (1, 1) NCCL mesh "
+            f"against the inactive model: prefill B={Bp} S={Sp} logits max |diff| {prefill_err:.3e}, "
+            f"{LM_DIST['steps']} decode steps B={Bd} T={T} max |diff| {a['decode_max_err']:.3e}, caches "
+            f"{cache_err:.3e} (bound {LM_DIST_ACTIVE_BOUND:g}) [{card}]")
+        check(max(prefill_err, a["decode_max_err"], cache_err) <= LM_DIST_ACTIVE_BOUND,
+              f"phase 5 a: the active context within {LM_DIST_ACTIVE_BOUND:g} of the inactive one")
+        del plain, active, cache, placed, want, got
+        torch.cuda.empty_cache()
+
+        # -- b. sharded_decode_attention over the one-rank group -------------------
+        B, T = LM_DIST_FLASH["B"], LM_DIST_FLASH["T"]
+        H, Hkv, d = cfg.n_heads, cfg.n_kv, cfg.hd
+        g = torch.Generator(device=dev).manual_seed(LM_SEED + 6)
+        q = torch.randn((B, 1, H, d), generator=g, device=dev)
+        k = torch.randn((B, T, Hkv, d), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, T, Hkv, d), generator=g, device=dev).to(torch.bfloat16)
+        group = dist.group.WORLD
+        f64 = sharded_decode_attention(q.double(), k.double(), v.double(), group=group)
+        f64_err = max_err(f64, decode_attention(q.double(), k.double(), v.double()))
+        f32 = sharded_decode_attention(q, k, v, group=group)
+        f32_err = max_err(f32, f64)
+        times = median_ms({"sharded_decode_attention": lambda: sharded_decode_attention(q, k, v, group=group),
+                           "decode_attention": lambda: decode_attention(q, k, v)}, 10)
+        b = dict(B=B, T=T, H=H, Hkv=Hkv, d=d, cache_dtype="bf16", f64_vs_decode_attention=f64_err,
+                 f32_vs_f64=f32_err, f32_bound=LM_DIST_FLASH_F32_VS_F64, sharded_ms=times["sharded_decode_attention"][0],
+                 decode_attention_ms=times["decode_attention"][0], quartiles_ms={n: t[1:] for n, t in times.items()})
+        say(f"[lm-dist] b. sharded_decode_attention over the one-rank NCCL group, B={B} T={T} H={H}/{Hkv} d={d}, "
+            f"bf16 cache: f64 against decode_attention {f64_err:.3e} (bound 1e-12); f32 against its f64 "
+            f"{f32_err:.3e} (bound {LM_DIST_FLASH_F32_VS_F64:g}); {b['sharded_ms']:.3f} ms against "
+            f"decode_attention's {b['decode_attention_ms']:.3f} ms (medians of 10) [{card}]")
+        check(f64_err <= 1e-12, f"phase 5 b: f64 flash-decode within 1e-12 ({f64_err:.3e})")
+        check(f32_err <= LM_DIST_FLASH_F32_VS_F64, f"phase 5 b: f32 within {LM_DIST_FLASH_F32_VS_F64:g} of f64")
+        del q, k, v, f64, f32
+        torch.cuda.empty_cache()
+
+        # -- c. the dry run's bytes made real ------------------------------------
+        shape = replace(SHAPES["decode_32k"], global_batch=LM_DIST_DRYRUN_B)
+        res = run_cell(cfg, shape, mesh, verbose=False)
+        # expandable segments: a block is split off its segment whenever 512
+        # bytes or more remain, so each allocation holds its size rounded up
+        # to 512 bytes (without them, a large block that leaves up to 1 MB of
+        # its segment keeps the rest)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        try:
+            mem0, req0 = torch.cuda.memory_allocated(), torch.cuda.memory_stats()["requested_bytes.all.current"]
+            model = build_model(cfg, DistContext(batch_axes=("data",), model_axis="model"), device=dev,
+                                dtype=torch.bfloat16)
+            cache = model.init_cache(shape.global_batch, shape.seq_len, torch.bfloat16)
+            token = torch.zeros((shape.global_batch, 1), dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_allocated() - mem0
+            requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - req0
+        finally:
+            torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+        real = [*model.parameters(), *cache.values(), token]
+        storage = sum(t.untyped_storage().nbytes() for t in real)
+        blocks = sum(-(-t.untyped_storage().nbytes() // 512) * 512 for t in real)
+        place_model(model, param_pspecs(cfg, model, axes, sizes), mesh)
+        placed = place_tree(cache, cache_pspecs(cfg, shape, cache, axes, sizes), mesh)
+        with torch.no_grad(), mesh_scope(mesh):
+            _, stats = analyze_step(model.decode, place(token, batch_pspecs(cfg, shape, axes)["tokens"], mesh), placed)
+        torch.cuda.synchronize()
+        c = dict(shape=f"decode_32k at B={shape.global_batch}", argument_bytes=res["memory"]["argument_bytes"],
+                 argument_bytes_by_kind=res["memory"]["argument_bytes_by_kind"], storage_bytes=storage,
+                 allocator_growth=grown, requested_growth=requested, block_rounded_bytes=blocks, flops_meta=res["flops"]["counted_cluster"],
+                 flops_card=stats.flops, model_flops=res["flops"]["model_cluster"], trace_s=res["trace_s"])
+        say(f"[lm-dist] c. run_cell {LM_ARCH} {c['shape']} on the (1, 1) cuda mesh: argument bytes "
+            f"{c['argument_bytes']} ({json.dumps(c['argument_bytes_by_kind'])}); materialized on the card: storage "
+            f"{storage} bytes ({requested} requested), allocator growth {grown} bytes against {blocks} rounded to "
+            f"512-byte blocks; decode "
+            f"FLOPs counted on the card {stats.flops:.6e}, on meta {c['flops_meta']:.6e} [{card}]")
+        check(storage == c["argument_bytes"], "phase 5 c: the materialized bytes equal the dry run's argument bytes")
+        check(requested == storage, "phase 5 c: the allocator was asked for the materialized bytes")
+        check(grown == blocks, "phase 5 c: the allocator grew by the block-rounded bytes")
+        check(stats.flops == c["flops_meta"], "phase 5 c: the card's decode FLOPs equal the meta count")
+        del model, cache, placed, token
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out = dict(card=card, arch=LM_ARCH, mesh=[1, 1], active=a, flash_decode=b, dryrun_bytes=c,
+               seconds=time.perf_counter() - t_phase)
+    say(f"[lm-dist] phase 5 wall time {out['seconds']:.2f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2128,8 +2326,10 @@ def main() -> int:
     lm_families = lm_families_phase()
     # -- 4. the LM training path at full width ------------------------------------
     lm_train = lm_train_phase()
+    # -- 5. the LM distribution layer on a one-rank NCCL mesh ---------------------
+    lm_dist = lm_dist_phase()
 
-    # -- 5. kernels against their plain versions, main-path shapes ---------------
+    # -- 6. kernels against their plain versions, main-path shapes ---------------
     lattice = sim.spec.lattice
     kw_l = {l: dict(omega=omega_for_level(cfg.omega, l), lattice=lattice,
                     u_wall=cfg.u_lid, collision=cfg.collision) for l in levels}
@@ -2498,7 +2698,7 @@ def main() -> int:
             say(f"small case fill {lat.name} {str(dtype)[6:]} (same/coarse/fine segments of a "
                 f"{len(levels_s)}-level forest): max |err| {worst:.3e}")
 
-    # -- 6. cross-check at a smaller depth ----------------------------------------
+    # -- 7. cross-check at a smaller depth ----------------------------------------
     runs = {}
     for mode, backend in (("restack", "cuda"), ("arena", "cuda"), ("fused", "cuda"), ("fused", "ref"),
                           ("sharded", "cuda"), ("fused_sharded", "cuda"), ("fused_sharded", "ref"),
@@ -2575,7 +2775,7 @@ def main() -> int:
     say(f"cross-check tracers: restack and fused_sharded agree on {pa['id'].size} tracers, "
         f"max |position diff| {tr_err:.3e} (limit 1e-10)")
 
-    # -- 7. the LM and kernels lines and the result -------------------------------
+    # -- 8. the LM and kernels lines and the result -------------------------------
     by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
                "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches}
 
@@ -2634,6 +2834,7 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm_serve}))
     print(json.dumps({"lm_families": lm_families}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"lm_dist": lm_dist}))
     print(json.dumps({"kernels": kernels}))
     ok_line()
     return 0
@@ -2647,14 +2848,14 @@ def ok_line() -> None:
 
 
 def only(phases: list[str]) -> int:
-    """``--only lm,lm-families,lm-train``: just the named LM phases, in the order
+    """``--only lm,lm-families,lm-train,lm-dist``: just the named LM phases, in the order
     given, each with its JSON line, then the ok line (no kernel runs, so no
     ``kernels`` line)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     runs = {"lm": ("lm_serve", lm_serving_phase), "lm-families": ("lm_families", lm_families_phase),
-            "lm-train": ("lm_train", lm_train_phase)}
+            "lm-train": ("lm_train", lm_train_phase), "lm-dist": ("lm_dist", lm_dist_phase)}
     check(phases and set(phases) <= set(runs), f"--only takes a comma list of {sorted(runs)}")
     lines = [{runs[p][0]: runs[p][1]()} for p in phases]
     say("card:", card_line())
@@ -2669,5 +2870,5 @@ T_START = time.perf_counter()
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         sys.exit(only(sys.argv[2].split(",")))
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only lm,lm-families,lm-train]")
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only lm,lm-families,lm-train,lm-dist]")
     sys.exit(main())

@@ -5,19 +5,21 @@ The PyTorch twin of the JAX package's ``models/attention.py``. The chunked
 path never materializes the full (S x S) score matrix: it loops over KV
 chunks with an online-softmax accumulator inside a loop over Q chunks, so
 peak memory is O(S * chunk), as in the reference. The distributed
-flash-decode (``sharded_decode_attention``) needs a collective and is not
-part of this module yet.
+flash-decode (``sharded_decode_attention``) combines each rank's slice of
+the cache with all-reduces over a process group.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .layers import acc_dtype
 
-__all__ = ["chunked_attention", "decode_attention"]
+__all__ = ["chunked_attention", "decode_attention", "sharded_decode_attention"]
 
 _NEG = -1e30
 
@@ -55,9 +57,11 @@ def chunked_attention(
     # pad to multiples
     S_pad = -S % q_chunk
     T_pad = -T % kv_chunk
-    qp = F.pad(q, (0, 0, 0, 0, 0, S_pad))
-    kp = F.pad(k, (0, 0, 0, 0, 0, T_pad))
-    vp = F.pad(v, (0, 0, 0, 0, 0, T_pad))
+    # padded only where a chunk does not divide the length (torch 2.11's
+    # DTensor pad gives its result one placement on a 2-D mesh)
+    qp = F.pad(q, (0, 0, 0, 0, 0, S_pad)) if S_pad else q
+    kp = F.pad(k, (0, 0, 0, 0, 0, T_pad)) if T_pad else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, T_pad)) if T_pad else v
     nq, nkv = (S + S_pad) // q_chunk, (T + T_pad) // kv_chunk
 
     dev = q.device
@@ -69,7 +73,7 @@ def chunked_attention(
     kp = kp.to(acc).reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
     vp = vp.to(acc).reshape(B, nkv, kv_chunk, H, d).permute(1, 0, 3, 2, 4)
 
-    out = torch.empty((nq, B, H, q_chunk, d), dtype=acc, device=dev)
+    outs = []
     for qi in range(nq):
         q_blk = qp[qi]
         q_pos = q_pos_base + qi * q_chunk
@@ -92,9 +96,18 @@ def chunked_attention(
             l = l * alpha + p.sum(dim=-1)
             o = o * alpha[..., None] + p @ v_blk
             m = m_new
-        out[qi] = o / torch.clamp(l, min=1e-30)[..., None]
-    out = out.permute(1, 0, 3, 2, 4).reshape(B, S + S_pad, H, d)[:, :S]
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, S + S_pad, H, d)[:, :S]
     return out.to(q.dtype)
+
+
+def _heads_major(cache: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """A (B, T, Hkv, d) cache as a contiguous (B, Hkv, T, d) tensor in
+    ``acc``, in one copy. A DTensor takes two: its one-step copy with a
+    memory format gives a transposed shard the wrong tensor dimension."""
+    if isinstance(cache, DTensor):
+        return cache.transpose(1, 2).to(acc).contiguous()
+    return cache.transpose(1, 2).to(acc, memory_format=torch.contiguous_format)
 
 
 def decode_attention(
@@ -127,7 +140,7 @@ def decode_attention(
     scale = 1.0 / np.sqrt(d)
     acc = acc_dtype(q.dtype)
     qg = q.reshape(B, Hkv, groups, d).to(acc)
-    kt = k_cache.transpose(1, 2).to(acc, memory_format=torch.contiguous_format)  # (B,Hkv,T,d)
+    kt = _heads_major(k_cache, acc)  # (B,Hkv,T,d)
     s = (qg @ kt.transpose(-1, -2)) * scale  # (B, Hkv, G, T)
     idx = torch.arange(T, device=q.device)
     age = (slot - idx) % T if slot is not None else T - 1 - idx
@@ -136,6 +149,39 @@ def decode_attention(
     if fill is not None:
         s = torch.where(age < fill, s, _NEG)
     p = torch.softmax(s, dim=-1)
-    vt = v_cache.transpose(1, 2).to(acc, memory_format=torch.contiguous_format)
+    vt = _heads_major(v_cache, acc)
     out = p.to(v_cache.dtype).to(acc) @ vt  # (B, Hkv, G, d)
     return out.reshape(B, 1, H, d).to(q.dtype)
+
+
+def sharded_decode_attention(
+    q: torch.Tensor,  # (B, 1, H, d): the same on every rank of ``group``
+    k_cache: torch.Tensor,  # (B, T_local, Hkv, d): this rank's slice of T
+    v_cache: torch.Tensor,
+    *,
+    group: dist.ProcessGroup | None = None,
+) -> torch.Tensor:
+    """Distributed flash-decode: every rank attends to its local KV slice;
+    the partial (max, sum, weighted-value) statistics are combined across
+    ``group`` (the reference's ``axis_name``; None is the default group)
+    with an all-reduce MAX of the row maxima and all-reduce SUMs of the sums
+    and the weighted values. In f32 (f64 for f64 inputs), with no window,
+    warm-up or ring-buffer masking, as the reference's."""
+    B, _, H, d = q.shape
+    _, T_local, Hkv, _ = k_cache.shape
+    groups = H // Hkv
+    scale = 1.0 / np.sqrt(d)
+    acc = acc_dtype(q.dtype)
+    qg = q.reshape(B, H, d).to(acc)
+    kg = _repeat_kv(k_cache, groups).to(acc)
+    vg = _repeat_kv(v_cache, groups).to(acc)
+    s = torch.einsum("bhd,bthd->bht", qg, kg) * scale  # (B, H, T_local)
+    m = s.amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bht,bthd->bhd", p, vg)
+    dist.all_reduce(l, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(o, op=dist.ReduceOp.SUM, group=group)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out[:, None].to(q.dtype)

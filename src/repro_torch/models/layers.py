@@ -18,6 +18,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = [
     "acc_dtype",
@@ -29,6 +30,7 @@ __all__ = [
     "mrope_freqs",
     "mlp",
     "init_linear",
+    "reshape_heads",
 ]
 
 
@@ -156,3 +158,19 @@ def init_linear(
     fan_in = shape[0] if len(shape) == 2 else shape[-2]
     w = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
     return (w / np.sqrt(fan_in)).to(dtype)
+
+
+def reshape_heads(y: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``y.reshape(shape)``, where ``shape`` splits ``y``'s last dimension
+    into (heads, head_dim). A DTensor whose last dimension is sharded over a
+    number of ranks that does not divide the heads (14 heads on a 16-way
+    axis) is first gathered on that dimension: DTensor splits an even shard
+    only. A plain tensor is reshaped as it is."""
+    if isinstance(y, DTensor):
+        last, ranks = y.ndim - 1, 1
+        for size, pl in zip(y.device_mesh.shape, y.placements):
+            if pl.is_shard(last):
+                ranks *= size
+        if shape[-2] % ranks:
+            y = y.redistribute(y.device_mesh, [Replicate() if pl.is_shard(last) else pl for pl in y.placements])
+    return y.reshape(shape)

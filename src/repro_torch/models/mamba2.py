@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import acc_dtype
+from .layers import acc_dtype, reshape_heads
 
 __all__ = ["mamba2_forward", "mamba2_decode_step", "mamba2_init_cache"]
 
@@ -84,7 +84,7 @@ def mamba2_forward(
 
     dt = wsc(_softplus(dt.to(acc) + p["dt_bias"].to(acc)), "b.m")  # (B,S,H)
     A = -torch.exp(p["A_log"].to(acc))  # (H,)
-    xh = wsc(x.reshape(Bsz, S, H, head_dim), "b.m.")
+    xh = wsc(reshape_heads(x, (Bsz, S, H, head_dim)), "b.m.")
 
     L = min(chunk, S)
     pad = -S % L
@@ -112,17 +112,18 @@ def mamba2_forward(
     S_chunk = Bc.transpose(-1, -2)[:, :, None] @ (decay_to_end[..., None] * xdt).transpose(2, 3)  # (B,nc,H,N,P)
     chunk_decay = torch.exp(a_end[:, :, 0])  # (B,nc,H)
     h = torch.zeros((Bsz, H, N, head_dim), dtype=acc, device=u.device)
-    h_prev = torch.empty((Bsz, nc, H, N, head_dim), dtype=acc, device=u.device)
+    h_prev = []
     for c in range(nc):
-        h_prev[:, c] = h  # the state this chunk starts from
+        h_prev.append(h)  # the state this chunk starts from
         h = h * chunk_decay[:, c, :, None, None] + S_chunk[:, c]
+    h_prev = torch.stack(h_prev, dim=1)  # (B,nc,H,N,P)
     decay_from_start = torch.exp(a_cum)  # (B,nc,L,H)
     y_inter = (Cc[:, :, None] @ h_prev) * decay_from_start.transpose(2, 3)[..., None]  # (B,nc,H,L,P)
     y_inter = y_inter.transpose(2, 3)
 
     y = (y_intra + y_inter).reshape(Bsz, S + pad, H, head_dim)[:, :S]
     y = y + xh * p["D_skip"].to(acc)[None, None, :, None]
-    y = y.reshape(Bsz, S, d_inner).to(u.dtype)
+    y = wsc(y.reshape(Bsz, S, d_inner), "b.m").to(u.dtype)
     return _gated_norm_out(y, z, p, u.dtype)
 
 
@@ -161,7 +162,7 @@ def mamba2_decode_step(
 
     dt = _softplus(dt.to(acc) + p["dt_bias"].to(acc))  # (B,H)
     A = -torch.exp(p["A_log"].to(acc))
-    xh = x.reshape(Bsz, H, head_dim)
+    xh = reshape_heads(x, (Bsz, H, head_dim))
     dA = torch.exp(dt * A)  # (B,H)
     dBx = Bm[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]  # (B,H,N,P)
     ssm = cache["ssm"] * dA[..., None, None] + dBx

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from .layers import acc_dtype
 
@@ -35,6 +37,44 @@ def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     gate, expert_idx = torch.topk(probs, top_k, dim=-1)
     gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
     return probs, gate, expert_idx
+
+
+def _dispatch(xf: torch.Tensor, expert_idx: torch.Tensor, E: int, C: int):
+    """Tokens (G, Tg, D) and their expert ids (G, Tg, K) -> the (G, E, C, D)
+    dispatch tensor, each choice's flat row in it (G*Tg*K,) and whether the
+    choice was kept (G, Tg*K), in the tokens' dtype."""
+    G, Tg, D = xf.shape
+    K = expert_idx.shape[-1]
+    # position-in-expert via a cumsum over the (group-local) token axis,
+    # token-major and K minor; the one-hot is a comparison (no class check)
+    flat_e = expert_idx.reshape(G, Tg * K)
+    experts = torch.arange(E, device=xf.device)
+    onehot = (flat_e[..., None] == experts).to(torch.int32)  # (G, Tg*K, E)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
+    pos_in_e = torch.gather(pos, 2, flat_e[..., None])[..., 0]  # (G, Tg*K)
+    keep = (pos_in_e < C).to(xf.dtype)
+
+    # scatter-dispatch into (G, E, C, D): one flat row per (group, expert,
+    # slot). Kept choices own distinct rows; a dropped one adds zero to its
+    # expert's last row, so the adds give the reference's scatter exactly
+    # in any order
+    pos_clip = torch.clamp(pos_in_e, max=C - 1)
+    groups = torch.arange(G, device=xf.device)[:, None]
+    rows = ((groups * E + flat_e) * C + pos_clip).reshape(-1)
+    x_rep = torch.repeat_interleave(xf, K, dim=1)  # (G, Tg*K, D)
+    disp = torch.zeros((G * E * C, D), dtype=xf.dtype, device=xf.device)
+    disp.index_add_(0, rows, (x_rep * keep[..., None]).reshape(-1, D))
+    return disp.reshape(G, E, C, D), rows, keep
+
+
+def _combine(out_e: torch.Tensor, rows: torch.Tensor, keep: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """The experts' outputs (G, E, C, D) gathered back to each choice and
+    weighted by its renormalised gate: (G, Tg, D)."""
+    G, E, C, D = out_e.shape
+    Tg, K = gate.shape[1:]
+    back = out_e.reshape(G * E * C, D).index_select(0, rows).reshape(G, Tg * K, D)
+    back = back * (keep * gate.reshape(G, Tg * K).to(keep.dtype))[..., None]
+    return back.reshape(G, Tg, K, D).sum(dim=2)
 
 
 def moe_layer(
@@ -66,26 +106,20 @@ def moe_layer(
     if routes is not None:
         routes.append(expert_idx.reshape(B, S, K))
 
-    # position-in-expert via a cumsum over the (group-local) token axis,
-    # token-major and K minor; the one-hot is a comparison (no class check)
-    flat_e = expert_idx.reshape(G, Tg * K)
-    experts = torch.arange(E, device=x.device)
-    onehot = (flat_e[..., None] == experts).to(torch.int32)  # (G, Tg*K, E)
-    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
-    pos_in_e = torch.gather(pos, 2, flat_e[..., None])[..., 0]  # (G, Tg*K)
-    keep = (pos_in_e < C).to(x.dtype)
-
-    # scatter-dispatch into (G, E, C, D): one flat row per (group, expert,
-    # slot). Kept choices own distinct rows; a dropped one adds zero to its
-    # expert's last row, so the adds give the reference's scatter exactly
-    # in any order
-    pos_clip = torch.clamp(pos_in_e, max=C - 1)
-    groups = torch.arange(G, device=x.device)[:, None]
-    rows = ((groups * E + flat_e) * C + pos_clip).reshape(-1)
-    x_rep = torch.repeat_interleave(xf, K, dim=1)  # (G, Tg*K, D)
-    disp = torch.zeros((G * E * C, D), dtype=x.dtype, device=x.device)
-    disp.index_add_(0, rows, (x_rep * keep[..., None]).reshape(-1, D))
-    disp = wsc(disp.reshape(G, E, C, D), "b...")
+    if isinstance(xf, DTensor):
+        # DTensor has no sharding rule for the index operations of the
+        # dispatch and the combine (repeat_interleave, index_add_,
+        # index_select): each rank runs them on a replicated copy of their
+        # operands, and the expert products between them are sharded again
+        rep = (Replicate(),) * xf.device_mesh.ndim
+        dispatch = local_map(_dispatch, out_placements=(rep, rep, rep), in_placements=(rep, rep, None, None),
+                             redistribute_inputs=True)
+        combine = local_map(_combine, out_placements=(rep,), in_placements=(rep, rep, rep, rep),
+                            redistribute_inputs=True)
+    else:
+        dispatch, combine = _dispatch, _combine
+    disp, rows, keep = dispatch(xf, expert_idx, E, C)
+    disp = wsc(disp, "b...")
 
     # expert FFN (SwiGLU), expert dim leading
     h = F.silu(torch.einsum("gecd,edf->gecf", disp, p["w_gate"])) * torch.einsum(
@@ -93,13 +127,10 @@ def moe_layer(
     )
     h = wsc(h, "b..." if expert_parallel else "b..m")
     out_e = wsc(torch.einsum("gecf,efd->gecd", h, p["w_down"]), "b...")
-
-    # combine: gather back and weight by the renormalised gates
-    back = out_e.reshape(G * E * C, D).index_select(0, rows).reshape(G, Tg * K, D)
-    back = back * (keep * gate.reshape(G, Tg * K).to(x.dtype))[..., None]
-    y = back.reshape(G, Tg, K, D).sum(dim=2).reshape(B, S, D)
+    y = combine(out_e, rows, keep, gate).reshape(B, S, D)
 
     # auxiliary load-balancing loss (Switch): E * sum_e f_e * p_e
+    experts = torch.arange(E, device=x.device)
     frac = (expert_idx[..., 0, None] == experts).to(probs.dtype).mean(dim=(0, 1))
     mean_prob = probs.mean(dim=(0, 1))
     aux = E * torch.sum(frac * mean_prob)

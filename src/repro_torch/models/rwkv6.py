@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import acc_dtype
+from .layers import acc_dtype, reshape_heads
 
 __all__ = [
     "rwkv6_time_mix",
@@ -82,11 +82,11 @@ def rwkv6_time_mix(
     wsc = wsc or (lambda a, dims: a)
     xs = _token_shift(x, shift_prev)
     m = _mix_inputs(x, xs, p)
-    r = wsc((m["r"] @ p["w_r"]).reshape(B, S, H, hd), "b.m.").to(acc)
-    k = wsc((m["k"] @ p["w_k"]).reshape(B, S, H, hd), "b.m.").to(acc)
-    v = wsc((m["v"] @ p["w_v"]).reshape(B, S, H, hd), "b.m.").to(acc)
+    r = wsc(reshape_heads(m["r"] @ p["w_r"], (B, S, H, hd)), "b.m.").to(acc)
+    k = wsc(reshape_heads(m["k"] @ p["w_k"], (B, S, H, hd)), "b.m.").to(acc)
+    v = wsc(reshape_heads(m["v"] @ p["w_v"], (B, S, H, hd)), "b.m.").to(acc)
     g = F.silu(m["g"] @ p["w_g"])
-    logw = wsc(_decay(m["w"], p).reshape(B, S, H, hd), "b.m.")
+    logw = wsc(reshape_heads(_decay(m["w"], p), (B, S, H, hd)), "b.m.")
     u = p["u"].to(acc)  # (H, hd)
 
     L = min(chunk, S)
@@ -102,13 +102,14 @@ def rwkv6_time_mix(
 
     # -- intra-chunk scan over positions (vectorized over B, nc, H) ----------
     S_state = torch.zeros((B, nc, H, hd, hd), dtype=acc, device=x.device)
-    y_intra = torch.empty((B, nc, L, H, hd), dtype=acc, device=x.device)
+    y_intra = []
     uu = u[None, None, :, :, None]
     for t in range(L):
         r_t, k_t, v_t, w_t = rc[:, :, t], kc[:, :, t], vc[:, :, t], wc[:, :, t]  # (B,nc,H,hd)
         kv = k_t[..., :, None] * v_t[..., None, :]  # (B,nc,H,hd,hd)
-        y_intra[:, :, t] = (r_t[..., None, :] @ (S_state + uu * kv))[..., 0, :]
+        y_intra.append((r_t[..., None, :] @ (S_state + uu * kv))[..., 0, :])
         S_state = S_state * w_t[..., None] + kv
+    y_intra = torch.stack(y_intra, dim=2)  # (B,nc,L,H,hd)
     # S_state now holds each chunk's end state accumulated from zero: the
     # recurrence is linear, so the carried part is added separately
 
@@ -116,10 +117,11 @@ def rwkv6_time_mix(
     cum_w = torch.cumsum(logw, dim=2)  # (B,nc,L,H,hd)
     total_decay = torch.exp(cum_w[:, :, -1])  # (B,nc,H,hd)
     Hs = torch.zeros((B, H, hd, hd), dtype=acc, device=x.device)
-    H_prev = torch.empty((B, nc, H, hd, hd), dtype=acc, device=x.device)
+    H_prev = []
     for c in range(nc):
-        H_prev[:, c] = Hs
+        H_prev.append(Hs)
         Hs = Hs * total_decay[:, c, ..., None] + S_state[:, c]
+    H_prev = torch.stack(H_prev, dim=1)  # (B,nc,H,hd,hd)
     # carried contribution: r_t decayed from chunk start attends H_prev
     decay_from_start = torch.exp(cum_w - logw)  # exp(cum_{t-1})
     r_dec = (rc * decay_from_start).permute(0, 1, 3, 2, 4)  # (B,nc,H,L,hd)
@@ -127,7 +129,7 @@ def rwkv6_time_mix(
 
     y = (y_intra + y_inter).reshape(B, S + pad, H, hd)[:, :S]
     y = _group_norm(y, p, H, hd)
-    y = y.reshape(B, S, D).to(x.dtype) * g.to(x.dtype)
+    y = wsc(y.reshape(B, S, D), "b.m").to(x.dtype) * g.to(x.dtype)
     return y @ p["w_o"]
 
 
@@ -161,11 +163,11 @@ def rwkv6_time_mix_step(
     acc = acc_dtype(xt.dtype)
     xs = shift_prev.to(xt.dtype)
     m = _mix_inputs(xt, xs, p)
-    r = (m["r"] @ p["w_r"]).reshape(B, H, hd).to(acc)
-    k = (m["k"] @ p["w_k"]).reshape(B, H, hd).to(acc)
-    v = (m["v"] @ p["w_v"]).reshape(B, H, hd).to(acc)
+    r = reshape_heads(m["r"] @ p["w_r"], (B, H, hd)).to(acc)
+    k = reshape_heads(m["k"] @ p["w_k"], (B, H, hd)).to(acc)
+    v = reshape_heads(m["v"] @ p["w_v"], (B, H, hd)).to(acc)
     g = F.silu(m["g"] @ p["w_g"])
-    w = torch.exp(_decay(m["w"], p).reshape(B, H, hd))
+    w = torch.exp(reshape_heads(_decay(m["w"], p), (B, H, hd)))
     u = p["u"].to(acc)
 
     kv = k[..., :, None] * v[..., None, :]

@@ -34,12 +34,14 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, get_config
 from ..device import resolve_device
+from ..launch.mesh import current_mesh, mesh_axis_sizes
 from .attention import chunked_attention, decode_attention
-from .layers import acc_dtype, apply_rope, mlp, mrope_freqs, norm, rope_freqs
+from .layers import acc_dtype, apply_rope, mlp, mrope_freqs, norm, reshape_heads, rope_freqs
 from .mamba2 import mamba2_decode_step, mamba2_forward, mamba2_init_cache
 from .moe import moe_layer
 from .rwkv6 import rwkv6_channel_mix, rwkv6_channel_mix_step, rwkv6_init_cache, rwkv6_time_mix, rwkv6_time_mix_step
@@ -235,10 +237,10 @@ def _attention_block(cfg: ArchConfig, x, p, cos, sin, dist: "DistContext", *, ca
     B, S, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     kv_dims = "b.m." if (dist.model_size > 1 and Hkv % dist.model_size == 0) else "b..."
-    q = dist.wsc(_qkv(cfg, x, p, "q").reshape(B, S, H, hd), "b.m.")
+    q = dist.wsc(reshape_heads(_qkv(cfg, x, p, "q"), (B, S, H, hd)), "b.m.")
     if kv_override is None:
-        k = dist.wsc(_qkv(cfg, x, p, "k").reshape(B, S, Hkv, hd), kv_dims)
-        v = dist.wsc(_qkv(cfg, x, p, "v").reshape(B, S, Hkv, hd), kv_dims)
+        k = dist.wsc(reshape_heads(_qkv(cfg, x, p, "k"), (B, S, Hkv, hd)), kv_dims)
+        v = dist.wsc(reshape_heads(_qkv(cfg, x, p, "v"), (B, S, Hkv, hd)), kv_dims)
         if cos is not None:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     else:
@@ -247,7 +249,10 @@ def _attention_block(cfg: ArchConfig, x, p, cos, sin, dist: "DistContext", *, ca
             q = apply_rope(q, cos, sin)
     out = chunked_attention(q, k, v, causal=causal and kv_override is None, window=cfg.sliding_window)
     out = dist.wsc(out, "b.m.")
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    # the merged heads sharded on the model axis: where the heads could not
+    # be (14 on 16), the backward pass then gathers the gradient before it
+    # splits it into heads again
+    return dist.wsc(out.reshape(B, S, H * hd), "b.m") @ p["wo"]
 
 
 def _dense_layer(cfg: ArchConfig, x, layer: DenseLayer, cos, sin, dist):
@@ -307,8 +312,11 @@ class DistContext:
     the backward pass instead of keeping its activations, at the reference's
     granularity (``_remat``); it applies only where grad mode is on, so
     prefill and decode never pay for it. ``wsc`` is the identity when no
-    axis is configured (one device); a context with axes raises
-    ``NotImplementedError`` until the port's sharding slice.
+    axis is configured (one device). A context with axes is active: the
+    parameters and inputs are DTensors placed by
+    ``repro_torch.sharding.specs``, the model runs inside
+    ``repro_torch.launch.mesh.mesh_scope``, and ``wsc`` redistributes each
+    constrained tensor on that mesh.
     """
 
     n_token_groups: int = 1
@@ -326,12 +334,25 @@ class DistContext:
 
     def wsc(self, x: torch.Tensor, dims: str) -> torch.Tensor:
         """Constrain: dims is a string of 'b' (batch axes), 'm' (model axis),
-        '.' (unsharded) per tensor dimension, e.g. "b.m." for (B,S,H,d)."""
+        '.' (unsharded) per tensor dimension, e.g. "b.m." for (B,S,H,d).
+        Under an active context ``x`` must be a DTensor, and the model runs
+        inside ``repro_torch.launch.mesh.mesh_scope(mesh)`` (the reference's
+        ``with mesh:``): ``x`` is redistributed on that mesh to those
+        placements. An axis whose size does not divide its dimension is
+        left out (replicated), as ``_sanitize`` leaves it out of an explicit
+        sharding."""
         if not self.active:
             return x
-        raise NotImplementedError(
-            "sharding constraints need the port's sharding slice (repro.sharding.specs)"
-        )
+        from ..sharding.specs import _sanitize, to_placements  # imports this module (through convert)
+
+        mesh = current_mesh()
+        if mesh is None or not isinstance(x, DTensor):
+            raise NotImplementedError("an active DistContext constrains DTensors inside "
+                                      "repro_torch.launch.mesh.mesh_scope: place the parameters and inputs on "
+                                      "its mesh (repro_torch.sharding.specs)")
+        batch = self.batch_axes if len(self.batch_axes) != 1 else self.batch_axes[0]
+        spec = tuple({"b": batch or None, "m": self.model_axis}.get(d) for d in dims)
+        return x.redistribute(mesh, to_placements(_sanitize(spec, tuple(x.shape), mesh_axis_sizes(mesh)), mesh))
 
 
 def _remat(dist: DistContext, fn, *args):
@@ -385,8 +406,9 @@ def encoder_forward(model: "Model", enc_embeds: torch.Tensor) -> torch.Tensor:
 
 def _cross_kv(cfg: ArchConfig, enc: torch.Tensor, cross: CrossLayer):
     B = enc.shape[0]
-    ek = (enc @ cross.attn["wk"]).reshape(B, -1, cfg.n_kv, cfg.hd)
-    ev = (enc @ cross.attn["wv"]).reshape(B, -1, cfg.n_kv, cfg.hd)
+    T = enc.shape[1]
+    ek = reshape_heads(enc @ cross.attn["wk"], (B, T, cfg.n_kv, cfg.hd))
+    ev = reshape_heads(enc @ cross.attn["wv"], (B, T, cfg.n_kv, cfg.hd))
     return ek, ev
 
 
@@ -446,7 +468,9 @@ def logits_from_hidden(model: "Model", h: torch.Tensor) -> torch.Tensor:
 def _chunk_nll(model: "Model", hch: torch.Tensor, lch: torch.Tensor, acc: torch.dtype):
     """One chunk's summed negative log-likelihood over its valid labels
     (``>= 0``), and their count."""
-    logits = logits_from_hidden(model, hch).to(acc)
+    # vocab replicated: DTensor's gather of a vocab-sharded tensor leaves a
+    # masked partial that its later reduction cannot take
+    logits = model.dist.wsc(logits_from_hidden(model, hch).to(acc), "b..")
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, lch.clamp(min=0)[..., None].long())[..., 0]
     valid = (lch >= 0).to(acc)
@@ -532,6 +556,18 @@ def fill_cross_cache(model: "Model", cache: dict, enc_embeds: torch.Tensor) -> d
     return cache
 
 
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor, dist: "DistContext") -> None:
+    """Write ``new`` (B, 1, Hkv, d) into slot ``slot`` of ``cache`` (B, T,
+    Hkv, d) in place. Under an active context the write selects over the
+    whole cache: DTensor's ``index_copy_`` cannot write a sharded cache in
+    place (it leaves the shard's placement wrong)."""
+    if dist.active:
+        hit = torch.arange(cache.shape[1], device=slot.device) == slot
+        cache.copy_(torch.where(hit[None, :, None, None], new.to(cache.dtype), cache))
+    else:
+        cache.index_copy_(1, slot.reshape(1).long(), new.to(cache.dtype))
+
+
 def _decode_attn(cfg: ArchConfig, x, p, kc, vc, cos, sin, fill, slot, dist: "DistContext"):
     """One-token attention against a ring-buffer cache: the new KV pair is
     written in place to slot ``pos mod T`` of this layer's cache view (one
@@ -540,18 +576,17 @@ def _decode_attn(cfg: ArchConfig, x, p, kc, vc, cos, sin, fill, slot, dist: "Dis
     the window). No rotation where ``cos`` is None."""
     B, _, D = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = _qkv(cfg, x, p, "q").reshape(B, 1, H, hd)
-    k = _qkv(cfg, x, p, "k").reshape(B, 1, Hkv, hd)
-    v = _qkv(cfg, x, p, "v").reshape(B, 1, Hkv, hd)
+    q = reshape_heads(_qkv(cfg, x, p, "q"), (B, 1, H, hd))
+    k = reshape_heads(_qkv(cfg, x, p, "k"), (B, 1, Hkv, hd))
+    v = reshape_heads(_qkv(cfg, x, p, "v"), (B, 1, Hkv, hd))
     if cos is not None:
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    _write_slot(kc, k, slot, dist)
+    _write_slot(vc, v, slot, dist)
     if dist.decode_seq_shard:
         q = dist.wsc(q, "b...")
         kc = dist.wsc(kc, "bm..")
         vc = dist.wsc(vc, "bm..")
-    index = slot.reshape(1).long()
-    kc.index_copy_(1, index, k.to(kc.dtype))
-    vc.index_copy_(1, index, v.to(vc.dtype))
     out = decode_attention(q, kc, vc, window=cfg.sliding_window, fill=fill, slot=slot)
     return out.reshape(B, 1, H * hd) @ p["wo"]
 
@@ -624,7 +659,7 @@ def decode_step(model: "Model", token: torch.Tensor, cache: dict, batch_extras: 
             h = norm(x, layer.ln1, cfg.norm)
             x = x + _decode_attn(cfg, h, layer.attn, cache["k"][i], cache["v"][i], None, None, fill, slot, dist)
             hq = norm(x, cross.ln, cfg.norm)
-            q = (hq @ cross.attn["wq"]).reshape(B, 1, H, hd)
+            q = reshape_heads(hq @ cross.attn["wq"], (B, 1, H, hd))
             xatt = decode_attention(q, cache["ek"][i], cache["ev"][i])
             x = x + xatt.reshape(B, 1, H * hd) @ cross.attn["wo"]
             h = norm(x, layer.ln2, cfg.norm)

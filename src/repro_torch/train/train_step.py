@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.zoo import Model
 from .optimizer import AdamWConfig, adamw_update
@@ -31,6 +32,15 @@ def _grads(model: Model, batch: dict) -> tuple[torch.Tensor, dict]:
     for p in params.values():
         p.grad = None
     return loss.detach(), grads
+
+
+def _rows(x: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Rows ``start:stop`` of ``x``. DTensor returns the rows of a batch
+    sharded on them replicated: they are sharded again as the batch was."""
+    part = x[start:stop]
+    if isinstance(part, DTensor):
+        part = part.redistribute(x.device_mesh, x.placements)
+    return part
 
 
 def make_train_step(
@@ -61,7 +71,7 @@ def make_train_step(
             if rows % microbatches:
                 raise ValueError(f"a batch of {rows} rows does not split into {microbatches} microbatches")
             n = rows // microbatches
-            mbs = [{k: x[i * n : (i + 1) * n] for k, x in batch.items()} for i in range(microbatches)]
+            mbs = [{k: _rows(x, i * n, (i + 1) * n) for k, x in batch.items()} for i in range(microbatches)]
             g_acc = {k: torch.zeros_like(m) for k, m in opt_state["master"].items()}
             loss = 0.0
             for mb in mbs:

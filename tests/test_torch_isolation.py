@@ -72,6 +72,7 @@ COPIED = [
     "configs/whisper_small.py",
     "launch/__init__.py",
     "launch/perf_model.py",
+    "sharding/__init__.py",
     "train/data.py",
     "train/moe_balance.py",
     "train/elastic.py",
@@ -93,7 +94,7 @@ SMALL = dict(root_grid=(1, 1, 1), cells_per_block=(4, 4, 4), max_level=1, nranks
 def test_import_leaves_jax_and_repro_unloaded():
     """Importing the port, its analyzer, its LM path (configs, models, the
     parameter converter, ``train`` with its checkpoints and expert
-    placement, ``launch.perf_model``), the
+    placement, ``launch`` with the dry run and step analysis, ``sharding``), the
     cavity CLI, the example twins, the port's lint driver and
     ``tools/trace_report.py`` loads neither jax nor any module of the JAX
     package."""
@@ -104,7 +105,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.analysis, repro_torch.analysis.engine_plans",
         "import repro_torch.configs, repro_torch.models.zoo, repro_torch.models.convert, repro_torch.train",
         "import repro_torch.train.checkpoint, repro_torch.train.moe_balance",
-        "import repro_torch.launch.perf_model",
+        "import repro_torch.launch.perf_model, repro_torch.launch.mesh, repro_torch.launch.inputs",
+        "import repro_torch.launch.step_analysis, repro_torch.launch.dryrun, repro_torch.sharding.specs",
         f"for i, path in enumerate({[str(p) for p in scripts]!r}):",
         "    spec = importlib.util.spec_from_file_location(f'script{i}', path)",
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",

@@ -267,15 +267,23 @@ def test_loss_decreases_on_structured_data():
     assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
 
 
-def test_microbatch_accumulation_matches_full_batch():
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-moe-1b-a400m"])
+def test_microbatch_accumulation_matches_full_batch(arch):
     """The port of ``tests/test_train.py``'s leg of the same name, with its
-    tolerances; and the microbatched step against the reference's."""
-    pair = Pair("olmo-1b", remat=False)
+    tolerances; and the microbatched step against the reference's. A moe
+    arch's expert capacity and balance loss follow the split, so its 1- and
+    2-microbatch losses differ in the reference too (by 0.029 here): each
+    is held against the reference's at the same count instead."""
+    pair = Pair(arch, remat=False)
     batch = next(SyntheticTokenPipeline(vocab=pair.cfg.vocab, seq_len=16, global_batch=4).batches(1))
     m1, m2 = pair.tm, copy.deepcopy(pair.tm)
     _, (l1,) = _port_steps(m1, [batch], 1, lr=1e-3)
     _, (l2,) = _port_steps(m2, [batch], 2, lr=1e-3)
-    assert abs(l1 - l2) < 2e-3
+    if pair.cfg.family == "moe":
+        _, _, (jl1,) = _jax_steps(pair, [batch], 1, lr=1e-3)
+        assert abs(l1 - jl1) <= LOSS_ABS
+    else:
+        assert abs(l1 - l2) < 2e-3
     for a, c in zip(m1.parameters(), m2.parameters()):
         np.testing.assert_allclose(a.detach().numpy(), c.detach().numpy(), rtol=2e-2, atol=2e-4)
     _, _, (jl2,) = _jax_steps(pair, [batch], 2, lr=1e-3)

@@ -9,15 +9,17 @@ finding per line:
 1. card and build: ``nvidia-smi`` name and power limit; ``nvcc`` builds the
    stencil and ghost-fill kernels from
    ``src/repro_torch/kernels/lbm_collide/csrc``; ``-Xptxas -v`` lines and,
-   for every instantiation (f32/f64 x D3Q19/D3Q27 x BGK/TRT stencils,
-   copy/fine/values fills), registers, local (spill) bytes, shared memory
-   and theoretical occupancy. The f32 D3Q19 TRT stencil must keep at least
+   for every instantiation (f32/f64 x D3Q19/D3Q27 x BGK/TRT stencils, solo,
+   over a slot list, over members, through a halo map and through a halo
+   map over members; copy/fine/values fills), registers, local (spill)
+   bytes, shared memory and theoretical occupancy. The f32 D3Q19 TRT stencil must keep at least
    50 % occupancy, and no instantiation may spill to local memory.
 2. main paths, the "full cavity": ``AMRLBM(LidDrivenCavityConfig(...)).run``
    on the hand-written kernels, D3Q19 TRT f32, 32^3 cells a block (34^3
    with the ghost layer), 4^3 roots, up to level 2, 4 ranks, 12 coarse
-   steps with AMR every 4, in ``fused`` mode (every level's ghost fill from
-   its sources, then every level's stencil, each substep), in ``arena``
+   steps with AMR every 4, in ``fused`` mode (each level with a ghost fill
+   one launch of the stencil's halo route, which reads every ghost value
+   from its source in the substep's pre-step buffers), in ``arena``
    mode (the stencil kernel), in ``fused_sharded`` mode (per rank: the
    emit gathers, the local fills from sources, the inbound messages through
    the fill's ``values`` kind, and the stencil over the interior, then the
@@ -35,8 +37,9 @@ finding per line:
    and messages per substep must equal ``fused_sharded``'s ``Comm``
    numbers, and every rank's device must hold the same bytes.
    ``torch.profiler`` breakdowns of 2 steady coarse steps: ``fused`` must
-   hold no index gather, no ``cat`` and one fill launch per (level,
-   segment) a substep; ``fused_sharded`` no scatter, the fill launches by
+   hold no index gather, no ``cat``, no fill launch and one halo-route
+   launch per filled active level a substep; ``fused_sharded`` no scatter,
+   the fill launches by
    kind its programs count, the slot-list stencil, and its ``Comm`` bytes
    and messages per substep; ``device_sharded`` no scatter and the fill
    launches its superstep counts, with its launches by kind (stencils,
@@ -53,8 +56,9 @@ finding per line:
    one ``SimulationService``, 8 coarse steps each with AMR every 4. Launch
    counts are zeroed just before the service and read just after. The
    batch must form one ensemble, split at an AMR event, build at most one
-   program per (topology, level set) key, launch every stencil and fill
-   through the kernels' member axis, and end with every member's forest
+   program per (topology, level set) key, launch every stencil through the
+   kernel's member axis (the halo route where a level has a fill) and no
+   fill, and end with every member's forest
    and block interiors bitwise those of a solo ``fused`` run of its config.
    Then, from the state after the first event, the batch's groups against
    the four solo runs: program builds, first steps with their uploads, two
@@ -154,12 +158,21 @@ finding per line:
 6. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
-   the stencil; the padded-slab form once; the stencil over a real rank's
+   the stencil, that fill split by destination class (x face, y row, z
+   face, edge or corner) and segment kind with each sub-table timed alone
+   beside a ``Tensor.copy_`` of its value bytes, and the stencil's halo
+   route on the same level (bitwise the fill then the stencil), and every
+   filled level's route against its fill then stencil (a level with fine
+   rows also through its fine segment alone and its other segments alone);
+   the padded-slab form once; the stencil over a real rank's
    boundary slot list (bitwise the whole-stack kernel's blocks); the
    ``values`` fill of a real rank message segment (bitwise the plain
    scatter; kernel, plain version and ``Tensor.index_put_`` each timed as
-   the median of 50 single launches, taken in turn); the member stencil over M = 4 states of the level-2 stack and
-   the level-2 fill for 4 members (each bitwise M solo launches). Then small D3Q27 / BGK / f64 / odd-extent cases for the
+   the median of 50 single launches, taken in turn); the member stencil
+   over M = 4 states of the level-2 stack, the level-2 fill for 4 members
+   (each bitwise M solo launches), and the member halo route (bitwise M
+   solo halo launches and the member fill then the member stencil). Then
+   small D3Q27 / BGK / f64 / odd-extent cases for the
    stencil and every fill segment kind (``same``, ``coarse``, ``fine``) in
    f32/f64 x D3Q19/D3Q27. Max error, kernel time, plain time and the bound.
 7. cross-check at a smaller depth: ``restack``, ``arena``, ``fused``,
@@ -177,12 +190,16 @@ finding per line:
 ``python3 chip_smoke.py --only lm,lm-families,lm-train,lm-dist`` runs just the
 named LM phases, in that order, and ends with their JSON lines and the
 ``ok`` line. The serving phases build no autograd graph.
+``python3 chip_smoke.py --only cavity`` runs phases 1, 2 to 2c and 6 and
+ends with the card line, the ``kernels`` line and the ``ok`` line (no LM
+phase, no phase 7).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import math
@@ -419,15 +436,90 @@ def fill_traffic(tables, cells: int) -> dict:
                 rows_by_kind={t.kind: t.dst_slot.numel() for t in tables})
 
 
+# a stencil instantiation's demangled name: its SLOTS, MEMBERS and HALO
+STENCIL_NAME = re.compile(r"stream_collide_kernel<[^,>]+, *\d+, *(?:true|false), *(true|false), *(true|false), "
+                          r"*(true|false)>")
+FILL_CLASSES = ("x-face", "y-row", "z-face", "edge/corner")
+
+
+def fill_classes(tables, dims) -> dict:
+    """A level's fill tables split by the class of each row's ghost cell (on
+    the x, y or z face alone, or on two or three faces: an edge or a
+    corner) and by segment kind: ``{(class, kind): FillTable}``, rows in
+    their sorted order."""
+    import dataclasses
+
+    X, Y, Z = dims
+    out = {}
+    for t in tables:
+        x, rest = np.divmod(t.dst_cell.cpu().numpy(), Y * Z)
+        y, z = np.divmod(rest, Z)
+        on = ((x == 0) | (x == X - 1), (y == 0) | (y == Y - 1), (z == 0) | (z == Z - 1))
+        n_on = on[0].astype(int) + on[1] + on[2]
+        cls = np.where(n_on >= 2, 3, np.where(on[0], 0, np.where(on[1], 1, 2)))
+        for c, name in enumerate(FILL_CLASSES):
+            sel = torch.as_tensor(np.flatnonzero(cls == c), device=t.dst_slot.device)
+            if sel.numel():
+                out[name, t.kind] = dataclasses.replace(
+                    t, **{k: getattr(t, k)[sel].contiguous() for k in ("dst_slot", "dst_cell", "src_slot", "src_cell")})
+    return out
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in float64, slice by slice along the first axis for a
+    tensor of more than 2**27 elements (a member stack's float64 copies
+    would take tens of GB)."""
+    if a.dim() > 1 and a.numel() > 1 << 27:
+        return max(max_err(x, y) for x, y in zip(a, b))
     return float((a.double() - b.double()).abs().max())
 
 
-def device_profile(run, host_rows: list | None = None) -> tuple[list, float, float]:
+def device_profile(run, host_rows: list | None = None, attempts: int = 3,
+                   events: bool = False) -> tuple[list | None, float, float]:
     """``torch.profiler`` over ``run()`` (which must end in a device
     synchronize): (kernel rows (name, device ms, count) by time, device
     busy ms, wall ms). With ``host_rows``, the host's operators (name, self
-    CPU ms, count) by time are appended to it."""
+    CPU ms, count) by time are appended to it. A profile that recorded no
+    device activity is taken again, up to ``attempts`` times in all (the
+    profiler has been seen to drop a short run's kernels). If none records
+    any, the script fails; with ``events``, ``run()`` is timed once more
+    with CUDA events instead, and the result is (None, the events' device
+    ms from the first launch to the last end, wall ms)."""
+    for attempt in range(attempts):
+        rows, busy, wall = _device_profile(run, host_rows)
+        if busy > 0:
+            return rows, busy, wall
+        say(f"  (profile attempt {attempt + 1} recorded no device time; taken again)")
+    check(events, f"the profiler recorded device time in one of {attempts} attempts")
+    say(f"  (no device time in {attempts} profiles; timed with CUDA events instead)")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return None, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def aten_ops(run) -> Counter:
+    """The PyTorch operators that ``run()`` dispatches, by name: a host-side
+    view of what it asks the card to do, which needs no profiler."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = Counter()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        run()
+    return seen
+
+
+def _device_profile(run, host_rows: list | None = None) -> tuple[list, float, float]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1503,7 +1595,10 @@ def lm_dist_phase() -> dict:
     return out
 
 
-def main() -> int:
+def main(lm: bool = True) -> int:
+    """The whole script; ``lm=False`` (``--only cavity``) runs phases 1, 2 to
+    2c and 6 and prints the kernels line, without the LM phases 3 to 5 and
+    the cross-check of phase 7."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1529,6 +1624,7 @@ def main() -> int:
         _same_fill,
         boundary_slot_sets,
         fill_tables,
+        halo_map,
         make_stream_collide,
     )
     from repro_torch.kernels.lbm_collide.ref import (
@@ -1551,6 +1647,8 @@ def main() -> int:
         out = {fn.__name__: fn.launches for fn in (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)}
         out["lbm_stream_collide[slots]"] = lbm_stream_collide.slot_launches
         out["lbm_stream_collide[members]"] = lbm_stream_collide.member_launches
+        out["lbm_stream_collide[halo]"] = lbm_stream_collide.halo_launches
+        out["lbm_stream_collide[halo+members]"] = lbm_stream_collide.halo_member_launches
         out.update({f"lbm_halo_fill[{k}]": n for k, n in lbm_halo_fill.kind_launches.items()})
         out["lbm_halo_fill[members]"] = sum(n for k, n in lbm_halo_fill.kind_launches.items() if k.endswith("+members"))
         return out
@@ -1573,7 +1671,7 @@ def main() -> int:
         check(bool(re.search(r"bytes spill stores", log)), "ptxas reported its spills")
     attrs = kernel_attributes()
     for r in attrs:
-        say(f"  kernel {r['kernel']:7s} {r['variant']:6s} {r['dtype']} Q={r['Q']}: "
+        say(f"  kernel {r['kernel']:7s} {r['variant']:16s} {r['dtype']} Q={r['Q']}: "
             f"{r['registers']} registers, {r['local_bytes']} local (spill) bytes, {r['shared_bytes']} shared bytes, "
             f"{r['ctas_per_sm']} CTAs of 256 per SM, occupancy {r['occupancy']:.1%}")
     # the f32 D3Q19 stencils are capped at 64 registers (4 CTAs of 256
@@ -1588,6 +1686,8 @@ def main() -> int:
                           and r["dtype"] == "f32" and r["Q"] == 19)
     main_fills = [r for r in attrs if r["kernel"] == "fill" and r["dtype"] == "f32" and r["Q"] == 19
                   and r["variant"] in ("copy", "fine")]
+    halo_stencils = {v: next(r for r in attrs if r["kernel"] == "stencil" and r["variant"] == v
+                             and r["dtype"] == "f32" and r["Q"] == 19) for v in ("trt+halo", "trt+halo+members")}
 
     # -- 2. main paths: the full cavity, fused, arena and fused_sharded -----------
     def blocks_per_level(sim) -> dict:
@@ -1707,8 +1807,10 @@ def main() -> int:
     # fused_sharded runs, read in phase 2c
     protocol_at = {"fused": [], "fused_sharded": []}
     sim, fused_launches, fused_forests, _ = drive_cavity("fused", protocol=protocol_at["fused"])
-    check(fused_launches["lbm_halo_fill"] > 0, "the fill kernel launched on the fused path")
-    check(fused_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the fused path")
+    check(fused_launches["lbm_stream_collide[halo]"] > 0, "the stencil's halo route launched on the fused path")
+    check(fused_launches["lbm_halo_fill"] == 0, "no separate fill launched on the fused path")
+    check(fused_launches["lbm_stream_collide"] >= fused_launches["lbm_stream_collide[halo]"],
+          "the halo route counts among the stencil's launches")
     _arena_sim, arena_launches, _, _ = drive_cavity("arena")
     check(arena_launches["lbm_stream_collide"] > 0, "the stencil kernel launched on the arena path")
     del _arena_sim
@@ -1756,7 +1858,7 @@ def main() -> int:
 
     # where a steady fused coarse step spends device time, by kernel name
     sim.advance(1)  # the superstep is rebuilt after the last AMR event
-    fill_segments = sim.engine._fused_program()[0].fill_segments
+    halo_steps = sim.engine._fused_program()[0].halo_steps
     rows, busy_ms, wall_ms = device_profile(lambda: sim.advance(2))  # ends in a device synchronize
     say(f"[fused] profile of 2 steady coarse steps: device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall, idle share {1 - busy_ms / wall_ms:.1%}")
@@ -1765,9 +1867,11 @@ def main() -> int:
     banned = [r[0] for r in rows if re.search(r"index|gather|scatter|cat", r[0], re.IGNORECASE)]
     check(not banned, f"no index gather, scatter or cat in the steady fused step: {banned}")
     fills_seen = sum(r[2] for r in rows if "halo_fill_kernel" in r[0])
-    say(f"[fused] fill launches in 2 steady coarse steps: {fills_seen} "
-        f"(one per (active level, segment) a substep: {2 * fill_segments})")
-    check(fills_seen == 2 * fill_segments, "one fill launch per (active level, segment) a substep")
+    halo_seen = sum(r[2] for r in rows if STENCIL_NAME.search(r[0]) and STENCIL_NAME.search(r[0]).group(3) == "true")
+    say(f"[fused] fill launches in 2 steady coarse steps: {fills_seen}; halo-route stencil launches {halo_seen} "
+        f"(one per filled active level a substep: {2 * halo_steps})")
+    check(fills_seen == 0 and halo_seen == 2 * halo_steps,
+          "zero fill launches and one halo launch per filled active level a substep")
 
     # the superstep's rebuild after an AMR event (host work): whole, then
     # piece by piece on the same forest
@@ -1833,7 +1937,7 @@ def main() -> int:
     group_ms = Counter()
     for name, ms, count in fs_rows:
         m_fill = re.search(r"halo_fill_kernel<[^,>]+, *\d+, *(\d)>", name)
-        m_sten = re.search(r"stream_collide_kernel<[^,>]+, *\d+, *(?:true|false), *(true|false), *(?:true|false)>", name)
+        m_sten = STENCIL_NAME.search(name)
         if m_fill:
             key = "fill " + ("copy", "fine", "values")[int(m_fill.group(1))]
         elif m_sten:
@@ -2044,8 +2148,9 @@ def main() -> int:
     check(summary["compile_misses"] <= len(keys), "one program per distinct (topology, level set) key at most")
     check(serving_launches["lbm_stream_collide[members]"] == serving_launches["lbm_stream_collide"] > 0,
           "every stencil launch of the service went through the member axis")
-    check(serving_launches["lbm_halo_fill[members]"] == serving_launches["lbm_halo_fill"] > 0,
-          "every fill launch of the service went through the member axis")
+    check(serving_launches["lbm_halo_fill"] == 0, "the service launched no separate fill")
+    check(serving_launches["lbm_stream_collide[halo+members]"] == serving_launches["lbm_stream_collide[halo]"] > 0,
+          "every halo-route launch of the service went through the member axis")
     for i, job in enumerate(jobs):
         check(member_forests[i] == solo_refs[i]["forests"], f"member {i + 1} grew its solo run's forest at every event")
         got, want = interiors(job.sim), solo_refs[i]["interiors"]
@@ -2093,8 +2198,9 @@ def main() -> int:
             reset_launches()
             e.advance(1)
             batched_step_launches = launch_counts()
-            b_rows, b_busy, b_wall = device_profile(lambda: e.advance(2))
-            batched_fill_segments = e._program()[0].fill_segments
+            b_rows, b_busy, b_wall = device_profile(lambda: e.advance(2), events=True)
+            b_ops = aten_ops(lambda: e.advance(2))
+            batched_halo_steps = e._program()[0].halo_steps
         del e, sims
     solo_s = solo_updates = 0
     for i in range(len(members)):
@@ -2113,7 +2219,7 @@ def main() -> int:
             reset_launches()
             s.advance(1)
             solo_step_launches = launch_counts()
-            s_rows, s_busy, s_wall = device_profile(lambda: s.advance(2))
+            s_rows, s_busy, s_wall = device_profile(lambda: s.advance(2), events=True)
         del s
     del states_after_first
     say("[serving] program builds after the first event (s), per batched group and per solo member:",
@@ -2121,7 +2227,7 @@ def main() -> int:
         f"(batched {sum(v for k, v in build_s.items() if k[0] == 'batched'):.3f} s in all, solo "
         f"{sum(v for k, v in build_s.items() if k[0] == 'solo'):.3f} s); first coarse step with its upload (s):",
         json.dumps({f"{k[0]} {k[1]}": round(v, 3) for k, v in first_s.items()}))
-    step_keys = ("lbm_halo_fill", "lbm_stream_collide")
+    step_keys = ("lbm_stream_collide", "lbm_stream_collide[halo]")
     # all four members on the roots (before the first event): one batched
     # coarse step of M = 4 against one solo step
     roots = [AMRLBM(serving_cfg("arena", over)) for over in members]
@@ -2140,29 +2246,41 @@ def main() -> int:
     say(f"[serving] launches of one coarse step on the 64 roots: batched ({len(members)} members) "
         f"{json.dumps({k: roots_batched[k] for k in step_keys})}, one solo fused member "
         f"{json.dumps({k: roots_solo[k] for k in step_keys})}")
-    check(all(roots_batched[k] == roots_solo[k] > 0 for k in step_keys),
+    check(all(roots_batched[k] == roots_solo[k] > 0 for k in step_keys)
+          and roots_batched["lbm_halo_fill"] == roots_solo["lbm_halo_fill"] == 0,
           "a batched coarse step of all members launches what one solo fused coarse step launches")
     say(f"[serving] launches of one steady coarse step on the forest {json.dumps(big_forest)}: batched "
         f"({len(big)} members) {json.dumps({k: batched_step_launches[k] for k in step_keys})}, one solo fused member "
         f"{json.dumps({k: solo_step_launches[k] for k in step_keys})}")
     check(all(batched_step_launches[k] == solo_step_launches[k] > 0 for k in step_keys),
           "a batched coarse step launches what one solo fused coarse step launches")
-    check(batched_step_launches["lbm_halo_fill"] == batched_fill_segments, "one fill launch per (level, segment) a substep")
+    check(batched_step_launches["lbm_halo_fill"] == 0
+          and batched_step_launches["lbm_stream_collide[halo+members]"] == batched_halo_steps,
+          "zero fill launches and one halo launch per filled active level a substep")
     batched_rate = batched_member_steps / batched_s
     solo_rate = 2 * len(members) / solo_s
     say(f"[serving] steady member-coarse-steps/s from the state after the first event (groups "
         f"{[len(v) for v in groups.values()]}): batched {batched_rate:.3f} ({batched_updates / batched_s / 1e6:.1f} MLUPS), "
         f"the {len(members)} solo fused runs back to back {solo_rate:.3f} ({solo_updates / solo_s / 1e6:.1f} MLUPS), "
         f"ratio {batched_rate / solo_rate:.3f}")
-    say(f"[serving] profile of 2 steady batched coarse steps ({len(big)} members): device busy {b_busy:.3f} ms of "
-        f"{b_wall:.3f} ms wall, idle share {1 - b_busy / b_wall:.1%}; one solo member: {s_busy:.3f} ms of "
-        f"{s_wall:.3f} ms wall, idle share {1 - s_busy / s_wall:.1%}; device time ratio {b_busy / s_busy:.3f}")
+    def device_time(rows_, busy, wall):
+        if rows_ is None:
+            return f"{busy:.3f} ms from first launch to last end by CUDA events (no profile) of {wall:.3f} ms wall"
+        return f"device busy {busy:.3f} ms of {wall:.3f} ms wall, idle share {1 - busy / wall:.1%}"
+
+    say(f"[serving] profile of 2 steady batched coarse steps ({len(big)} members): {device_time(b_rows, b_busy, b_wall)}; "
+        f"one solo member: {device_time(s_rows, s_busy, s_wall)}"
+        + (f"; device time ratio {b_busy / s_busy:.3f}" if (b_rows is None) == (s_rows is None) else ""))
     for label, rows_, busy in (("batched", b_rows, b_busy), ("solo", s_rows, s_busy)):
+        if rows_ is None:
+            continue
         say(f"[serving] {label}: {sum(r[2] for r in rows_)} kernels in the profile "
             f"(the launch counts say {2 * sum(batched_step_launches[k] for k in step_keys)})")
         for name, ms, count in rows_[:8]:
             say(f"  {ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} {name[:110]}")
-    banned = [r[0] for r in b_rows if re.search(r"index|gather|scatter|cat", r[0], re.IGNORECASE)]
+    banned = [name for name in [*(r[0] for r in b_rows or ()), *b_ops]
+              if re.search(r"index|gather|scatter|cat", name, re.IGNORECASE)]
+    say(f"[serving] PyTorch operators of 2 steady batched coarse steps: {json.dumps(dict(b_ops))}")
     check(not banned, f"no index gather, scatter or cat in the steady batched step: {banned}")
 
     # elastic resize at the cross-check's depth: fused_sharded resized 4 -> 2
@@ -2320,16 +2438,23 @@ def main() -> int:
     say(f"[analysis] phase 2c wall time {time.perf_counter() - t_phase:.2f} s (plus phase 2's protocol checks, "
         f"{sum(sec for runs_ in protocol_at.values() for _, _, sec in runs_[:2]):.3f} s)")
 
-    # -- 3. the LM scaffold's serving path at full width --------------------------
-    lm_serve = lm_serving_phase()
-    # -- 3b. the moe, ssm, hybrid and audio families at full width ---------------
-    lm_families = lm_families_phase()
-    # -- 4. the LM training path at full width ------------------------------------
-    lm_train = lm_train_phase()
-    # -- 5. the LM distribution layer on a one-rank NCCL mesh ---------------------
-    lm_dist = lm_dist_phase()
+    lm_lines = []
+    if lm:
+        # -- 3. the LM scaffold's serving path at full width ----------------------
+        lm_lines.append({"lm_serve": lm_serving_phase()})
+        # -- 3b. the moe, ssm, hybrid and audio families at full width -----------
+        lm_lines.append({"lm_families": lm_families_phase()})
+        # -- 4. the LM training path at full width --------------------------------
+        lm_lines.append({"lm_train": lm_train_phase()})
+        # -- 5. the LM distribution layer on a one-rank NCCL mesh -----------------
+        lm_lines.append({"lm_dist": lm_dist_phase()})
 
     # -- 6. kernels against their plain versions, main-path shapes ---------------
+    gc.collect()  # reference cycles of earlier phases' models
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem6 = torch.cuda.memory_allocated()
+    say(f"phase 6 starts with {mem6 / 1e9:.3f} GB allocated on the card")
     lattice = sim.spec.lattice
     kw_l = {l: dict(omega=omega_for_level(cfg.omega, l), lattice=lattice,
                     u_wall=cfg.u_lid, collision=cfg.collision) for l in levels}
@@ -2432,6 +2557,101 @@ def main() -> int:
         f"kernels {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_by}; "
         f"{k2_extra / 1e9:+.4f} GB beside the stencil's), {k2_bound_ms / k2_ms:.1%} of bound; "
         f"shares of their own bounds: fill {fill_bound_ms / fill_ms:.1%}, stencil {sten2_bound_ms / sten2_ms:.1%}")
+
+    # the fill of the level split by destination class and segment kind,
+    # each sub-table timed alone, against a Tensor.copy_ of the fill's
+    # value bytes (the streaming yardstick)
+    split = fill_classes(tables[lmax], tuple(f_fine.shape[2:]))
+    split_ms = {key: time_ms(lambda t=t: lbm_halo_fill(work[i2], work[t.src], t.kind, t.dst_slot, t.dst_cell,
+                                                         t.src_slot, t.src_cell), iters=30)
+                for key, t in split.items()}
+    split_total = sum(split_ms.values())
+    z_share = sum(ms for (c, _k), ms in split_ms.items() if c == "z-face") / split_total
+    copy_a = torch.empty(rows2 * lattice.Q, dtype=f_fine.dtype, device="cuda")
+    copy_b = torch.empty_like(copy_a)
+    copy_ms = time_ms(lambda: copy_b.copy_(copy_a), iters=30)
+    copy_bytes = 2 * copy_a.numel() * copy_a.element_size()
+    for (c, kind), ms in sorted(split_ms.items()):
+        say(f"lbm_halo_fill level {lmax} sub-table {c}/{kind}: {split[c, kind].dst_slot.numel()} rows, {ms:.4f} ms "
+            f"({ms / split_total:.1%})")
+    say(f"lbm_halo_fill level {lmax}: sub-tables {split_total:.4f} ms in all against {fill_ms:.4f} ms for the whole "
+        f"fill; z-face share {z_share:.1%}; Tensor.copy_ of the fill's values ({copy_bytes} bytes moved) "
+        f"{copy_ms:.4f} ms, {copy_bytes / copy_ms / 1e9:.1f} TB/s")
+    del copy_a, copy_b
+
+    # the halo route (the main path's halo step): one launch reading each
+    # ghost value from its source, bitwise the fill then the stencil
+    hmap2 = halo_map(tables[lmax], m_fine, lattice.Q)
+    srcs = tuple(bufs)
+    out_h = torch.empty_like(f_fine)
+
+    def halo_route():
+        return lbm_stream_collide(f_fine, m_fine, halo=hmap2, sources=srcs, out=out_h, **kw)
+
+    got = halo_route()
+    fill_then = halo_step()
+    torch.cuda.synchronize()
+    kh_bitwise = max_err(got, fill_then)
+    check(kh_bitwise == 0.0, f"the halo route equals the fill then the stencil bitwise ({kh_bitwise})")
+    kh_err = max_err(got, want)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    del got, fill_then
+    kh_ms = time_ms(halo_route, iters=30)
+    say(f"lbm_stream_collide[halo] level {lmax} B={B2} D3Q19 TRT f32: max |err| {kh_bitwise:.1e} against the fill "
+        f"then the stencil, {kh_err:.3e} against plain; kernel {kh_ms:.4f} ms, fill then stencil {k2_ms:.4f} ms, "
+        f"plain {k2_plain_ms:.4f} ms, bound {k2_bound_ms:.4f} ms ({k2_by}), {k2_bound_ms / kh_ms:.1%} of bound")
+
+    # every filled level's halo step of the pattern that activates all
+    # levels: the route against the fill then the stencil, bitwise, timed
+    per_level = {}
+    for l in levels:
+        if l not in fills:
+            continue
+        i = index[l]
+        hm_l = hmap2 if l == lmax else halo_map(tables[l], masks[i], lattice.Q)
+        out_l = torch.empty_like(bufs[i])
+        work_l = list(bufs)
+        work_l[i] = bufs[i].clone()
+
+        def fill_then_stencil_l(l=l, i=i, work_l=work_l, out_l=out_l):
+            run_fill(lbm_halo_fill, l, work_l)
+            return lbm_stream_collide(work_l[i], masks[i], out=out_l, **kw_l[l])
+
+        def route_l(i=i, hm_l=hm_l, out_l=out_l, l=l):
+            return lbm_stream_collide(bufs[i], masks[i], halo=hm_l, sources=srcs, out=out_l, **kw_l[l])
+
+        want_l = fill_then_stencil_l().clone()
+        got_l = route_l()
+        torch.cuda.synchronize()
+        check(max_err(got_l, want_l) == 0.0, f"level {l}: the halo route equals the fill then the stencil bitwise")
+        per_level[l] = dict(blocks=bufs[i].shape[0], rows={t.kind: t.dst_slot.numel() for t in tables[l]},
+                            halo_ms=time_ms(route_l, iters=30), fill_then_stencil_ms=time_ms(fill_then_stencil_l, iters=30),
+                            stencil_ms=time_ms(lambda i=i, l=l, out_l=out_l: lbm_stream_collide(
+                                bufs[i], masks[i], out=out_l, **kw_l[l]), iters=30))
+        # where the level has fine rows: the route through its fine segment
+        # alone and through its other segments alone (the step of a part
+        # of the fill, timed only), to see which rows its time goes to
+        parts = {"fine": [t for t in tables[l] if t.kind == "fine"],
+                 "same+coarse": [t for t in tables[l] if t.kind != "fine"]}
+        if all(parts.values()):
+            for name, ts in parts.items():
+                hm_p = halo_map(tuple(ts), masks[i], lattice.Q)
+                per_level[l][f"halo_{name}_only_ms"] = time_ms(
+                    lambda i=i, l=l, hm_p=hm_p, out_l=out_l: lbm_stream_collide(
+                        bufs[i], masks[i], halo=hm_p, sources=srcs, out=out_l, **kw_l[l]), iters=30)
+                per_level[l][f"fill_{name}_only_ms"] = time_ms(
+                    lambda ts=ts, l=l, work_l=work_l: [lbm_halo_fill(work_l[index[l]], work_l[t.src], t.kind,
+                                                                     t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+                                                       for t in ts], iters=30)
+            del hm_p
+        del got_l, want_l, out_l, work_l
+    for l, r in per_level.items():
+        split_l = "".join(f"; {name} rows alone: route {r[f'halo_{name}_only_ms']:.4f} ms, fill "
+                          f"{r[f'fill_{name}_only_ms']:.4f} ms" for name in ("fine", "same+coarse")
+                          if f"halo_{name}_only_ms" in r)
+        say(f"halo step level {l} ({r['blocks']} blocks, rows {json.dumps(r['rows'])}): route {r['halo_ms']:.4f} ms, "
+            f"fill then stencil {r['fill_then_stencil_ms']:.4f} ms, stencil alone {r['stencil_ms']:.4f} ms; bitwise"
+            + split_l)
 
     # the slab form once (the Pallas halo kernel's interface): same fill
     vals = _concat_vals(bufs, _lower_fill_gathers(fills[lmax], index, f_fine.device))
@@ -2629,7 +2849,68 @@ def main() -> int:
         f"({M} x {len(tables[lmax])} solo launches {kf_solos_ms:.4f} ms), plain {kf_plain_ms:.4f} ms, bound "
         f"{kf_bound_ms:.4f} ms (bytes, the tables once; {M} x the solo bound: {M * fill_bound_ms:.4f} ms), "
         f"{kf_bound_ms / kf_ms:.1%} of bound")
-    del stacks, got_w, want_w, solo_ws
+    del got_w, want_w, solo_ws
+
+    # the member halo route: the level's halo step for M members in one
+    # launch, bitwise M solo halo launches and the member fill then the
+    # member stencil (the schedule it replaces)
+    mstacks = tuple(stacks)
+    del stacks
+    sched_w = list(mstacks)
+    sched_w[i2] = mstacks[i2].clone()
+    sched_out = torch.empty_like(mstacks[i2])
+
+    def member_fill_then_stencil():
+        member_fill(lbm_halo_fill, sched_w)
+        return lbm_stream_collide(sched_w[i2], m_fine, members=mc, out=sched_out)
+
+    member_fill_then_stencil()
+    kmh_sched_ms = time_ms(member_fill_then_stencil, iters=20)
+    del sched_w
+    out_mh = torch.empty_like(mstacks[i2])
+
+    def member_halo():
+        return lbm_stream_collide(mstacks[i2], m_fine, members=mc, halo=hmap2, sources=mstacks, out=out_mh)
+
+    member_halo()
+    torch.cuda.synchronize()
+    kmh_bitwise = max_err(out_mh, sched_out)
+    del sched_out
+    check(kmh_bitwise == 0.0, f"the member halo route equals the member fill then stencil bitwise ({kmh_bitwise})")
+    kmh_solo_err = 0.0
+    for m, (om, u) in enumerate(phys):
+        solo_out = lbm_stream_collide(mstacks[i2][m], m_fine, halo=hmap2, sources=tuple(st[m] for st in mstacks),
+                                      omega=om, u_wall=u, lattice=lattice, collision=cfg.collision)
+        torch.cuda.synchronize()
+        kmh_solo_err = max(kmh_solo_err, max_err(out_mh[m], solo_out))
+        del solo_out
+    check(kmh_solo_err == 0.0, f"the member halo route equals M solo halo launches bitwise ({kmh_solo_err})")
+    kmh_ms = time_ms(member_halo, iters=20)
+    plain_w = list(mstacks)
+
+    def plain_member_halo(compare=False):
+        plain_w[i2] = mstacks[i2].clone()  # the plain version fills a clone
+        member_fill(halo_fill_ref, plain_w)
+        worst = 0.0
+        for b0 in range(0, B2, chunk):
+            res_ = stream_collide_into(plain_w[i2][:, b0:b0 + chunk], m_fine[b0:b0 + chunk], mc.host,
+                                       lattice=lattice, collision=cfg.collision)
+            if compare:
+                torch.testing.assert_close(out_mh[:, b0:b0 + chunk], res_, **TOL[torch.float32])
+                worst = max(worst, max_err(out_mh[:, b0:b0 + chunk], res_))
+        return worst
+
+    kmh_err = plain_member_halo(compare=True)
+    kmh_plain_ms = time_ms(plain_member_halo, iters=1, warmup=0)
+    kmh_bytes = km_bytes + M * (tr["src_other"] - tr["rows"]) * row_bytes + tr["index_bytes"]
+    kmh_bound_ms, kmh_by = max((kmh_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                               (M * fluid2 * flops_per_fluid_cell(lattice.Q, cfg.collision) / FP32_FLOPS_PER_S * 1e3,
+                                "operations"))
+    say(f"lbm_stream_collide[halo+members] M={M} x level {lmax} B={B2} D3Q19 TRT f32: max |err| {kmh_solo_err:.1e} "
+        f"against {M} solo halo launches, {kmh_bitwise:.1e} against the member fill then the member stencil, "
+        f"{kmh_err:.3e} against plain; kernel {kmh_ms:.4f} ms, member fill then stencil {kmh_sched_ms:.4f} ms, "
+        f"plain {kmh_plain_ms:.4f} ms, bound {kmh_bound_ms:.4f} ms ({kmh_by}), {kmh_bound_ms / kmh_ms:.1%} of bound")
+    del mstacks, out_mh, plain_w
 
     # small cases: stencil and slab form at D3Q27 / BGK / f64 / odd extents
     rng = np.random.default_rng(0)
@@ -2698,7 +2979,102 @@ def main() -> int:
             say(f"small case fill {lat.name} {str(dtype)[6:]} (same/coarse/fine segments of a "
                 f"{len(levels_s)}-level forest): max |err| {worst:.3e}")
 
+    say(f"phase 6 peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated on the card "
+        f"({(torch.cuda.max_memory_allocated() - mem6) / 1e9:.3f} GB above its start)")
+
     # -- 7. cross-check at a smaller depth ----------------------------------------
+    if lm:
+        cross_check_phase(forest_of)
+
+    # -- 8. the LM and kernels lines and the result -------------------------------
+    by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
+               "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches}
+
+    def path_launches(key):
+        return {path: counts[key] for path, counts in by_path.items()}
+
+    kernels = [
+        dict(name="lbm_stream_collide", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
+             launches=fused_launches["lbm_stream_collide"], launches_by_path=path_launches("lbm_stream_collide"),
+             max_abs_err=k1_err, ms=k1_ms,
+             plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by, library_ms=None,
+             registers=main_stencil["registers"], spills=main_stencil["local_bytes"],
+             occupancy=main_stencil["occupancy"], shape="B=64 34^3 D3Q19 TRT f32"),
+        # the halo kernel's work on the main path: one launch of the
+        # stencil's halo route a filled level, each ghost value read from
+        # its source (fused; the ensemble's below)
+        dict(name="lbm_stream_collide[halo]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
+             launches=fused_launches["lbm_stream_collide[halo]"],
+             launches_by_path=path_launches("lbm_stream_collide[halo]"), max_abs_err=kh_err,
+             max_abs_err_fill_then_stencil=kh_bitwise, ms=kh_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound_ms,
+             bound_by=k2_by, library_ms=None, registers=halo_stencils["trt+halo"]["registers"],
+             spills=halo_stencils["trt+halo"]["local_bytes"], occupancy=halo_stencils["trt+halo"]["occupancy"],
+             per_level_ms={str(l): r for l, r in per_level.items()},
+             fill_then_stencil_ms=k2_ms, shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32"),
+        dict(name="lbm_stream_collide[halo+members]", route="cuda", source=KERNEL_SOURCE,
+             replaces=KERNEL2_REPLACES, launches=serving_launches["lbm_stream_collide[halo+members]"],
+             launches_by_path=path_launches("lbm_stream_collide[halo+members]"), max_abs_err=kmh_err,
+             max_abs_err_solo_launches=kmh_solo_err, max_abs_err_fill_then_stencil=kmh_bitwise, ms=kmh_ms,
+             fill_then_stencil_ms=kmh_sched_ms, plain_ms=kmh_plain_ms, bound_ms=kmh_bound_ms, bound_by=kmh_by,
+             library_ms=None, registers=halo_stencils["trt+halo+members"]["registers"],
+             spills=halo_stencils["trt+halo+members"]["local_bytes"],
+             occupancy=halo_stencils["trt+halo+members"]["occupancy"],
+             shape=f"M={M} x level {lmax} B={B2} 34^3 D3Q19 TRT f32"),
+        # the halo kernel's first port: the from-sources fill of every
+        # segment (launches: lbm_halo_fill) followed by the stencil, on the
+        # rank paths (the fused and serving paths take the halo route)
+        dict(name="lbm_stream_collide_halo", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
+             launches=fs_launches["lbm_halo_fill"], launches_by_path=path_launches("lbm_halo_fill"),
+             max_abs_err=k2_err, ms=k2_ms,
+             plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None,
+             registers=max(r["registers"] for r in main_fills),
+             spills=max(r["local_bytes"] for r in main_fills),
+             entry="lbm_halo_fill (from sources) then lbm_stream_collide",
+             shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32",
+             fill_ms=fill_ms, fill_bound_ms=fill_bound_ms, slab_form_ms=slab_ms,
+             fill_split_ms={f"{c}/{kind}": ms for (c, kind), ms in sorted(split_ms.items())},
+             fill_z_face_share=z_share, copy_ms=copy_ms, copy_bytes=copy_bytes),
+        # the rank-sharded routes of the same two kernels on the
+        # fused_sharded path: the stencil over a slot list (interior and
+        # boundary halves), and the fill's values kind for inbound messages
+        dict(name="lbm_stream_collide[slots]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
+             launches=fs_launches["lbm_stream_collide[slots]"],
+             launches_by_path=path_launches("lbm_stream_collide[slots]"), max_abs_err=ks_err,
+             max_abs_err_whole_stack=ks_bitwise, ms=ks_ms, plain_ms=ks_plain_ms, bound_ms=ks_bound_ms,
+             bound_by=ks_by, library_ms=None,
+             shape=f"rank {r_s} level {lmax}: {slots_np.size} of {f_r.shape[0]} blocks, D3Q19 TRT f32"),
+        dict(name="lbm_halo_fill[values]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
+             launches=fs_launches["lbm_halo_fill[values]"], launches_by_path=path_launches("lbm_halo_fill[values]"),
+             max_abs_err=kv_err, ms=kv_ms, plain_ms=kv_plain_ms, bound_ms=kv_bound_ms, bound_by="bytes",
+             library_ms=kv_library_ms, library="Tensor.index_put_",
+             shape=f"message {m_v.src_rank}->{r_v}, {n_v} rows x {lattice.Q} f32 into level {dl_v}"),
+        # the member routes of both kernels on the serving path: one launch
+        # for all members of an ensemble
+        dict(name="lbm_stream_collide[members]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
+             launches=serving_launches["lbm_stream_collide[members]"],
+             launches_by_path=path_launches("lbm_stream_collide[members]"), max_abs_err=km_err,
+             max_abs_err_solo_launches=km_solo_err, ms=km_ms, solo_launches_ms=km_solos_ms, plain_ms=km_plain_ms,
+             bound_ms=km_bound_ms, bound_by=km_by, library_ms=None,
+             registers=member_stencil["registers"], spills=member_stencil["local_bytes"],
+             occupancy=member_stencil["occupancy"], shape=f"M={M} x level {lmax} B={B2} 34^3 D3Q19 TRT f32"),
+    ]
+    say("card:", card_line())
+    for line in lm_lines:
+        print(json.dumps(line))
+    print(json.dumps({"kernels": kernels}))
+    ok_line()
+    return 0
+
+
+def cross_check_phase(forest_of) -> None:
+    """Phase 7: every mode on the kernels and the plain versions at the
+    cross-check's depth, and the tracers of restack against fused_sharded."""
+    from repro_torch.lbm.criteria import macroscopic
+    from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
+    from repro_torch.lbm.lattice import D3Q19
+    from repro_torch.particles import ParticlesConfig, all_particles
+
+    lattice = D3Q19
     runs = {}
     for mode, backend in (("restack", "cuda"), ("arena", "cuda"), ("fused", "cuda"), ("fused", "ref"),
                           ("sharded", "cuda"), ("fused_sharded", "cuda"), ("fused_sharded", "ref"),
@@ -2775,69 +3151,6 @@ def main() -> int:
     say(f"cross-check tracers: restack and fused_sharded agree on {pa['id'].size} tracers, "
         f"max |position diff| {tr_err:.3e} (limit 1e-10)")
 
-    # -- 8. the LM and kernels lines and the result -------------------------------
-    by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
-               "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches}
-
-    def path_launches(key):
-        return {path: counts[key] for path, counts in by_path.items()}
-
-    kernels = [
-        dict(name="lbm_stream_collide", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
-             launches=fused_launches["lbm_stream_collide"], launches_by_path=path_launches("lbm_stream_collide"),
-             max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by, library_ms=None,
-             registers=main_stencil["registers"], spills=main_stencil["local_bytes"],
-             occupancy=main_stencil["occupancy"], shape="B=64 34^3 D3Q19 TRT f32"),
-        # the halo kernel's work on the card: the from-sources fill of every
-        # segment (launches: lbm_halo_fill) followed by the stencil
-        dict(name="lbm_stream_collide_halo", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=fused_launches["lbm_halo_fill"], launches_by_path=path_launches("lbm_halo_fill"),
-             max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None,
-             registers=max(r["registers"] for r in main_fills),
-             spills=max(r["local_bytes"] for r in main_fills),
-             entry="lbm_halo_fill (from sources) then lbm_stream_collide",
-             shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32",
-             fill_ms=fill_ms, fill_bound_ms=fill_bound_ms, slab_form_ms=slab_ms),
-        # the rank-sharded routes of the same two kernels on the
-        # fused_sharded path: the stencil over a slot list (interior and
-        # boundary halves), and the fill's values kind for inbound messages
-        dict(name="lbm_stream_collide[slots]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
-             launches=fs_launches["lbm_stream_collide[slots]"],
-             launches_by_path=path_launches("lbm_stream_collide[slots]"), max_abs_err=ks_err,
-             max_abs_err_whole_stack=ks_bitwise, ms=ks_ms, plain_ms=ks_plain_ms, bound_ms=ks_bound_ms,
-             bound_by=ks_by, library_ms=None,
-             shape=f"rank {r_s} level {lmax}: {slots_np.size} of {f_r.shape[0]} blocks, D3Q19 TRT f32"),
-        dict(name="lbm_halo_fill[values]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=fs_launches["lbm_halo_fill[values]"], launches_by_path=path_launches("lbm_halo_fill[values]"),
-             max_abs_err=kv_err, ms=kv_ms, plain_ms=kv_plain_ms, bound_ms=kv_bound_ms, bound_by="bytes",
-             library_ms=kv_library_ms, library="Tensor.index_put_",
-             shape=f"message {m_v.src_rank}->{r_v}, {n_v} rows x {lattice.Q} f32 into level {dl_v}"),
-        # the member routes of both kernels on the serving path: one launch
-        # for all members of an ensemble
-        dict(name="lbm_stream_collide[members]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
-             launches=serving_launches["lbm_stream_collide[members]"],
-             launches_by_path=path_launches("lbm_stream_collide[members]"), max_abs_err=km_err,
-             max_abs_err_solo_launches=km_solo_err, ms=km_ms, solo_launches_ms=km_solos_ms, plain_ms=km_plain_ms,
-             bound_ms=km_bound_ms, bound_by=km_by, library_ms=None,
-             registers=member_stencil["registers"], spills=member_stencil["local_bytes"],
-             occupancy=member_stencil["occupancy"], shape=f"M={M} x level {lmax} B={B2} 34^3 D3Q19 TRT f32"),
-        dict(name="lbm_halo_fill[members]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=serving_launches["lbm_halo_fill[members]"],
-             launches_by_path=path_launches("lbm_halo_fill[members]"), max_abs_err=kf_err,
-             max_abs_err_solo_launches=kf_solo_err, ms=kf_ms, solo_launches_ms=kf_solos_ms, plain_ms=kf_plain_ms,
-             bound_ms=kf_bound_ms, bound_by="bytes", library_ms=None,
-             shape=f"M={M} x level {lmax} fill, {rows2} ghost rows a member, D3Q19 f32"),
-    ]
-    say("card:", card_line())
-    print(json.dumps({"lm_serve": lm_serve}))
-    print(json.dumps({"lm_families": lm_families}))
-    print(json.dumps({"lm_train": lm_train}))
-    print(json.dumps({"lm_dist": lm_dist}))
-    print(json.dumps({"kernels": kernels}))
-    ok_line()
-    return 0
 
 
 def ok_line() -> None:
@@ -2869,6 +3182,6 @@ T_START = time.perf_counter()
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
-        sys.exit(only(sys.argv[2].split(",")))
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only lm,lm-families,lm-train,lm-dist]")
+        sys.exit(main(lm=False) if sys.argv[2] == "cavity" else only(sys.argv[2].split(",")))
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only cavity | --only lm,lm-families,lm-train,lm-dist]")
     sys.exit(main())

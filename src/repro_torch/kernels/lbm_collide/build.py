@@ -42,6 +42,12 @@ _SIGNATURES = {
     "lbm_stream_collide_members": (
         _I, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _P,
     ),
+    # dtype, Q, trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, map,
+    # nseg, seg_src, seg_mstride, stream
+    "lbm_stream_collide_halo_map": (
+        _I, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _D, _D, _P, _P,
+        _I, _P, _P, _P,
+    ),
     # dtype, Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot,
     # src_cell, valid, members, dst_mstride, src_mstride, stream
     "lbm_halo_fill": (

@@ -5,7 +5,9 @@
 //   * stream_collide_kernel <- repro/kernels/lbm_collide/lbm_collide.py
 //                              lbm_stream_collide_pallas (_kernel ->
 //                              _stream_collide_body)
-//   * halo_fill_kernel, then stream_collide_kernel
+//   * stream_collide_kernel's HALO instantiations (the fused and serving
+//     paths), or halo_fill_kernel then stream_collide_kernel (the rank
+//     paths and the slab interface)
 //                           <- lbm_stream_collide_halo_pallas (_halo_kernel)
 //
 // What bounds both: bytes. Per cell the stencil reads Q pdfs and one int32
@@ -58,9 +60,39 @@
 //     struct is never indexed by a runtime member. A batch of M members
 //     thus launches what one member's step launches.
 //
-// Fill design: the TPU kernel took a padded (B, P, Q) slab of ghost values
-// a block, because one grid step owned one block. On the card that slab is
-// pure traffic, so the fill reads its sources directly:
+// Fill design. The TPU kernel filled and stepped in one kernel, from a
+// padded (B, P, Q) slab of ghost values a block, because one grid step
+// owned one block; on the card that slab is pure traffic. The halo route
+// (the HALO instantiations) folds the fill into the stencil instead, and
+// replaces the separate fill launches of the fused and serving paths:
+//   * what bounds a separate fill is the z faces. The layout is (B, Q, X,
+//     Y, Z) with z fastest, so a z-face ghost cell and its source each lie
+//     alone in a 32-byte sector of every q-plane: on a 34^3 block those
+//     rows are 31 % of the ring's but touch 70 % of its sectors, and a
+//     partly written sector is read and written back. No thread mapping of
+//     a separate pass makes them contiguous. Only the stencil's full-z tile
+//     already holds a row's two z-face cells, in sectors it loads anyway;
+//   * so the HALO stencil writes no ghost cell: it reads each pulled value
+//     whose source cell has a fill row from that row's source (one cell, or
+//     an octet's mean) in the pre-step stacks. A per-level map (B, X, Y, Z)
+//     of 64-bit row sources (segment, fine flag, element offset) is copied
+//     with cp.async into shared memory as the mask tile's twin before any
+//     other load, and a redirected load is one load that nothing waits on
+//     until the moments, so the redirects of every direction overlap;
+//   * the source of a z-face ghost cell is a row its z-neighbour block's
+//     CTA reads whole. The grid runs the CTAs of 8 consecutive blocks (a
+//     Morton octet) at one x plane together, so that source is an L2 hit;
+//     more blocks a plane lose the stencil's own reuse of x planes in L2;
+//   * the redirect code is inlined at every direction, so it is kept short
+//     (a thread's own filled values come through a pointer chosen once, a
+//     fine row's octet means staged in its own output slots, and only where
+//     the cell reads them, which the host marks in the map): a larger
+//     kernel cost more in instruction fetch than the redirects themselves;
+//   * the output equals the fill then the stencil bitwise, ghost ring
+//     included: the stencil's arithmetic is the same code, and the fill's
+//     arithmetic is repeated exactly.
+// The separate fill (the rank paths, whose messages arrive between fills
+// and stencils, and the slab interface) reads its sources directly:
 //   * one thread per ghost row, rows sorted by (dst slot, dst cell) on the
 //     host, so for each q a warp's loads and stores fall on neighbouring
 //     cells of one q-plane; index arrays are int32;
@@ -174,6 +206,60 @@ struct Members {
   int b0;
 };
 
+// Least CTAs of kThreads threads an SM must hold for the HALO
+// instantiations: the stencil's 4 (64 registers a thread) for f32 D3Q19,
+// which holds with no spill, and 2 for f32 D3Q27.
+template <typename T, int Q>
+constexpr int halo_min_ctas() {
+  return sizeof(T) == 4 ? (Q == 19 ? 4 : 2) : 1;
+}
+
+// The HALO operand: where each ghost cell's filled value comes from. map
+// (B, X, Y, Z) holds, at each cell that has a fill row, seg << kSegShift |
+// fine << kFineBit | stage << kStageBit | the element offset of the row's
+// source cell (direction 0) in segment seg's source stack, and -1 at every
+// other cell. stage marks a fine row whose cell reads its own values (it is
+// not fluid, or a neighbour is not: bounce-back), set by the host from the
+// mask.
+// A copy row's value of direction q is the element q n further on; a fine
+// row's is the mean of the octet starting there (offsets 0, 1, Z, Z + 1,
+// YZ, ..., YZ + Z + 1: the canonical order). src is the segment's pre-step
+// stack of member 0, mstride the elements between two members' stacks.
+constexpr int kHaloSegs = 3;
+// The HALO grid order: the CTAs of kHaloGroup consecutive blocks (a Morton
+// octet) at one x plane run together, then the next plane, then the next
+// group. The z-face source rows a block's ghost cells read are rows its
+// z-neighbours' CTAs read whole at the same time, so they are L2 hits; a
+// group of 1 (the stencil's order) or of a whole level's blocks was slower
+// (PERF.md, section 6). The launcher sets Halo::group to it.
+constexpr int kHaloGroup = 8;
+constexpr int kSegShift = 58;
+constexpr int kFineBit = 57;
+constexpr int kStageBit = 56;
+constexpr int64_t kOffMask = (int64_t{1} << kStageBit) - 1;
+
+template <typename T>
+struct HaloSeg {
+  const T* src;
+  int64_t mstride;
+};
+
+template <typename T>
+struct Halo {
+  const int64_t* map;  // (B, X, Y, Z) of the level's blocks (shared by members)
+  HaloSeg<T> seg[kHaloSegs];
+  int group;  // kHaloGroup: the tiles of `group` blocks fastest, then x, then the block group
+  int tiles;  // tiles a block plane
+};
+
+// An 8-byte copy from global to shared memory that bypasses the registers
+// (cp.async, sm_80 and later), and the wait for all of a thread's copies.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
 // i in [-n, 2n): one period either way. A neighbour of a cell of the block,
 // and a cell of a mask tile (TY <= Y and TZ <= Z, so a tile and its ring
 // overhang the block by at most one period), are both in range.
@@ -199,29 +285,78 @@ __device__ __forceinline__ T trt(T fq, T fo, T feq, T feo, T om_p, T om_m) {
   return fq - om_p * (f_p - fe_p) - om_m * (f_m - fe_m);
 }
 
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// The filled value of direction q of the cell whose row source is e: one
+// load (copy), or the octet's 8 loads summed in the canonical order and
+// times 1/8 with round-to-nearest intrinsics (fine), bitwise the fill
+// kernel's and the plain fill's arithmetic. It is inlined at every
+// direction of the stencil's loop and in the own-value prologue only, so
+// that the kernel stays about 1.4 times the stencil's size: inlined at
+// every bounce-back as well, it made the kernel 1.7 times the stencil and
+// its instruction fetch cost a fifth of the member route's time. The
+// octet's 8 loads are issued together before the ordered sum: a fine row
+// waits for one round trip, not for eight.
+template <typename T>
+__device__ __forceinline__ T halo_value(const HaloSeg<T>* segs, int64_t e, int q, int n, int Z, int YZ) {
+  const T* __restrict__ p = segs[e >> kSegShift].src + (e & kOffMask) + static_cast<int64_t>(q) * n;
+  if (!((e >> kFineBit) & 1)) return *p;
+  // the 8 loads first, all in flight together, then the sum in order
+  T v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = p[(k >> 2) * YZ + ((k >> 1) & 1) * Z + (k & 1)];
+  T acc = v[0];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) acc = add_rn(acc, v[k]);
+  return mul_rn(acc, T(0.125));
+}
+
 // blockDim = (TZ, TY); grid = (tiles_y * tiles_z, X, B), or (..., X, S) over
 // a slot list of S entries, each in [0, nblocks) (checked; others step
 // nothing), or (..., X, chunk) over an M-member stack from block mem.b0 on.
-template <typename T, int Q, bool TRT, bool SLOTS, bool MEMBERS>
-__global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
+// HALO: (tiles_y * tiles_z * h.group, X, block groups of a chunk).
+template <typename T, int Q, bool TRT, bool SLOTS, bool MEMBERS, bool HALO>
+__global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : stencil_min_ctas<T, Q>()))
     stream_collide_kernel(const T* __restrict__ f, const int32_t* __restrict__ mask,
                           T* __restrict__ out, const int32_t* __restrict__ slots,
                           int nblocks, int X, int Y, int Z, int tiles_z, Coefs<T, Q> k,
-                          Members<T> mem) {
+                          Members<T> mem, Halo<T> h) {
   static_assert(!(SLOTS && MEMBERS), "a slot list and a member axis do not combine");
+  static_assert(!(SLOTS && HALO), "a slot list and a halo map do not combine");
   __shared__ uint8_t tile[kMaskTile];
   // the CTA's member's coefficients (lid[Q], om_a, om_b); a placeholder in
   // the solo instantiations, which read k instead
   __shared__ T mcoef[MEMBERS ? Q + 2 : 1];
+  // HALO: the wrapped tile of row sources (laid out as the mask tile, in
+  // dynamic shared memory sized to it) and the CTA's segments, each source
+  // offset to its member
+  extern __shared__ int64_t hsrc[];
+  __shared__ HaloSeg<T> hseg[HALO ? kHaloSegs : 1];
   const int TZ = blockDim.x;
   const int TY = blockDim.y;
-  const int ty_tile = blockIdx.x / tiles_z;  // uniform over the CTA
-  const int z0 = (blockIdx.x - ty_tile * tiles_z) * TZ;
-  const int y0 = ty_tile * TY;
+  int ty_tile = blockIdx.x / tiles_z;  // uniform over the CTA
+  int z0 = (blockIdx.x - ty_tile * tiles_z) * TZ;
+  int y0 = ty_tile * TY;
   const int x = blockIdx.y;
   const int n = X * Y * Z;  // the wrapper checks that it fits 31 bits
   int64_t b = blockIdx.z;
   int64_t b_mask = b;
+  int member = 0;
+  // HALO: grid (tiles * group, X, groups); the CTA's block of the chunk
+  unsigned hb = blockIdx.z;
+  if constexpr (HALO) {
+    const unsigned bg = blockIdx.x / h.tiles;  // one uniform division a CTA
+    hb = blockIdx.z * h.group + bg;
+    if (hb >= static_cast<unsigned>(nblocks)) return;  // the last group's missing blocks
+    ty_tile = (blockIdx.x - bg * h.tiles) / tiles_z;
+    z0 = (blockIdx.x - bg * h.tiles - ty_tile * tiles_z) * TZ;
+    y0 = ty_tile * TY;
+    b = hb;
+    b_mask = b;
+  }
   if (SLOTS) {
     b = slots[blockIdx.z];
     if (b < 0 || b >= nblocks) return;  // uniform over the CTA
@@ -229,14 +364,28 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   }
   if constexpr (MEMBERS) {
     // member and mask block: one uniform 32-bit division a CTA
-    const int bm = static_cast<int>(blockIdx.z) + mem.b0;
+    const int bm = static_cast<int>(HALO ? hb : blockIdx.z) + mem.b0;
     const int m = bm / mem.B;
     b = bm;
     b_mask = bm - m * mem.B;
+    member = m;
     // the row is staged before the __syncthreads that publishes the mask
     // tile, and read only after it
     const T* __restrict__ row = mem.coef + m * (Q + 2);
     for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < Q + 2; i += blockDim.x * blockDim.y) mcoef[i] = row[i];
+  }
+  if constexpr (HALO) {
+    // one thread a segment, each entry of the by-value struct read at a
+    // compile-time index (a runtime index would copy it to local memory)
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+    for (int s = 0; s < kHaloSegs; ++s) {
+      if (tid == s) {
+        HaloSeg<T> seg = h.seg[s];
+        seg.src += member * seg.mstride;
+        hseg[s] = seg;
+      }
+    }
   }
   const T* __restrict__ fb = f + b * Q * n;
   const int32_t* __restrict__ mb = mask + b_mask * n;
@@ -254,6 +403,17 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   // into registers, so they are in flight together with the pdf loads below.
   const int SZ = TZ + 2;
   const int SY = TY + 2;
+  if constexpr (HALO) {
+    // the map's tile, as the mask's, copied to shared memory without
+    // registers before any other load, so that it lands while the pdf
+    // loads fly
+    const int64_t* __restrict__ hb = h.map + b_mask * n;
+    for (int r = threadIdx.y; r < 3 * SY; r += TY) {
+      const int dx = r / SY;
+      const int64_t* __restrict__ row = hb + (wrap(x + dx - 1, X) * Y + wrap(y0 + (r - dx * SY) - 1, Y)) * Z;
+      for (int c = threadIdx.x; c < SZ; c += TZ) cp_async8(&hsrc[r * SZ + c], row + wrap(z0 + c - 1, Z));
+    }
+  }
   int staged[kStagedRows][2];
 #pragma unroll
   for (int j = 0; j < kStagedRows; ++j) {
@@ -305,6 +465,7 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
     }
   }
   for (int r = threadIdx.y + kStagedRows * TY; r < 3 * SY; r += TY) stage_direct(r, threadIdx.x);
+  if constexpr (HALO) cp_async_wait_all();  // this thread's share of the map tile has landed
   __syncthreads();
   if (!inside) return;
 
@@ -312,9 +473,31 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   // store address stays live
   T* __restrict__ o = ob + cell;
   const int centre = (SY + threadIdx.y + 1) * SZ + threadIdx.x + 1;
+  // HALO: where the thread's own values come from (they are read where the
+  // cell is not fluid or bounces back): its row's source cell for a copy
+  // row; for a fine row marked stage its Q octet means, staged in the
+  // cell's own output slots, which the step overwrites last. The Q means
+  // wait on Q round trips in turn, so only the fine cells that read them
+  // (few: most are fluid among fluid) stage them; an unmarked fine cell
+  // never reads fcb.
+  const T* fcb = fc;
+  if constexpr (HALO) {
+    const int64_t own = hsrc[centre];
+    if (own >= 0) {
+      const T* p = hseg[own >> kSegShift].src + (own & kOffMask);
+      if ((own >> kStageBit) & 1) {
+        T* st = ob + cell;
+#pragma unroll 1
+        for (int q = 0; q < Q; ++q) st[q * n] = halo_value<T>(hseg, own, q, n, Z, YZ);
+        fcb = st;
+      } else {
+        fcb = p;
+      }
+    }
+  }
   if (tile[centre] != kFluid) {
 #pragma unroll
-    for (int q = 0; q < Q; ++q, o += n) *o = fc[q * n];
+    for (int q = 0; q < Q; ++q, o += n) *o = fcb[q * n];
     return;
   }
 
@@ -325,7 +508,7 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
   for (int q = 0; q < Q; ++q) {
     const int ms = tile[centre - (cx_of(q) * SY + cy_of(q)) * SZ - cz_of(q)];
     if (ms != kFluid) {
-      fin[q] = fc[opposite_of(q) * n];  // replaces the dead pulled value
+      fin[q] = fcb[opposite_of(q) * n];  // replaces the dead pulled value
       if (ms == kLid) {
         if constexpr (MEMBERS) {
           fin[q] = fin[q] + mcoef[q];
@@ -333,6 +516,12 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
           fin[q] = fin[q] + k.lid[q];
         }
       }
+    } else if constexpr (HALO) {
+      // a fluid source with a fill row: its value comes from the row's
+      // source, one load that nothing waits on until the moments, so the
+      // redirected loads of every direction are in flight together
+      const int64_t e = hsrc[centre - (cx_of(q) * SY + cy_of(q)) * SZ - cz_of(q)];
+      if (e >= 0) fin[q] = halo_value<T>(hseg, e, q, n, Z, YZ);
     }
   }
 
@@ -383,11 +572,6 @@ __global__ void __launch_bounds__(kThreads, (stencil_min_ctas<T, Q>()))
     }
   }
 }
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 // Fill `rows` ghost cells of dst (B_dst, Q, n) in place: row i writes cell
 // dst_cell[i] of block dst_slot[i]. Its value comes, by KIND, from cell
@@ -471,18 +655,19 @@ cudaError_t launch_stencil(const void* f, const void* mask, void* out, const voi
   const StencilTiles t(Y, Z);
   const int64_t n = static_cast<int64_t>(X) * Y * Z;
   const Members<T> none{nullptr, 0, 0};
+  const Halo<T> no_halo{};
   if (X > 65535 || nblocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   for (int64_t b0 = 0; b0 < B; b0 += kMaxGridZ) {
     const int64_t nb = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
     const dim3 grid(t.tiles_y * t.tiles_z, X, static_cast<unsigned>(nb));
     if (slots != nullptr) {
-      stream_collide_kernel<T, Q, TRT, true, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
+      stream_collide_kernel<T, Q, TRT, true, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
           static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out),
-          static_cast<const int32_t*>(slots) + b0, static_cast<int>(nblocks), X, Y, Z, t.tiles_z, k, none);
+          static_cast<const int32_t*>(slots) + b0, static_cast<int>(nblocks), X, Y, Z, t.tiles_z, k, none, no_halo);
     } else {
-      stream_collide_kernel<T, Q, TRT, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
+      stream_collide_kernel<T, Q, TRT, false, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
           static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
-          static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, t.tiles_z, k, none);
+          static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, t.tiles_z, k, none, no_halo);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -503,9 +688,52 @@ cudaError_t launch_stencil_members(const void* f, const void* mask, void* out, c
     const int64_t nb = total - b0 < kMaxGridZ ? total - b0 : kMaxGridZ;
     const dim3 grid(t.tiles_y * t.tiles_z, X, static_cast<unsigned>(nb));
     const Members<T> mem{static_cast<const T*>(coef), static_cast<int>(B), static_cast<int>(b0)};
-    stream_collide_kernel<T, Q, TRT, false, true><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
+    stream_collide_kernel<T, Q, TRT, false, true, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
         static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out), nullptr,
-        static_cast<int>(total), X, Y, Z, t.tiles_z, unused, mem);
+        static_cast<int>(total), X, Y, Z, t.tiles_z, unused, mem, Halo<T>{});
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The HALO stencil: B blocks of f stepped into out (coef null, coefficients
+// k), or M members of B blocks each (coef the (M, Q + 2) device table), the
+// ghost values read through h. Grid (tiles * kHaloGroup, X, groups) in
+// chunks of at most kMaxGridZ groups: the CTAs of kHaloGroup blocks at one
+// x plane run together.
+template <typename T, int Q, bool TRT>
+cudaError_t launch_stencil_halo(const void* f, const void* mask, void* out, const void* coef, int64_t M,
+                                int64_t B, int X, int Y, int Z, const Coefs<T, Q>& k, Halo<T> h,
+                                cudaStream_t stream) {
+  const StencilTiles t(Y, Z);
+  h.tiles = t.tiles_y * t.tiles_z;
+  h.group = kHaloGroup;
+  const int64_t total = (coef != nullptr ? M : 1) * B;
+  const size_t smem = sizeof(int64_t) * 3 * (t.TY + 2) * (t.TZ + 2);  // the map's tile
+  const int64_t chunk = kMaxGridZ * kHaloGroup;
+  if (X > 65535 || total > 0x7fffffff || static_cast<int64_t>(h.tiles) * kHaloGroup > 0x7fffffff)
+    return cudaErrorInvalidConfiguration;
+  const dim3 block(t.TZ, t.TY);
+  for (int64_t b0 = 0; b0 < total; b0 += chunk) {
+    const int64_t nb = total - b0 < chunk ? total - b0 : chunk;
+    const dim3 grid(h.tiles * kHaloGroup, X, static_cast<unsigned>((nb + kHaloGroup - 1) / kHaloGroup));
+    if (coef != nullptr) {
+      const Members<T> mem{static_cast<const T*>(coef), static_cast<int>(B), static_cast<int>(b0)};
+      stream_collide_kernel<T, Q, TRT, false, true, true><<<grid, block, smem, stream>>>(
+          static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out), nullptr,
+          static_cast<int>(nb), X, Y, Z, t.tiles_z, k, mem, h);
+    } else {
+      // a solo chunk offsets its block operands, map included; the
+      // segments' offsets address whole source stacks
+      const int64_t n = static_cast<int64_t>(X) * Y * Z;
+      Halo<T> hc = h;
+      hc.map += b0 * n;
+      stream_collide_kernel<T, Q, TRT, false, false, true><<<grid, block, smem, stream>>>(
+          static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
+          static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, t.tiles_z, k,
+          Members<T>{nullptr, 0, 0}, hc);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -560,6 +788,31 @@ cudaError_t dispatch_stencil(int Q, int trt, const void* f, const void* mask, vo
 }
 
 template <typename T, int Q>
+cudaError_t dispatch_halo_q(int trt, const void* f, const void* mask, void* out, const void* coef, int64_t M,
+                            int64_t B, int X, int Y, int Z, double om_a, double om_b, const double* lid,
+                            const Halo<T>& h, cudaStream_t s) {
+  Coefs<T, Q> k;
+  for (int q = 0; q < Q; ++q) k.lid[q] = static_cast<T>(lid[q]);
+  k.om_a = static_cast<T>(om_a);
+  k.om_b = static_cast<T>(om_b);
+  if (trt) return launch_stencil_halo<T, Q, true>(f, mask, out, coef, M, B, X, Y, Z, k, h, s);
+  return launch_stencil_halo<T, Q, false>(f, mask, out, coef, M, B, X, Y, Z, k, h, s);
+}
+
+template <typename T>
+cudaError_t dispatch_halo(int Q, int trt, const void* f, const void* mask, void* out, const void* coef, int64_t M,
+                          int64_t B, int X, int Y, int Z, double om_a, double om_b, const double* lid,
+                          const void* map, int nseg, const void* const* seg_src, const long long* seg_mstride,
+                          cudaStream_t s) {
+  Halo<T> h{};
+  h.map = static_cast<const int64_t*>(map);
+  for (int i = 0; i < nseg; ++i) h.seg[i] = HaloSeg<T>{static_cast<const T*>(seg_src[i]), seg_mstride[i]};
+  if (Q == 19) return dispatch_halo_q<T, 19>(trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, h, s);
+  if (Q == 27) return dispatch_halo_q<T, 27>(trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, h, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int Q>
 cudaError_t dispatch_fill_kind(int kind, void* dst, const void* src, int64_t rows, int n,
                                const void* ds, const void* dc, const void* ss, const void* sc,
                                const void* valid, FillMembers m, cudaStream_t s) {
@@ -600,12 +853,16 @@ template <typename T, int Q>
 cudaError_t attrs_q(int which, int variant, int* out) {
   if (which == 0) {
     switch (variant) {
-      case 0: return attrs_of(stream_collide_kernel<T, Q, false, false, false>, out);
-      case 1: return attrs_of(stream_collide_kernel<T, Q, true, false, false>, out);
-      case 2: return attrs_of(stream_collide_kernel<T, Q, false, true, false>, out);
-      case 3: return attrs_of(stream_collide_kernel<T, Q, true, true, false>, out);
-      case 4: return attrs_of(stream_collide_kernel<T, Q, false, false, true>, out);
-      case 5: return attrs_of(stream_collide_kernel<T, Q, true, false, true>, out);
+      case 0: return attrs_of(stream_collide_kernel<T, Q, false, false, false, false>, out);
+      case 1: return attrs_of(stream_collide_kernel<T, Q, true, false, false, false>, out);
+      case 2: return attrs_of(stream_collide_kernel<T, Q, false, true, false, false>, out);
+      case 3: return attrs_of(stream_collide_kernel<T, Q, true, true, false, false>, out);
+      case 4: return attrs_of(stream_collide_kernel<T, Q, false, false, true, false>, out);
+      case 5: return attrs_of(stream_collide_kernel<T, Q, true, false, true, false>, out);
+      case 8: return attrs_of(stream_collide_kernel<T, Q, false, false, false, true>, out);
+      case 9: return attrs_of(stream_collide_kernel<T, Q, true, false, false, true>, out);
+      case 12: return attrs_of(stream_collide_kernel<T, Q, false, false, true, true>, out);
+      case 13: return attrs_of(stream_collide_kernel<T, Q, true, false, true, true>, out);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -650,6 +907,30 @@ extern "C" int lbm_stream_collide_members(int dtype, int Q, int trt, const void*
   return cudaErrorInvalidValue;
 }
 
+// The stencil with the ghost ring read through a halo map (halo in tile):
+// f (B, Q, X, Y, Z) stepped into out, or with coef (the member table) M
+// members' stacks (M * B, ...) sharing mask and map. map: (B, X, Y, Z)
+// int64, at each cell with a fill row seg << 58 | fine << 57 | the element
+// offset of its source (direction 0; a fine row's octet base) in the
+// segment's stack, -1 elsewhere. Segment i (i < nseg <= 3): source stack
+// seg_src[i] (member 0), seg_mstride[i] elements a member. lid: host array
+// of Q values (solo). Returns the cudaError_t of the launch.
+extern "C" int lbm_stream_collide_halo_map(int dtype, int Q, int trt, const void* f, const void* mask, void* out,
+                                           const void* coef, long long M, long long B, int X, int Y, int Z,
+                                           double om_a, double om_b, const double* lid, const void* map, int nseg,
+                                           const void* const* seg_src, const long long* seg_mstride, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (nseg < 0 || nseg > kHaloSegs) return cudaErrorInvalidValue;
+  if ((coef != nullptr ? M : 1) * B * X * Y * Z == 0) return cudaSuccess;
+  if (dtype == 0)
+    return dispatch_halo<float>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, map, nseg, seg_src,
+                                seg_mstride, s);
+  if (dtype == 1)
+    return dispatch_halo<double>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, map, nseg, seg_src,
+                                 seg_mstride, s);
+  return cudaErrorInvalidValue;
+}
+
 // The ghost fill, in place into dst. kind: 0 = copy (same-level and coarse
 // sources; src_slot, src_cell (rows,)), 1 = fine (src_slot (rows,), src_cell
 // (rows, 8)), 2 = values (src an (rows, Q) array; valid (rows,) bytes, or
@@ -670,7 +951,7 @@ extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* 
   return cudaErrorInvalidValue;
 }
 
-// which: 0 = stencil (variant = trt + 2 * slots + 4 * members), 1 = fill (variant = kind). out[5]:
+// which: 0 = stencil (variant = trt + 2 * slots + 4 * members + 8 * halo), 1 = fill (variant = kind). out[5]:
 // registers, local bytes, static shared bytes, CTAs per SM, threads per CTA.
 extern "C" int lbm_kernel_attrs(int which, int dtype, int Q, int variant, int* out) {
   if (dtype == 0 && Q == 19) return attrs_q<float, 19>(which, variant, out);

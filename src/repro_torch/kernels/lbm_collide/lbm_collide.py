@@ -39,14 +39,26 @@ launched raises; nothing falls back.
   inbound halo message, in the message's own row order. Given member
   stacks ``(M, B, Q, X, Y, Z)`` it fills the segment of all M members in
   one launch (grid y is the member), through one set of index tables.
+* The halo route of :func:`lbm_stream_collide` (``halo`` and ``sources``)
+  replaces ``lbm_stream_collide_halo_pallas`` (``_halo_kernel``) on the
+  fused and serving paths: one launch a filled level, the stencil reading
+  each ghost value it pulls from that value's source in the pre-step stacks
+  (halo in tile) through the level's :class:`HaloMap`, bitwise the fill
+  then the stencil. Bound: bytes, the halo step's (the stencil's, less the
+  ghost rows it need not read, plus the other levels' source cells). A
+  separate fill pays a 32-byte sector a value for the z-face rows, whose
+  cells and sources lie alone in their sectors, and writes them back; the
+  route writes no ghost cell, and its grid runs 8 blocks' CTAs of one x
+  plane together, so that a z-face source row, which its neighbour's CTA
+  reads whole, is an L2 hit. It works solo and over a member axis.
 * :func:`lbm_stream_collide_halo` replaces ``lbm_stream_collide_halo_pallas``
-  (``_halo_kernel``) at its interface: the padded (B, P, Q) ghost slab.
-  Its CUDA path is the fill kernel reading the slab's valid rows, then the
-  stencil, two launches on one stream: on the TPU one grid step owned a
-  whole block; here a block spans many CTAs, so the launch boundary orders
-  the fill before any neighbour read. The caller must treat ``f`` as
-  consumed. The main path does not build the slab: it runs
-  :func:`lbm_halo_fill` for every level first, then the stencils.
+  at its interface: the padded (B, P, Q) ghost slab. Its CUDA path is the
+  fill kernel reading the slab's valid rows, then the stencil, two launches
+  on one stream: on the TPU one grid step owned a whole block; here a block
+  spans many CTAs, so the launch boundary orders the fill before any
+  neighbour read. The caller must treat ``f`` as consumed. No path builds
+  the slab; the rank paths run :func:`lbm_halo_fill` for every level
+  first, then the stencils.
 
 The stencil wrappers allocate their output with ``torch.empty``; the
 stencil pulls from its input, so it cannot run in place. PyTorch's caching
@@ -56,7 +68,10 @@ makes successive steps a ping-pong between two buffers per level.
 Launch counts: each wrapper carries a plain integer ``launches`` that it
 bumps where it launches its kernel, and nowhere else; beside it,
 ``lbm_stream_collide.slot_launches`` counts the launches over a slot list,
-``lbm_stream_collide.member_launches`` those over a member axis, and
+``lbm_stream_collide.member_launches`` those over a member axis,
+``lbm_stream_collide.halo_launches`` those of the halo route (solo and
+over members) and ``lbm_stream_collide.halo_member_launches`` those of them
+over a member axis, and
 ``lbm_halo_fill.kind_launches`` the fill launches by kind (``copy`` for
 ``same``/``coarse``, ``fine``, ``values``; ``copy+members`` and
 ``fine+members`` over a member axis). :func:`reset_launches` zeroes them
@@ -66,6 +81,7 @@ all.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Sequence
 from dataclasses import dataclass
 
 import numpy as np
@@ -76,6 +92,7 @@ from .ref import (
     _np_dtype,
     collision_coeffs,
     halo_fill_ref,
+    halo_stream_collide_ref,
     stack_coeffs,
     stream_collide_halo_ref,
     stream_collide_into,
@@ -85,6 +102,7 @@ __all__ = [
     "lbm_stream_collide",
     "lbm_stream_collide_halo",
     "lbm_halo_fill",
+    "HaloMap",
     "MemberCoeffs",
     "member_coeffs",
     "kernel_attributes",
@@ -171,6 +189,36 @@ def member_coeffs(
     return MemberCoeffs(lattice, collision, stack_coeffs(per), table)
 
 
+# a row's source: segment << 58 | fine << 57 | stage << 56 | element offset
+HALO_SEG_SHIFT = 58
+HALO_FINE_BIT = 57
+HALO_STAGE_BIT = 56
+HALO_MAX_SEGMENTS = 3  # same, coarse, fine
+
+
+@dataclass(frozen=True)
+class HaloMap:
+    """One level's ghost fill as the halo route of :func:`lbm_stream_collide`
+    reads it, built once per superstep build by :func:`~.ops.halo_map`.
+
+    ``cells`` is a (B, X, Y, Z) int64 map over the level's blocks: where a
+    cell has a fill row, ``k << HALO_SEG_SHIFT | fine << HALO_FINE_BIT |
+    stage << HALO_STAGE_BIT | o``, with ``o`` the element offset of the
+    row's source cell (direction 0) in the stack of ``tables[k]``, ``fine``
+    1 for a ``fine`` row, whose octet starts there, in the canonical order,
+    and ``stage`` 1 for a ``fine`` row whose cell reads its own values
+    under ``mask`` (it or a neighbour is not fluid); -1 everywhere else.
+    ``tables`` are the level's :class:`~.ops.FillTable` segments, at most
+    :data:`HALO_MAX_SEGMENTS`: ``src`` (the source stack's position in the
+    route's ``sources``) and ``kind``, and the index tensors that the plain
+    version reads. ``mask`` is the cell-type stack the map was built from;
+    the route takes only that one."""
+
+    cells: torch.Tensor
+    tables: tuple
+    mask: torch.Tensor
+
+
 def _check_block_stack(f: torch.Tensor, Q: int) -> None:
     if f.dim() != 5 or f.shape[1] != Q:
         raise ValueError(f"a block stack must be (B, {Q}, X, Y, Z), got {tuple(f.shape)}")
@@ -245,9 +293,12 @@ def lbm_stream_collide(
     slots: torch.Tensor | None = None,
     out: torch.Tensor | None = None,
     members: MemberCoeffs | None = None,
+    halo: HaloMap | None = None,
+    sources: Sequence[torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Fused stream+collide over a stack of blocks, or over the member
-    stacks of an ensemble.
+    stacks of an ensemble, optionally with the ghost ring read through a
+    halo map (halo in tile).
 
     Args:
       f:       (B, Q, X, Y, Z) post-collision PDFs (ghost layer included);
@@ -263,12 +314,34 @@ def lbm_stream_collide(
                an index outside it). Blocks not listed are left as ``out``
                has them. Not with ``members``.
       out:     optional output shaped like ``f``, ``f``'s dtype and device;
-               it must not be ``f`` (the stencil pulls from its input).
+               it must not be ``f`` (the stencil pulls from its input), and
+               on the halo route it must not overlap ``f`` or a source.
       members: optional :class:`MemberCoeffs` of the M members, its table
                on ``f``'s device in ``f``'s dtype.
+      halo:    optional :class:`HaloMap` of ``f``'s level, with ``sources``:
+               the step then computes the stencil of ``f`` with every cell
+               that has a fill row holding its filled value, read from the
+               row's source (one cell, or an octet's mean) instead of from
+               ``f``. ``f`` and the sources are only read. Not with
+               ``slots``.
+      sources: the pre-step stacks the halo map's tables index (the
+               superstep's buffer tuple, ``f`` among them), each ``f``'s
+               dtype, device and block shape; member stacks with
+               ``members``.
     Returns:
       ``out``, or a new tensor when it is not given.
     """
+    if (halo is None) != (sources is None):
+        raise ValueError("a halo map and its sources come together")
+    if halo is not None:
+        if slots is not None:
+            raise ValueError("the halo route takes no slot list")
+        if members is not None and omega is not None:
+            raise ValueError("a member stack takes its coefficients from members")
+        if members is None and omega is None:
+            raise TypeError("the halo route needs omega, or members for a member stack")
+        kw = dict(omega=omega, lattice=lattice, u_wall=u_wall, collision=collision, magic=magic)
+        return _stream_collide_halo(f, mask, halo, tuple(sources), out, members, kw)
     if members is not None:
         if omega is not None or slots is not None:
             raise ValueError("a member stack takes its coefficients from members, and no slot list")
@@ -304,19 +377,26 @@ def _check_out(f: torch.Tensor, out: torch.Tensor | None) -> None:
             raise ValueError("out must not be f: the stencil pulls from its input")
 
 
+def _check_members(f: torch.Tensor, mask: torch.Tensor, members: MemberCoeffs) -> None:
+    lattice = members.lattice
+    if f.dim() != 6 or f.shape[0] != members.size:
+        raise ValueError(f"a member stack must be ({members.size}, B, {lattice.Q}, X, Y, Z), got {tuple(f.shape)}")
+    _check(f[0], mask, lattice)
+    table = members.table
+    M = f.shape[0]
+    if tuple(table.shape) != (M, lattice.Q + 2) or table.dtype != f.dtype or table.device != f.device:
+        raise ValueError(f"the member table must be ({M}, {lattice.Q + 2}) {f.dtype} on {f.device}, "
+                         f"got {tuple(table.shape)} {table.dtype} {table.device}")
+
+
 def _stream_collide_members(
     f: torch.Tensor, mask: torch.Tensor, members: MemberCoeffs, out: torch.Tensor | None
 ) -> torch.Tensor:
     """The member route of :func:`lbm_stream_collide`."""
     lattice = members.lattice
-    if f.dim() != 6 or f.shape[0] != members.size:
-        raise ValueError(f"a member stack must be ({members.size}, B, {lattice.Q}, X, Y, Z), got {tuple(f.shape)}")
+    _check_members(f, mask, members)
     M, B = f.shape[:2]
-    _check(f[0], mask, lattice)
     table = members.table
-    if tuple(table.shape) != (M, lattice.Q + 2) or table.dtype != f.dtype or table.device != f.device:
-        raise ValueError(f"the member table must be ({M}, {lattice.Q + 2}) {f.dtype} on {f.device}, "
-                         f"got {tuple(table.shape)} {table.dtype} {table.device}")
     _check_out(f, out)
     if f.device.type == "cpu":
         return stream_collide_into(f, mask, members.host, lattice=lattice, collision=members.collision, out=out)
@@ -333,6 +413,89 @@ def _stream_collide_members(
     _raise_on(err, "lbm_stream_collide (members)")
     lbm_stream_collide.launches += 1
     lbm_stream_collide.member_launches += 1
+    return out
+
+
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    """The bytes ``[first, end)`` that ``t``'s elements lie within."""
+    if t.numel() == 0:
+        return 0, 0
+    last = sum((size - 1) * stride for size, stride in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    (a0, a1), (b0, b1) = _span(a), _span(b)
+    return a.device == b.device and a0 < b1 and b0 < a1
+
+
+def _check_halo(f: torch.Tensor, mask: torch.Tensor, halo: HaloMap, sources: tuple, lead: int) -> None:
+    """The halo route's operands beyond the stencil's."""
+    cells = halo.cells
+    if tuple(cells.shape) != tuple(mask.shape) or cells.dtype != torch.int64 or cells.device != f.device:
+        raise ValueError(f"the halo map must be {tuple(mask.shape)} int64 on {f.device}, "
+                         f"got {tuple(cells.shape)} {cells.dtype} {cells.device}")
+    m = halo.mask
+    if (m.device, m.data_ptr(), m.shape, m.stride()) != (mask.device, mask.data_ptr(), mask.shape, mask.stride()):
+        raise ValueError("the halo map was built from another mask (its stage marks follow the mask)")
+    if not 0 < len(halo.tables) <= HALO_MAX_SEGMENTS:
+        raise ValueError(f"a halo map takes 1 to {HALO_MAX_SEGMENTS} segments, got {len(halo.tables)}")
+    for t in halo.tables:
+        if t.kind not in ("same", "coarse", "fine") or not 0 <= t.src < len(sources):
+            raise ValueError(f"a halo segment's kind must be same, coarse or fine and its source a position "
+                             f"in sources, got {t.kind!r}, {t.src}")
+        src = sources[t.src]
+        if (src.dim() != f.dim() or src.shape[:lead] != f.shape[:lead] or src.shape[lead + 1:] != f.shape[lead + 1:]
+                or src.dtype != f.dtype or src.device != f.device):
+            raise ValueError(f"source {t.src} {tuple(src.shape)} {src.dtype} does not match f {tuple(f.shape)} {f.dtype}")
+
+
+def _stream_collide_halo(f, mask, halo: HaloMap, sources: tuple, out, members: MemberCoeffs | None, kw: dict):
+    """The halo route of :func:`lbm_stream_collide`, solo or over members."""
+    lead = int(members is not None)
+    if members is not None:
+        _check_members(f, mask, members)
+        lattice, collision, coeffs = members.lattice, members.collision, members.host
+        trt, om_a, om_b = int(collision == "trt"), 0.0, 0.0  # from the member table
+        lid = np.zeros(lattice.Q)
+    else:
+        lattice, collision = kw["lattice"], kw["collision"]
+        _check(f, mask, lattice)
+        coeffs, (trt, om_a, om_b), lid = _kernel_args(f.dtype, **kw)
+    _check_out(f, out)
+    _check_halo(f, mask, halo, sources, lead)
+    if out is not None and any(_overlap(out, t) for t in (f, *sources)):
+        # the kernel stages a fine cell's means in its own slots of out, and
+        # other CTAs read the sources while it runs
+        raise ValueError("out must not overlap f or a source stack")
+    if f.device.type == "cpu":
+        return halo_stream_collide_ref(f, mask, coeffs, halo.tables, sources, lattice=lattice,
+                                       collision=collision, out=out)
+    srcs = [sources[t.src] for t in halo.tables]
+    stack = f[0] if lead else f
+    _check_card_operands(stack, f, mask, halo.cells, *srcs, *(t for t in (out,) if t is not None),
+                         *((members.table,) if lead else ()))
+    lib = _library()
+    if out is None:
+        out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
+    nseg = len(halo.tables)
+    pointers = ctypes.c_void_p * HALO_MAX_SEGMENTS
+    B, _Q, X, Y, Z = stack.shape
+    with torch.cuda.device(f.device):
+        err = lib.lbm_stream_collide_halo_map(
+            _DTYPE_CODE[f.dtype], lattice.Q, trt, f.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            members.table.data_ptr() if lead else None, f.shape[0] if lead else 1, B, X, Y, Z,
+            om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p), halo.cells.data_ptr(), nseg,
+            pointers(*(s.data_ptr() for s in srcs)),
+            (ctypes.c_longlong * HALO_MAX_SEGMENTS)(*(s[0].numel() if lead else 0 for s in srcs)),
+            _stream_ptr(f.device),
+        )
+    _raise_on(err, "lbm_stream_collide (halo)")
+    lbm_stream_collide.launches += 1
+    lbm_stream_collide.halo_launches += 1
+    if lead:
+        lbm_stream_collide.member_launches += 1
+        lbm_stream_collide.halo_member_launches += 1
     return out
 
 
@@ -486,6 +649,8 @@ def reset_launches() -> None:
     lbm_stream_collide.launches = 0
     lbm_stream_collide.slot_launches = 0
     lbm_stream_collide.member_launches = 0
+    lbm_stream_collide.halo_launches = 0
+    lbm_stream_collide.halo_member_launches = 0
     lbm_halo_fill.launches = 0
     lbm_halo_fill.kind_launches = dict.fromkeys(_KIND_NAMES + _MEMBER_KIND_NAMES, 0)
     lbm_stream_collide_halo.launches = 0
@@ -503,7 +668,9 @@ def kernel_attributes() -> list[dict]:
     rows = []
     out = (ctypes.c_int * 5)()
     variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"), (2, "bgk+slots"), (3, "trt+slots"),
-                                                        (4, "bgk+members"), (5, "trt+members"))]
+                                                        (4, "bgk+members"), (5, "trt+members"), (8, "bgk+halo"),
+                                                        (9, "trt+halo"), (12, "bgk+halo+members"),
+                                                        (13, "trt+halo+members"))]
     variants += [("fill", 1, v, name) for v, name in ((0, "copy"), (1, "fine"), (_FILL_VALUES, "values"))]
     for dtype, dcode in (("f32", 0), ("f64", 1)):
         for Q in (19, 27):

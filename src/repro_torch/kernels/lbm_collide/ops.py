@@ -8,18 +8,18 @@ model) are closed over, so a step takes only the block stack and the mask.
 
 The compiled superstep implements the halo-in-tile data plane: every active
 level's ghost fill is merged into one fill (:func:`~..lbm.halo.lower_halo_fill`)
-and run as the first phase of that level's halo step
-(:func:`make_halo_stream_collide`). On the ``cuda`` backend the fill kernel
-reads each segment's sources straight from the source level's pre-step
-buffer and writes the destination's ghost ring in place; on the ``ref``
-backend the fill values are gathered with PyTorch index ops and scattered
-into a copy. A coarse step is a plain Python loop over its ``2^lmax``
-substeps with no host transfer in it.
+and folded into that level's halo step (:func:`make_halo_stream_collide`).
+On the ``cuda`` backend the step is one launch of the stencil's halo route,
+which reads each ghost value from its source in the substep's pre-step
+buffers through the level's :func:`halo_map`, with no fill launch; on the
+``ref`` backend the fill values are gathered with PyTorch index ops and
+scattered into a copy. A coarse step is a plain Python loop over its
+``2^lmax`` substeps with no host transfer in it.
 
 The ensemble superstep (:func:`make_ensemble_superstep`) is the fused
 superstep over an ensemble's member stacks ``(M, B, Q, X, Y, Z)``: the same
-fills and stencils, each launched once for all M members through the
-kernels' member axis, with per-member coefficients as operands.
+halo steps and stencils, each launched once for all M members through the
+kernel's member axis, with per-member coefficients as operands.
 
 The rank-sharded entry points (:func:`make_rank_emit`,
 :func:`make_rank_absorb`, :func:`make_rank_absorb_split`) run one rank's
@@ -39,6 +39,7 @@ rank absorbs on its own device.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -47,7 +48,15 @@ import torch
 
 from ...lbm.halo import lower_halo_fill
 from ...lbm.lattice import D3Q19, Lattice
-from .lbm_collide import MemberCoeffs, lbm_halo_fill, lbm_stream_collide
+from .lbm_collide import (
+    HALO_FINE_BIT,
+    HALO_SEG_SHIFT,
+    HALO_STAGE_BIT,
+    HaloMap,
+    MemberCoeffs,
+    lbm_halo_fill,
+    lbm_stream_collide,
+)
 from .ref import (
     _np_dtype,
     collision_coeffs,
@@ -64,6 +73,7 @@ __all__ = [
     "make_halo_stream_collide",
     "fill_tables",
     "FillTable",
+    "halo_map",
     "HaloStep",
     "apply_compiled_ghost_plan",
     "make_fused_superstep",
@@ -229,6 +239,45 @@ def fill_tables(fill, level_index: dict[int, int], device: torch.device | str) -
     return tuple(tables)
 
 
+def halo_map(tables: tuple[FillTable, ...], mask: torch.Tensor, Q: int) -> HaloMap:
+    """The halo route's map of one level's fill, built once per superstep
+    build beside its :func:`fill_tables`, on their device: the target of
+    each row of ``tables[k]`` holds ``k << HALO_SEG_SHIFT`` (and a fine
+    row's ``1 << HALO_FINE_BIT``) or'ed with the element offset of the row's
+    source cell (a fine row's octet base) in a source stack of ``Q``
+    directions, every other cell of the level -1. ``mask`` is the level's
+    (B, X, Y, Z) cell-type stack on the tables' device, the one the route
+    is launched with: a fine row's target also holds ``1 <<
+    HALO_STAGE_BIT`` where the stencil reads the cell's own values, that is
+    where the cell or one of its 26 neighbours (wrapped within the block,
+    as the stencil wraps) is not fluid. A fine row's octet must be the
+    canonical 2 x 2 x 2 cube at its base (checked), so that the base alone
+    names it."""
+    dev = tables[0].dst_slot.device
+    if mask.dim() != 4 or mask.device != dev:
+        raise ValueError(f"the mask must be a (B, X, Y, Z) stack on {dev}, got {tuple(mask.shape)} on {mask.device}")
+    nblocks, *dims = mask.shape
+    n = int(np.prod(dims))
+    _X, Y, Z = dims
+    octet = torch.tensor([dx * Y * Z + dy * Z + dz for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)], device=dev)
+    solid = mask != 0
+    reads = solid.clone()
+    for shift in itertools.product((-1, 0, 1), repeat=3):
+        reads |= torch.roll(solid, shift, dims=(1, 2, 3))
+    reads = reads.reshape(-1)
+    cells = torch.full((nblocks * n,), -1, dtype=torch.int64, device=dev)
+    for k, t in enumerate(tables):
+        base = t.src_cell.long()
+        dst = t.dst_slot.long() * n + t.dst_cell.long()
+        value = t.src_slot.long() * (Q * n) | k << HALO_SEG_SHIFT
+        if t.kind == "fine":
+            assert torch.equal(base - base[:, :1], octet.expand_as(base)), "a fine row's octet is not canonical"
+            base = base[:, 0]
+            value = value | 1 << HALO_FINE_BIT | reads[dst].long() << HALO_STAGE_BIT
+        cells[dst] = value + base
+    return HaloMap(cells.view(nblocks, *dims), tables, mask)
+
+
 # repro: host-ok(build-time check over host plan arrays, once per branch build)
 def _assert_fills_disjoint(
     fills: dict, level_index: dict[int, int], nblocks: list[int], cells: int, messages=()
@@ -274,9 +323,10 @@ def _same_fill(a, b) -> bool:
 
 @dataclass(frozen=True)
 class HaloStep:
-    """One level's halo step in two phases. ``fill(bufs)`` runs, for every
-    level that has a fill, before any level of the substep steps, and
-    returns what ``step(f, filled)`` needs to finish the level."""
+    """One level's halo step in two phases. ``fill(pdfs)`` runs on the
+    substep's pre-step tuple, for every level that has a fill, before any
+    level of the substep steps, and returns what ``step(f, filled)`` needs
+    to finish the level."""
 
     fill: Callable[[list], object]
     step: Callable[[torch.Tensor, object], torch.Tensor]
@@ -299,13 +349,15 @@ def make_halo_stream_collide(
     (a :class:`~..lbm.halo.LevelHaloFill`) and the stream+collide stencil.
 
     ``level_index`` maps levels to positions in the superstep's buffer
-    tuple. On the ``cuda`` backend ``fill(bufs)`` launches
-    :func:`~.lbm_collide.lbm_halo_fill` once per segment (sources read from
-    the pre-step buffers, the destination's ghost ring written in place) and
-    ``step`` is the stencil. On the ``ref`` backend ``fill(bufs)`` gathers
-    the ``(N, Q)`` fill values and ``step`` scatters them into a copy of
-    ``f`` feeding the stencil, with the streaming selectors precomputed on
-    the host (:func:`~.ref.precompute_stream_masks`).
+    tuple. On the ``cuda`` backend ``fill(pdfs)`` only hands on the pre-step
+    tuple, and ``step`` is one launch of the stencil's halo route
+    (:func:`~.lbm_collide.lbm_stream_collide` with the level's
+    :func:`halo_map`): each ghost value it needs is read from its source in
+    the pre-step stacks, and no buffer is written but the output. On the
+    ``ref`` backend ``fill(pdfs)`` gathers the ``(N, Q)`` fill values and
+    ``step`` scatters them into a copy of ``f`` feeding the stencil, with
+    the streaming selectors precomputed on the host
+    (:func:`~.ref.precompute_stream_masks`).
 
     ``mask`` is the level's host ``(B, X, Y, Z)`` cell-type stack, closed
     over as a constant (programs are rebuilt on mask refresh / AMR events).
@@ -317,18 +369,13 @@ def make_halo_stream_collide(
     kw = dict(omega=omega, lattice=lattice, u_wall=u_wall, collision=collision, magic=magic)
 
     if backend == "cuda":
-        tables = fill_tables(fill, level_index, device)
-        dst = level_index[fill.dst_level]
         mask_t = torch.as_tensor(mask, device=device)
+        hmap = halo_map(fill_tables(fill, level_index, device), mask_t, lattice.Q)
 
-        def fill_in_place(bufs):
-            for t in tables:
-                lbm_halo_fill(bufs[dst], bufs[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+        def step(f: torch.Tensor, pdfs: tuple) -> torch.Tensor:
+            return lbm_stream_collide(f, mask_t, halo=hmap, sources=pdfs, **kw)
 
-        def step(f: torch.Tensor, _filled) -> torch.Tensor:
-            return lbm_stream_collide(f, mask_t, **kw)
-
-        return HaloStep(fill_in_place, step)
+        return HaloStep(lambda pdfs: pdfs, step)
 
     pm = {
         k: torch.as_tensor(v, device=device)
@@ -445,17 +492,20 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
     therefore just ``lmax+1`` distinct *activity patterns*, each built once
     as a branch. A branch runs the halo-in-tile schedule: every active
     level's ghost fill is merged into one fill
-    (:func:`~..lbm.halo.lower_halo_fill`); every level's fill runs first,
-    reading the pre-step buffers, and then every level steps, finest first.
-    Sources are interior cells, targets ghost cells, and no target repeats
-    (asserted on the host when the branch is built), so this equals the
-    sequential per-op schedule bit for bit even though the ``cuda`` fill
-    writes its targets in place. A level whose fill is the same in several
-    patterns (the finest level's, in practice) gets one halo step, built
-    once and shared by those branches. The fills must all come first: a fill
-    after another level stepped would read a buffer that the caching
-    allocator may already have handed out again. The substeps run as a
-    plain Python loop; nothing touches the host.
+    (:func:`~..lbm.halo.lower_halo_fill`), and every active level steps,
+    finest first, each reading its sources from the substep's pre-step
+    tuple. On the ``cuda`` backend a level with a fill is one launch of the
+    stencil's halo route, which reads each ghost value from its source;
+    on ``ref`` every level's fill values are gathered first, then each
+    level scatters them into a copy and steps. Sources are interior cells,
+    targets ghost cells, and no target repeats (asserted on the host when
+    the branch is built), so this equals the sequential per-op schedule bit
+    for bit. A level whose fill is the same in several patterns (the finest
+    level's, in practice) gets one halo step, built once and shared by those
+    branches. The pre-step tuple stays referenced until the branch returns,
+    so the caching allocator cannot hand a source stack out again while a
+    later level still reads it. The substeps run as a plain Python loop;
+    nothing touches the host.
 
     The superstep consumes its input tuple: callers rebind the result
     (``pdfs = superstep(pdfs)``) and never read the arrays they passed in.
@@ -475,7 +525,9 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
         ``superstep(pdfs: tuple) -> tuple`` advancing one coarse step;
         ``pdfs`` holds one (B, Q, X, Y, Z) tensor per level, ascending.
         Its ``fill_segments`` attribute counts the fill segments a coarse
-        step runs (the ``cuda`` backend's fill launches).
+        step runs (the ``ref`` backend's gathers), ``halo_steps`` the
+        (substep, level) steps with a fill (the ``cuda`` backend's halo
+        launches; it launches no fill).
     """
     levels = tuple(sorted(levels))
     index = {l: i for i, l in enumerate(levels)}
@@ -503,16 +555,17 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
 
         def branch(pdfs):
             bufs = list(pdfs)
-            filled = {l: hsteps[l].fill(bufs) for l in filling}
+            filled = {l: hsteps[l].fill(pdfs) for l in filling}
             for l in active:  # finest first
                 i = index[l]
                 if l in fills:
-                    bufs[i] = hsteps[l].step(bufs[i], filled[l])
+                    bufs[i] = hsteps[l].step(pdfs[i], filled[l])
                 else:
-                    bufs[i] = steppers[l](bufs[i], masks_t[i])
+                    bufs[i] = steppers[l](pdfs[i], masks_t[i])
             return tuple(bufs)
 
         branch.fill_segments = sum(len(f.segments) for f in fills.values())
+        branch.halo_steps = len(filling)
         return branch
 
     branches = [make_branch(p) for p in range(lmax + 1)]
@@ -525,6 +578,7 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
         return pdfs
 
     superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
+    superstep.halo_steps = sum(branches[p].halo_steps for p in pattern)
     return superstep
 
 
@@ -544,22 +598,22 @@ def make_ensemble_superstep(
 
     The counterpart of the JAX package's ``vmap`` over members. The
     schedule is the fused superstep's: the same ``lmax+1`` activity
-    patterns, every level's merged fill first (each distinct level fill
-    lowered once and shared by the patterns that run it, the fills checked
-    disjoint on the host), then every active level's stencil, finest first.
-    On the ``cuda`` backend each (level, segment) fill is one
-    :func:`~.lbm_collide.lbm_halo_fill` launch and each level's stencil one
-    :func:`~.lbm_collide.lbm_stream_collide` launch for **all** members
-    (the kernels' member axis), so a batch launches exactly what one
-    member's fused coarse step launches, whatever M is. On the ``ref``
-    backend the same fills and stencils run as the plain versions over the
-    member axis (:func:`~.ref.halo_fill_ref`, a gather and a scatter a
-    segment, and :func:`~.ref.stream_collide_into`). Either way member
-    ``m`` of the result has the bits of a solo fused superstep with
-    ``m``'s coefficients: coefficients are rounded to the field's dtype on
-    the host and only ever multiply (``ref.py``), the fills write ghost
-    cells from interior cells, and every kernel is block-local and
-    fixed-order.
+    patterns (each distinct level fill lowered once and shared by the
+    patterns that run it, the fills checked disjoint on the host), every
+    active level stepped finest first from the substep's pre-step tuple.
+    On the ``cuda`` backend a level with a fill is one launch of the
+    stencil's halo route (:func:`~.lbm_collide.lbm_stream_collide` with
+    ``halo`` and ``members``) and a level without one a member stencil
+    launch, each for **all** members (the kernel's member axis), so a batch
+    launches exactly what one member's fused coarse step launches, whatever
+    M is. On the ``ref`` backend every level's fill runs first as the plain
+    fill over the member axis (:func:`~.ref.halo_fill_ref`, a gather and a
+    scatter a segment, in place into the pre-step stacks), then the plain
+    stencils (:func:`~.ref.stream_collide_into`). Either way member ``m``
+    of the result has the bits of a solo fused superstep with ``m``'s
+    coefficients: coefficients are rounded to the field's dtype on the host
+    and only ever multiply (``ref.py``), the fills write ghost cells from
+    interior cells, and every kernel is block-local and fixed-order.
 
     Args:
         levels: refinement levels in use (ascending buffer-tuple order).
@@ -577,8 +631,10 @@ def make_ensemble_superstep(
         coarse step: ``pdfs`` holds one ``(M, B, Q, X, Y, Z)`` tensor per
         level (ascending), ``coeffs`` maps level ->
         :class:`~.lbm_collide.MemberCoeffs` of the M members. It consumes
-        its input tuple. Its ``fill_segments`` and ``stencils`` attributes
-        count the fill and stencil launches of a coarse step on ``cuda``.
+        its input tuple. Its ``stencils`` attribute counts the stencil
+        launches of a coarse step on ``cuda``, ``halo_steps`` those of them
+        through the halo route, and ``fill_segments`` the fill segments
+        (the ``ref`` backend's fills; ``cuda`` launches no fill).
     """
     _check_backend(backend)
     device = torch.device(device)
@@ -590,49 +646,54 @@ def make_ensemble_superstep(
     masks_t = tuple(torch.tensor(m, device=device) for m in masks_host)  # copies
     nblocks = [m.shape[0] for m in masks_host]
     cells = int(np.prod(masks_host[0].shape[1:]))
-    if backend == "cuda":
-        fill_fn = lbm_halo_fill
+    built: dict[int, list] = {}  # level -> [(fill, tables or halo map)] of earlier branches
 
-        def step(f: torch.Tensor, mask: torch.Tensor, c: MemberCoeffs) -> torch.Tensor:
-            return lbm_stream_collide(f, mask, members=c)
-
-    else:
-        fill_fn = halo_fill_ref
-
-        def step(f: torch.Tensor, mask: torch.Tensor, c: MemberCoeffs) -> torch.Tensor:
-            return stream_collide_into(f, mask, c.host, lattice=lattice, collision=collision)
-
-    built: dict[int, list] = {}  # level -> [(fill, tables)] of earlier branches
-
-    def tables_of(l: int, fill) -> tuple[FillTable, ...]:
-        """The fill's tables, shared by every branch with the same fill."""
-        for other, tables in built.setdefault(l, []):
+    def lowered(l: int, fill):
+        """The fill's tables (``ref``) or halo map (``cuda``), shared by
+        every branch with the same fill."""
+        for other, low in built.setdefault(l, []):
             if _same_fill(fill, other):
-                return tables
-        tables = fill_tables(fill, index, device)
-        built[l].append((fill, tables))
-        return tables
+                return low
+        low = fill_tables(fill, index, device)
+        if backend == "cuda":
+            low = halo_map(low, masks_t[index[l]], lattice.Q)
+        built[l].append((fill, low))
+        return low
 
     def make_branch(p: int):
         active = tuple(sorted((l for l in levels if l >= lmax - p), reverse=True))
         fills = lower_halo_fill(plans[p])
         assert set(fills) <= set(active), (sorted(fills), active)
         _assert_fills_disjoint(fills, index, nblocks, cells)
-        tables = {l: tables_of(l, f) for l, f in fills.items()}
+        low = {l: lowered(l, f) for l, f in fills.items()}
         filling = [l for l in active if l in fills]  # finest first
 
-        def branch(pdfs, coeffs):
-            bufs = list(pdfs)
-            for l in filling:  # every fill reads the pre-step buffers
-                i = index[l]
-                for t in tables[l]:
-                    fill_fn(bufs[i], bufs[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
-            for l in active:  # finest first
-                i = index[l]
-                bufs[i] = step(bufs[i], masks_t[i], coeffs[l])
-            return tuple(bufs)
+        if backend == "cuda":
+
+            def branch(pdfs, coeffs):
+                bufs = list(pdfs)
+                for l in active:  # finest first, every level from the pre-step tuple
+                    i = index[l]
+                    halo = dict(halo=low[l], sources=pdfs) if l in low else {}
+                    bufs[i] = lbm_stream_collide(pdfs[i], masks_t[i], members=coeffs[l], **halo)
+                return tuple(bufs)
+
+        else:
+
+            def branch(pdfs, coeffs):
+                bufs = list(pdfs)
+                for l in filling:  # every fill reads the pre-step buffers
+                    i = index[l]
+                    for t in low[l]:
+                        halo_fill_ref(bufs[i], bufs[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+                for l in active:  # finest first
+                    i = index[l]
+                    bufs[i] = stream_collide_into(bufs[i], masks_t[i], coeffs[l].host, lattice=lattice,
+                                                  collision=collision)
+                return tuple(bufs)
 
         branch.fill_segments = sum(len(f.segments) for f in fills.values())
+        branch.halo_steps = len(filling)
         branch.stencils = len(active)
         return branch
 
@@ -646,6 +707,7 @@ def make_ensemble_superstep(
         return pdfs
 
     superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
+    superstep.halo_steps = sum(branches[p].halo_steps for p in pattern)
     superstep.stencils = sum(branches[p].stencils for p in pattern)
     return superstep
 

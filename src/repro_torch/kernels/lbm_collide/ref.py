@@ -47,6 +47,7 @@ __all__ = [
     "stream_collide_into",
     "stream_collide_halo_ref",
     "halo_fill_ref",
+    "halo_stream_collide_ref",
     "collision_coeffs",
     "stack_coeffs",
     "precompute_stream_masks",
@@ -356,6 +357,29 @@ def halo_fill_ref(
     else:
         raise ValueError(f"unknown fill segment kind {kind!r}")
     flat_dst[target] = vals
+
+
+def halo_stream_collide_ref(
+    f: torch.Tensor,
+    mask: torch.Tensor,
+    coeffs: dict,
+    tables,
+    sources,
+    *,
+    lattice: Lattice = D3Q19,
+    collision: str = "bgk",
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The halo route's function: a clone of ``f`` filled segment by
+    segment with :func:`halo_fill_ref` (each table's ``kind``, targets and
+    source indices, its source stack ``sources[table.src]``), then
+    :func:`stream_collide_into` on the clone. ``f`` and every source stack
+    are left as they are. With member stacks (M, B, Q, X, Y, Z) every member
+    is filled through the same tables."""
+    filled = f.clone()
+    for t in tables:
+        halo_fill_ref(filled, sources[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+    return stream_collide_into(filled, mask, coeffs, lattice=lattice, collision=collision, out=out)
 
 
 def _np_dtype(dtype: torch.dtype):

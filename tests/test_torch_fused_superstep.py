@@ -113,23 +113,27 @@ def test_modes_match_restack_bitwise(restack, mode, backend):
 
 
 def test_fused_cuda_backend_fills_from_sources_before_any_stencil(monkeypatch):
-    """On the ``cuda`` backend a substep runs every level's from-sources fill
-    first and then the stencils; nothing gathers fill values."""
+    """On the ``cuda`` backend the fill from sources is folded into the
+    stencil: a substep launches one halo-route stencil per active level with
+    a fill, reading its ghost values from the substep's pre-step tuple, and
+    a plain stencil per other active level; nothing fills and nothing
+    gathers fill values."""
     calls = []
-    fill, stencil = ops.lbm_halo_fill, ops.lbm_stream_collide
-
-    def spy_fill(dst, *args):
-        calls.append("fill")
-        fill(dst, *args)
+    stencil = ops.lbm_stream_collide
 
     def spy_stencil(f, mask, **kw):
-        calls.append("stencil")
+        sources = kw.get("sources")
+        # the tuple itself is kept, so that no two substeps' tuples share an id
+        calls.append(("halo", sources, any(s is f for s in sources)) if kw.get("halo") else ("stencil",))
         return stencil(f, mask, **kw)
+
+    def no_fill(*args):
+        raise AssertionError("the cuda backend launched a separate fill")
 
     def no_gather(*args):
         raise AssertionError("the cuda backend gathered fill values")
 
-    monkeypatch.setattr(ops, "lbm_halo_fill", spy_fill)
+    monkeypatch.setattr(ops, "lbm_halo_fill", no_fill)
     monkeypatch.setattr(ops, "lbm_stream_collide", spy_stencil)
     monkeypatch.setattr(ops, "_concat_vals", no_gather)
     sim = AMRLBM(LidDrivenCavityConfig(nranks=1, stepping_mode="fused", kernel_backend="cuda", **BASE))
@@ -139,10 +143,15 @@ def test_fused_cuda_backend_fills_from_sources_before_any_stencil(monkeypatch):
     calls.clear()
     fn, levels = sim.engine._fused_program()
     sim.advance(1)
-    assert calls.count("fill") == fn.fill_segments > 0
-    # per substep: a run of fills, then a run of stencils
-    runs = [k for i, k in enumerate(calls) if i == 0 or calls[i - 1] != k]
-    assert runs == ["fill", "stencil"] * (1 << max(levels))
+    halo = [c for c in calls if c[0] == "halo"]
+    assert len(halo) == fn.halo_steps > 0
+    # each halo step steps a stack of the tuple it reads its sources from
+    assert all(c[2] for c in halo)
+    # one stencil launch per active level a substep
+    lmax = max(levels)
+    assert len(calls) == sum(len([l for l in levels if l >= lmax - p]) for p in _substep_patterns(lmax))
+    # the finest level's halo steps of successive substeps read successive tuples
+    assert len({id(c[1]) for c in halo}) == 1 << lmax
 
 
 def test_fused_steady_state_performs_zero_host_transfers():

@@ -21,8 +21,15 @@ from repro_torch.kernels.lbm_collide.lbm_collide import (
     lbm_stream_collide_halo,
     member_coeffs,
 )
-from repro_torch.kernels.lbm_collide.ops import _pad_fill_layout, fill_tables
-from repro_torch.kernels.lbm_collide.ref import CT_LID, CT_WALL, halo_fill_ref, stream_collide_ref
+from repro_torch.kernels.lbm_collide.ops import FillTable, _pad_fill_layout, fill_tables, halo_map
+from repro_torch.kernels.lbm_collide.ref import (
+    CT_LID,
+    CT_WALL,
+    collision_coeffs,
+    halo_fill_ref,
+    halo_stream_collide_ref,
+    stream_collide_ref,
+)
 from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
 from repro_torch.lbm.lattice import D3Q19, D3Q27
 from repro_torch.models import build_model
@@ -345,6 +352,98 @@ def test_member_fill_equals_solo_launches_on_card(lattice, dtype):
                     torch.testing.assert_close(got[m], want, rtol=0, atol=0)
     assert kinds == {"same", "coarse", "fine"}
     assert lbm_halo_fill.kind_launches["copy+members"] > 0 and lbm_halo_fill.kind_launches["fine+members"] > 0
+
+
+def _fill_then_stencil(f, mask, tables, sources, **kw):
+    """Today's two launches: the fill kernel into a clone, then the stencil."""
+    g = f.clone()
+    for t in tables:
+        lbm_halo_fill(g, sources[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+    return lbm_stream_collide(g, mask, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collision", ["bgk", "trt"])
+@pytest.mark.parametrize("lattice", [D3Q19, D3Q27], ids=["d3q19", "d3q27"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_halo_route_matches_fill_then_stencil_on_card(dtype, lattice, collision):
+    """Every level fill of every branch of a three-level forest (same,
+    coarse and fine rows), walls and a lid in the ghost ring: the halo route
+    equals the fill kernel then the stencil kernel bitwise over the whole
+    buffer, ghost ring included, solo and over M members (and those M solo
+    launches), and its plain version within the
+    stencil's tolerance (the plain stencil sums moments in another order)."""
+    _require_card()
+    forest, reg, arena = refined_forest(cells=(6, 4, 8))
+    index = {l: i for i, l in enumerate(arena.levels())}
+    rng = np.random.default_rng(9)
+    bufs = tuple(random_buffers(rng, arena, lattice.Q, dtype, device="cuda"))
+    M = len(_PHYSICS)
+    stacks = tuple(torch.stack([b * (1 + 1e-3 * m) for m in range(M)]) for b in bufs)
+    kw = dict(omega=1.4, lattice=lattice, collision=collision, u_wall=(0.05, 0.01, 0.0))
+    mc = member_coeffs([o for o, _u in _PHYSICS], [u for _o, u in _PHYSICS], lattice=lattice,
+                       collision=collision, dtype=bufs[0].dtype, device="cuda")
+    kinds = set()
+    for fills in branch_fills(forest, reg, {l: arena.slots(l) for l in arena.levels()}):
+        for l, fill in fills.items():
+            i = index[l]
+            f = bufs[i]
+            mask = torch.from_numpy((rng.random((f.shape[0], *f.shape[2:])) < 0.08).astype(np.int32))
+            mask[:, :, :, -1] = CT_LID
+            mask = mask.cuda()
+            tables = fill_tables(fill, index, "cuda")
+            kinds |= {t.kind for t in tables}
+            hm = halo_map(tables, mask, lattice.Q)
+            want = _fill_then_stencil(f, mask, tables, bufs, **kw)
+            want_m = _fill_then_stencil(stacks[i], mask, tables, stacks, members=mc)
+            n0 = (lbm_stream_collide.halo_launches, lbm_stream_collide.halo_member_launches)
+            got = lbm_stream_collide(f, mask, halo=hm, sources=bufs, **kw)
+            got_m = lbm_stream_collide(stacks[i], mask, members=mc, halo=hm, sources=stacks)
+            torch.cuda.synchronize()
+            assert (lbm_stream_collide.halo_launches, lbm_stream_collide.halo_member_launches) == (
+                n0[0] + 2, n0[1] + 1)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            torch.testing.assert_close(got_m, want_m, rtol=0, atol=0)
+            for m, (omega, u_wall) in enumerate(_PHYSICS):
+                solo = lbm_stream_collide(stacks[i][m], mask, halo=hm, sources=tuple(s[m] for s in stacks),
+                                          omega=omega, u_wall=u_wall, lattice=lattice, collision=collision)
+                torch.testing.assert_close(got_m[m], solo, rtol=0, atol=0)
+            coeffs = collision_coeffs(1.4, lattice=lattice, u_wall=(0.05, 0.01, 0.0), collision=collision,
+                                      dtype=dtype)
+            plain = halo_stream_collide_ref(f, mask, coeffs, tables, bufs, lattice=lattice, collision=collision)
+            torch.testing.assert_close(got, plain, **TOL[dtype])
+    assert kinds == {"same", "coarse", "fine"}
+
+
+@pytest.mark.gpu
+def test_halo_member_grid_chunks_past_65535_blocks_on_card():
+    """More than 65,535 groups of 8 blocks over M members, the last group
+    short: the halo launch chunks grid z, and every chunk's blocks still
+    find their member, mask block, map block and sources (a same-level fill
+    from the next block's interior into each block's x = 0 face)."""
+    _require_card()
+    rng = np.random.default_rng(8)
+    B, dims, M = 175_001, (3, 2, 3), len(_PHYSICS)
+    X, Y, Z = dims
+    n = X * Y * Z
+    states = [_random_state(rng, B, D3Q19, dims, np.float32) for _ in range(M)]
+    fd = torch.from_numpy(np.stack([f for f, _m in states])).cuda()
+    md = torch.from_numpy(states[0][1]).cuda()
+    face = np.array([(0 * Y + y) * Z + z for y in range(Y) for z in range(Z)], dtype=np.int32)
+    inner = np.array([(1 * Y + 1) * Z + 1 + (k % 2) for k in range(face.size)], dtype=np.int32)
+    slots = np.arange(B, dtype=np.int32)
+    tables = (FillTable(0, "same", *(torch.as_tensor(a, device="cuda") for a in (
+        np.repeat(slots, face.size), np.tile(face, B), np.repeat((slots + 1) % B, face.size), np.tile(inner, B)))),)
+    hm = halo_map(tables, md, D3Q19.Q)
+    mc = member_coeffs([o for o, _u in _PHYSICS], [u for _o, u in _PHYSICS], collision="trt",
+                       dtype=torch.float32, device="cuda")
+    assert M * B > 65_535 * 8 and M * B % 8
+    got = lbm_stream_collide(fd, md, members=mc, halo=hm, sources=(fd,))
+    want = _fill_then_stencil(fd, md, tables, (fd,), members=mc)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for m, (omega, u_wall) in enumerate(_PHYSICS):
+        solo = lbm_stream_collide(fd[m], md, halo=hm, sources=(fd[m],), omega=omega, u_wall=u_wall, collision="trt")
+        torch.testing.assert_close(got[m], solo, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

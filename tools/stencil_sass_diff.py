@@ -8,7 +8,8 @@ Needs ``nvcc`` and ``cuobjdump`` (CUDA toolkit under ``CUDA_HOME``, default
 ``/usr/local/cuda``); no card. Each source is compiled to a cubin for
 ``sm_90a`` with the build's optimisation flags, its SASS dumped, and every
 ``stream_collide_kernel`` instantiation of the old source matched to the
-new one's by (dtype, Q, TRT, SLOTS) with no member axis. Instruction text
+new one's by (dtype, Q, TRT, SLOTS) with no member axis and no halo map
+(sources older than either template parameter lack it). Instruction text
 is compared with addresses and encodings stripped. Prints one line per
 instantiation and exits 1 when any differs or is missing.
 """
@@ -25,8 +26,9 @@ import tempfile
 from pathlib import Path
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin")
-# dtype, Q, TRT, SLOTS and (newer sources only) MEMBERS of a mangled name
-_NAME = re.compile(r"stream_collide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?")
+# dtype, Q, TRT, SLOTS and (newer sources only) MEMBERS and HALO of a
+# mangled name
+_NAME = re.compile(r"stream_collide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?(?:Lb([01])E)?")
 
 
 def _tool(name: str) -> str:
@@ -44,7 +46,7 @@ def solo_stencils(source: Path, workdir: Path) -> dict[tuple, list[str]]:
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             m = _NAME.search(head.group(1))
-            current = None if m is None or m.group(5) == "1" else m.groups()[:4]
+            current = None if m is None or "1" in (m.group(5), m.group(6)) else m.groups()[:4]
             if current is not None:
                 funcs[current] = []
             continue

@@ -436,9 +436,42 @@ def fill_traffic(tables, cells: int) -> dict:
                 rows_by_kind={t.kind: t.dst_slot.numel() for t in tables})
 
 
-# a stencil instantiation's demangled name: its SLOTS, MEMBERS and HALO
+def route_traffic(local_tables, msg_tables, listed, own: int, cells: int) -> dict:
+    """What a rank route over the ``listed`` blocks of its level must move
+    beside the stencil of those blocks, each item once: the ghost rows of
+    the listed blocks (whose values in the level's own buffer it need not
+    read), the distinct source cells of their local rows outside the listed
+    blocks (``own`` is the level's position among the sources), the distinct
+    payload rows they name, and their int32 index bytes."""
+    keep = torch.zeros(int(max(listed)) + 1 if len(listed) else 1, dtype=torch.bool)
+    keep[torch.as_tensor(np.asarray(listed, np.int64))] = True
+    rows = index_bytes = 0
+    src_keys, payload_keys = [], []
+    for t in (*local_tables, *msg_tables):
+        ds = t.dst_slot.cpu().long()
+        sel = (ds < keep.numel()) & keep[ds.clamp(max=keep.numel() - 1)]
+        n = int(sel.sum())
+        rows += n
+        arrays = [a for a in (t.dst_slot, t.dst_cell, t.src_slot, t.src_cell) if a is not None]
+        index_bytes += sum(n * (a[0].numel() if a.dim() == 2 else 1) * a.element_size() for a in arrays)
+        cell = t.src_cell.cpu().numpy()[sel.numpy()].astype(np.int64)
+        if t.kind == "values":
+            payload_keys.append(t.src * (1 << 40) + cell)
+            continue
+        slot = t.src_slot.cpu().numpy()[sel.numpy()].astype(np.int64)
+        if cell.ndim == 2:
+            slot = np.repeat(slot, cell.shape[1])
+        inside = (t.src == own) & np.isin(slot, np.asarray(listed))
+        src_keys.append((t.src * (1 << 40) + slot * cells + cell.ravel())[~inside])
+    distinct = lambda keys: int(np.unique(np.concatenate(keys)).size) if keys else 0  # noqa: E731
+    return dict(rows=rows, src_outside=distinct(src_keys), payload_rows=distinct(payload_keys),
+                index_bytes=index_bytes)
+
+
+# a stencil instantiation's demangled name: its SLOTS, MEMBERS, HALO and
+# PAYLOADS
 STENCIL_NAME = re.compile(r"stream_collide_kernel<[^,>]+, *\d+, *(?:true|false), *(true|false), *(true|false), "
-                          r"*(true|false)>")
+                          r"*(true|false), *(true|false)>")
 FILL_CLASSES = ("x-face", "y-row", "z-face", "edge/corner")
 
 
@@ -1609,6 +1642,7 @@ def main(lm: bool = True) -> int:
     from repro_torch.analysis.engine_plans import verify_engine_plans
     from repro_torch.kernels.lbm_collide import build as kbuild
     from repro_torch.kernels.lbm_collide.lbm_collide import (
+        HaloMap,
         kernel_attributes,
         lbm_halo_fill,
         lbm_stream_collide,
@@ -1621,15 +1655,18 @@ def main(lm: bool = True) -> int:
         _concat_vals,
         _lower_fill_gathers,
         _pad_fill_layout,
+        _rank_rows,
         _same_fill,
         boundary_slot_sets,
         fill_tables,
         halo_map,
         make_stream_collide,
+        message_tables,
     )
     from repro_torch.kernels.lbm_collide.ref import (
         collision_coeffs,
         halo_fill_ref,
+        halo_stream_collide_ref,
         stream_collide_coeffs,
         stream_collide_into,
         stream_collide_ref,
@@ -1648,6 +1685,7 @@ def main(lm: bool = True) -> int:
         out["lbm_stream_collide[slots]"] = lbm_stream_collide.slot_launches
         out["lbm_stream_collide[members]"] = lbm_stream_collide.member_launches
         out["lbm_stream_collide[halo]"] = lbm_stream_collide.halo_launches
+        out["lbm_stream_collide[halo+slots]"] = lbm_stream_collide.halo_slot_launches
         out["lbm_stream_collide[halo+members]"] = lbm_stream_collide.halo_member_launches
         out.update({f"lbm_halo_fill[{k}]": n for k, n in lbm_halo_fill.kind_launches.items()})
         out["lbm_halo_fill[members]"] = sum(n for k, n in lbm_halo_fill.kind_launches.items() if k.endswith("+members"))
@@ -1661,9 +1699,9 @@ def main(lm: bool = True) -> int:
 
     # -- 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path, log = kbuild.build()
-    kbuild.load_library()
-    say(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s (one nvcc, sm_90a)")
+    lib_paths, log = kbuild.build()
+    say(f"build: {', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.2f} s "
+        f"({len(lib_paths)} nvcc at once, one a (dtype, Q) part, sm_90a)")
     if log:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -1687,7 +1725,9 @@ def main(lm: bool = True) -> int:
     main_fills = [r for r in attrs if r["kernel"] == "fill" and r["dtype"] == "f32" and r["Q"] == 19
                   and r["variant"] in ("copy", "fine")]
     halo_stencils = {v: next(r for r in attrs if r["kernel"] == "stencil" and r["variant"] == v
-                             and r["dtype"] == "f32" and r["Q"] == 19) for v in ("trt+halo", "trt+halo+members")}
+                             and r["dtype"] == "f32" and r["Q"] == 19)
+                     for v in ("trt+halo", "trt+halo+payloads", "trt+slots+halo", "trt+slots+halo+payloads",
+                               "trt+halo+members")}
 
     # -- 2. main paths: the full cavity, fused, arena and fused_sharded -----------
     def blocks_per_level(sim) -> dict:
@@ -1800,9 +1840,10 @@ def main(lm: bool = True) -> int:
             check(bool(np.isfinite(sim.spec.interior(b.data["pdf"])).all()), "finite interior pdfs")
         return sim, launches, forests, dict(peak_gb=peak_gb, rate=rate, comm=comm)
 
-    # fused: every level's fill from its sources, then every level's stencil;
+    # fused: one halo-route launch a filled level, a stencil a level without;
     # arena: the stencil alone, with a host round trip every substep;
     # fused_sharded: the same kernels per rank, with device-built messages
+    # read by the halo route, over slot lists in the split
     # the protocol verifier's findings at the AMR events of the fused and
     # fused_sharded runs, read in phase 2c
     protocol_at = {"fused": [], "fused_sharded": []}
@@ -1816,9 +1857,10 @@ def main(lm: bool = True) -> int:
     del _arena_sim
     fs, fs_launches, fs_forests, fs_info = drive_cavity("fused_sharded", protocol=protocol_at["fused_sharded"])
     check(fs.engine.split, "fused_sharded splits interior and boundary blocks on the card")
-    for key in ("lbm_stream_collide", "lbm_stream_collide[slots]", "lbm_halo_fill[copy]",
-                "lbm_halo_fill[fine]", "lbm_halo_fill[values]"):
+    for key in ("lbm_stream_collide", "lbm_stream_collide[slots]", "lbm_stream_collide[halo]",
+                "lbm_stream_collide[halo+slots]"):
         check(fs_launches[key] > 0, f"{key} launched on the fused_sharded path")
+    check(fs_launches["lbm_halo_fill"] == 0, "no separate fill launched on the fused_sharded path")
     check(fs_forests == fused_forests, "fused_sharded grew the fused forest at every AMR event")
     fused_blocks = {b.bid: b for b in sim.forest.all_blocks()}
     for b in fs.forest.all_blocks():
@@ -1830,8 +1872,9 @@ def main(lm: bool = True) -> int:
     # device_sharded: the 4 ranks share the one card, as fused_sharded's do
     ds, ds_launches, ds_forests, ds_info = drive_cavity("device_sharded", rank_devices=SHARED_CARD)
     check(ds.engine.rank_devices == (torch.device("cuda:0"),) * FULL_CAVITY["nranks"], "every rank on cuda:0")
-    for key in ("lbm_stream_collide", "lbm_halo_fill[copy]", "lbm_halo_fill[fine]", "lbm_halo_fill[values]"):
+    for key in ("lbm_stream_collide", "lbm_stream_collide[halo]"):
         check(ds_launches[key] > 0, f"{key} launched on the device_sharded path")
+    check(ds_launches["lbm_halo_fill"] == 0, "no separate fill launched on the device_sharded path")
     check(ds_forests == fused_forests, "device_sharded grew the fused forest at every AMR event")
     for b in ds.forest.all_blocks():
         check(np.array_equal(ds.spec.interior(b.data["pdf"]), sim.spec.interior(fused_blocks[b.bid].data["pdf"])),
@@ -1916,36 +1959,50 @@ def main(lm: bool = True) -> int:
         f"{disjoint_s:.3f} s, fill tables of all {n_fills} (pattern, level) fills {tables_s:.3f} s "
         f"(the build makes tables for the {len(distinct)} distinct ones)")
 
-    # where a steady fused_sharded coarse step spends device time: stencils
-    # (whole and slot list), fills by kind, and the emit gathers
+    # where a steady fused_sharded coarse step spends device time: the halo
+    # route and the plain stencil (whole and over slot lists), the emit
+    # gathers; no fill. Printed beside the same profile of the fills-then-
+    # stencils absorb (H100 80GB HBM3, 700 W: busy 30.314-30.339 ms, idle
+    # 54.9-57.6 %, 1,479 operations; PERF.md, section 6)
+    def rank_groups(rows) -> tuple[Counter, Counter]:
+        groups, group_ms = Counter(), Counter()
+        for name, ms, count in rows:
+            m_sten = STENCIL_NAME.search(name)
+            if "halo_fill_kernel" in name:
+                key = "fill"
+            elif m_sten:
+                key = ("halo route" if m_sten.group(3) == "true" else "stencil") + (
+                    " (slot list)" if m_sten.group(1) == "true" else "")
+            elif re.search(r"memcpy", name, re.IGNORECASE):
+                key = "payload copies"
+            else:
+                key = "emit gathers and other"
+            groups[key] += count
+            group_ms[key] += ms
+        return groups, group_ms
+
+    def map_bytes(steps) -> int:
+        return sum(h.map_bytes for h in {id(h): h for h in steps}.values())
+
     fs.advance(1)  # the rank programs are rebuilt after the last AMR event
     progs = fs.engine._programs()
-    fill_expect = sum(  # fill launches a coarse step, as the rank programs count them
-        fn.fill_segments for p in progs.pattern for table in (progs.absorbs, progs.interiors, progs.boundaries)
-        for fn in table[p].values()
-    )
-    values_expect = sum(len(m.scatter) for p in progs.pattern for r in progs.ranks for m in progs.recvs[p][r])
+    fs_programs = [fn for p in progs.pattern for table in (progs.absorbs, progs.interiors, progs.boundaries)
+                   for fn in table[p].values()]
+    fill_expect = sum(fn.fill_segments for fn in fs_programs)  # a coarse step's, as the programs count them
+    halo_expect = sum(fn.halo_steps for fn in fs_programs)
+    fs_maps = [h for f in progs.factories.values() for h in f.steps()]
+    say(f"[fused_sharded] rank maps after the last AMR event: {len(fs_maps)} distinct halo steps, "
+        f"{map_bytes(fs_maps) / 1e9:.4f} GB of maps (8 bytes a cell)")
     c0 = fs.comm.stats.summary()
     fs_host = []
     fs_rows, fs_busy_ms, fs_wall_ms = device_profile(lambda: fs.advance(2), fs_host)
     c1 = fs.comm.stats.summary()
+    groups, group_ms = rank_groups(fs_rows)
     say(f"[fused_sharded] profile of 2 steady coarse steps: device busy {fs_busy_ms:.3f} ms of "
-        f"{fs_wall_ms:.3f} ms wall, idle share {1 - fs_busy_ms / fs_wall_ms:.1%}")
+        f"{fs_wall_ms:.3f} ms wall, idle share {1 - fs_busy_ms / fs_wall_ms:.1%}, {sum(groups.values())} device "
+        f"operations (fills then stencils: busy 30.314-30.339 ms, idle 54.9-57.6 %, 1,479 operations)")
     for name, ms, count in fs_rows[:14]:
         say(f"  {ms:9.3f} ms {ms / fs_busy_ms:6.1%} x{count:<5d} {name[:110]}")
-    groups = Counter()
-    group_ms = Counter()
-    for name, ms, count in fs_rows:
-        m_fill = re.search(r"halo_fill_kernel<[^,>]+, *\d+, *(\d)>", name)
-        m_sten = STENCIL_NAME.search(name)
-        if m_fill:
-            key = "fill " + ("copy", "fine", "values")[int(m_fill.group(1))]
-        elif m_sten:
-            key = "stencil" + (" (slot list)" if m_sten.group(1) == "true" else "")
-        else:
-            key = "emit gathers and other"
-        groups[key] += count
-        group_ms[key] += ms
     for key in sorted(groups):
         say(f"[fused_sharded] {key}: {groups[key]} launches, {group_ms[key]:.3f} ms in 2 steady coarse steps")
     nsub2 = 2 * progs.nsub
@@ -1953,13 +2010,17 @@ def main(lm: bool = True) -> int:
         f"{(c1['p2p_messages'] - c0['p2p_messages']) / nsub2:.1f} messages per substep")
     banned = [r[0] for r in fs_rows if re.search(r"scatter|index_put", r[0], re.IGNORECASE)]
     check(not banned, f"no index scatter in the steady fused_sharded step: {banned}")
-    fills_seen = sum(groups[k] for k in groups if k.startswith("fill"))
-    check(fills_seen == 2 * fill_expect, f"fill launches {fills_seen} == the programs' count {2 * fill_expect}")
-    check(groups["fill values"] == 2 * values_expect, "one values fill per inbound message segment")
-    check(groups["stencil (slot list)"] > 0, "the slot-list stencil ran in the steady fused_sharded step")
+    halo_seen = groups["halo route"] + groups["halo route (slot list)"]
+    say(f"[fused_sharded] fill launches in 2 steady coarse steps: {groups['fill']}; halo-route launches {halo_seen} "
+        f"({groups['halo route (slot list)']} over slot lists; the programs count {2 * halo_expect})")
+    check(fill_expect == 0 and groups["fill"] == 0, "no fill launch in the steady fused_sharded step")
+    check(halo_seen == 2 * halo_expect, f"halo-route launches {halo_seen} == the programs' count {2 * halo_expect}")
+    check(groups["halo route (slot list)"] > 0, "the halo route over a slot list ran in the steady fused_sharded step")
 
-    # where a steady device_sharded coarse step spends device time: stencils
-    # over the padded stacks, fills by kind, emit gathers, payload copies
+    # where a steady device_sharded coarse step spends device time: the same
+    # kernels over the padded stacks, emit gathers, payload copies (fills
+    # then stencils: busy 30.675-30.691 ms, idle 45.5-47.3 %, 1,539
+    # operations)
     ds.advance(1)  # the device superstep is rebuilt after the last AMR event
     ds_progs = ds.engine._programs()
     ds_fn = ds_progs.fn
@@ -1970,33 +2031,25 @@ def main(lm: bool = True) -> int:
     say(f"[device_sharded] padded stacks {json.dumps(ds_counts)} a rank against real blocks per level "
         f"{json.dumps(dict(sorted(real.items())))}: the stencils step {padded_work} block-substeps a coarse step "
         f"for {real_work} real ones ({padded_work / real_work - 1:.1%} padding)")
+    ds_maps = ds_fn.halo_step_objects()
+    say(f"[device_sharded] rank maps after the last AMR event: {len(ds_maps)} distinct halo steps, "
+        f"{map_bytes(ds_maps) / 1e9:.4f} GB of maps (8 bytes a cell)")
     c0 = ds.comm.stats.summary()
     ds_host = []
     ds_rows, ds_busy_ms, ds_wall_ms = device_profile(lambda: ds.advance(2), ds_host)
     c1 = ds.comm.stats.summary()
+    ds_groups, ds_group_ms = rank_groups(ds_rows)
     say(f"[device_sharded] profile of 2 steady coarse steps: device busy {ds_busy_ms:.3f} ms of "
-        f"{ds_wall_ms:.3f} ms wall, idle share {1 - ds_busy_ms / ds_wall_ms:.1%}")
+        f"{ds_wall_ms:.3f} ms wall, idle share {1 - ds_busy_ms / ds_wall_ms:.1%}, {sum(ds_groups.values())} device "
+        f"operations (fills then stencils: busy 30.675-30.691 ms, idle 45.5-47.3 %, 1,539 operations)")
     for name, ms, count in ds_rows[:14]:
         say(f"  {ms:9.3f} ms {ms / ds_busy_ms:6.1%} x{count:<5d} {name[:110]}")
-    ds_groups = Counter()
-    ds_group_ms = Counter()
-    for name, ms, count in ds_rows:
-        m_fill = re.search(r"halo_fill_kernel<[^,>]+, *\d+, *(\d)>", name)
-        if m_fill:
-            key = "fill " + ("copy", "fine", "values")[int(m_fill.group(1))]
-        elif "stream_collide_kernel" in name:
-            key = "stencil"
-        elif re.search(r"memcpy", name, re.IGNORECASE):
-            key = "payload copies"
-        else:
-            key = "emit gathers and other"
-        ds_groups[key] += count
-        ds_group_ms[key] += ms
     for key in sorted(ds_groups):
         say(f"[device_sharded] {key}: {ds_groups[key]} launches, {ds_group_ms[key]:.3f} ms in 2 steady coarse steps")
-    say(f"[device_sharded] the superstep counts {2 * ds_fn.fill_segments} fill launches and "
-        f"{2 * ds_fn.payload_copies} payload copies in 2 coarse steps; {sum(ds_groups.values())} device "
-        f"operations in the profile (fused_sharded: {sum(groups.values())})")
+    ds_halo_seen = ds_groups["halo route"] + ds_groups["halo route (slot list)"]
+    say(f"[device_sharded] the superstep counts {2 * ds_fn.fill_segments} fill launches, {2 * ds_fn.halo_steps} "
+        f"halo-route launches and {2 * ds_fn.payload_copies} payload copies in 2 coarse steps; the profile holds "
+        f"{ds_groups['fill']} fills and {ds_halo_seen} halo-route launches")
     for label, host, wall in (("fused_sharded", fs_host, fs_wall_ms), ("device_sharded", ds_host, ds_wall_ms)):
         say(f"[{label}] host operators of the profile by self CPU time ({sum(r[1] for r in host):.3f} ms "
             f"in all, {wall:.3f} ms wall):")
@@ -2007,8 +2060,9 @@ def main(lm: bool = True) -> int:
         f"{(c1['p2p_messages'] - c0['p2p_messages']) / ds_nsub2:.1f} messages per substep")
     banned = [r[0] for r in ds_rows if re.search(r"scatter|index_put", r[0], re.IGNORECASE)]
     check(not banned, f"no index scatter in the steady device_sharded step: {banned}")
-    ds_fills = sum(ds_groups[k] for k in ds_groups if k.startswith("fill"))
-    check(ds_fills == 2 * ds_fn.fill_segments, f"fill launches {ds_fills} == the superstep's count {2 * ds_fn.fill_segments}")
+    check(ds_fn.fill_segments == 0 and ds_groups["fill"] == 0, "no fill launch in the steady device_sharded step")
+    check(ds_halo_seen == 2 * ds_fn.halo_steps,
+          f"halo-route launches {ds_halo_seen} == the superstep's count {2 * ds_fn.halo_steps}")
     del ds, ds_progs, ds_fn
 
     # the tracers: the full cavity in fused_sharded with 16,384 tracers
@@ -2432,8 +2486,10 @@ def main(lm: bool = True) -> int:
     say(f"[analysis] examples/trace_fused_sharded_torch.py main on the card: trace valid, "
         f"{len(twin_trace['traceEvents'])} events")
     analysis_launches = launch_counts()
-    for key in ("lbm_stream_collide", "lbm_halo_fill", "lbm_stream_collide[slots]", "lbm_halo_fill[values]"):
+    for key in ("lbm_stream_collide", "lbm_stream_collide[slots]", "lbm_stream_collide[halo]",
+                "lbm_stream_collide[halo+slots]"):
         check(analysis_launches[key] > 0, f"{key} launched in phase 2c")
+    check(analysis_launches["lbm_halo_fill"] == 0, "no separate fill launched in phase 2c")
     say(f"[analysis] kernel launches in phase 2c: {json.dumps(analysis_launches)}")
     say(f"[analysis] phase 2c wall time {time.perf_counter() - t_phase:.2f} s (plus phase 2's protocol checks, "
         f"{sum(sec for runs_ in protocol_at.values() for _, _, sec in runs_[:2]):.3f} s)")
@@ -2760,7 +2816,105 @@ def main(lm: bool = True) -> int:
         + ", ".join(f"{k} {m:.4f} ms ({q1:.4f}-{q3:.4f})" for k, (m, q1, q3) in kv.items())
         + f"; bound {kv_bound_ms:.5f} ms ({kv_bytes} bytes), {kv_bound_ms / kv_ms:.1%} of bound, "
         f"kernel / index_put_ {kv_ms / kv_library_ms:.3f}")
-    del got, want, payload, seg, out_s, fs_pdfs
+    del got, want, payload, seg
+
+    # the rank route: rank r_s's level-lmax halves of the pattern that
+    # activates every level (each over its slot list, reading its local rows
+    # and, in the boundary half, the rows of the payloads the senders' emits
+    # build from the real state), then its unsplit level; each against the
+    # same work done by fills, then the stencil (bitwise), as the
+    # factory-less absorb splits it: the interior half runs every local fill
+    # and the boundary half the values fills alone; against the plain
+    # version (within TOL); and its byte bound
+    recvs_s = fs_progs.recvs[p_all][r_s]
+    payloads_s = []
+    for m in recvs_s:
+        sends_m = fs_progs.sends[p_all][m.src_rank]
+        payloads_s.append(fs_progs.emits[p_all][m.src_rank](fs_pdfs[m.src_rank])[
+            next(i for i, x in enumerate(sends_m) if x is m)])
+    rl_s = fs_progs.rank_levels[r_s]
+    idx_s = {l: i for i, l in enumerate(rl_s)}
+    masks_s = {l: fs_res[r_s].fetch(l, "mask") for l in rl_s}
+    fills_s, inbound_s = _rank_rows(recvs_s, fs_progs.plans[p_all].local.get(r_s), idx_s, masks_s, set(rl_s))
+    check(lmax in fills_s and lmax in inbound_s, f"rank {r_s}'s level {lmax} has local and message rows")
+    local_t = fill_tables(fills_s[lmax], idx_s, "cuda")
+    msg_t = message_tables(inbound_s[lmax], len(rl_s), "cuda")
+    hm_r = halo_map(local_t + msg_t, m_r, lattice.Q)
+    hm_local = HaloMap(hm_r.cells, local_t, m_r)  # the interior half's view: local rows only
+    srcs_r = (*fs_pdfs[r_s], *payloads_s)
+    msg_segs = [(mi, off, n, torch.as_tensor(np.asarray(db, np.int32), device="cuda"),
+                 torch.as_tensor(np.asarray(dc, np.int32), device="cuda"))
+                for mi, db, dc, off, n in inbound_s[lmax]]
+    work_r = list(fs_pdfs[r_s])
+    work_r[i_s] = f_r.clone()  # the fills write their ghost cells in place, the same values each time
+    out_route, out_fill = torch.empty_like(f_r), torch.empty_like(f_r)
+    coeffs_r = collision_coeffs(kw["omega"], lattice=lattice, u_wall=cfg.u_lid, collision=cfg.collision,
+                                dtype=np.float32)
+    interior_np = np.setdiff1d(np.arange(f_r.shape[0], dtype=np.int32), slots_np)
+    interior_t = torch.as_tensor(interior_np, device="cuda")
+
+    def rank_route(slots, payloads):
+        if payloads:
+            return lbm_stream_collide(f_r, m_r, halo=hm_r, sources=srcs_r, slots=slots, out=out_route, **kw)
+        return lbm_stream_collide(f_r, m_r, halo=hm_local, sources=fs_pdfs[r_s], slots=slots, out=out_route, **kw)
+
+    def rank_fills_then_stencil(slots, local, values):
+        if local:
+            for t in local_t:
+                lbm_halo_fill(work_r[i_s], work_r[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+        if values:
+            for mi, off, n, db_t, dc_t in msg_segs:
+                lbm_halo_fill(work_r[i_s], payloads_s[mi][off: off + n], "values", db_t, dc_t)
+        return lbm_stream_collide(work_r[i_s], m_r, slots=slots, out=out_fill, **kw)
+
+    def plain_rank(slots, payloads):
+        return halo_stream_collide_ref(f_r, m_r, coeffs_r, local_t + msg_t if payloads else local_t,
+                                       srcs_r if payloads else fs_pdfs[r_s], lattice=lattice,
+                                       collision=cfg.collision, slots=slots)
+
+    # (label, slot list, listed blocks, reads payloads, the yardstick's local
+    # fills, its values fills); the interior half runs first, so that the
+    # boundary half's yardstick finds the local rows filled
+    rank_cases = (("interior half", interior_t, interior_np, False, True, False),
+                  ("boundary half", slots_t, slots_np, True, False, True),
+                  ("unsplit level", None, np.arange(f_r.shape[0]), True, True, True))
+    rank_rows = {}
+    for label, slots_arg, listed, pay, loc, val in rank_cases:
+        sel = torch.as_tensor(listed, dtype=torch.long, device="cuda")
+        route_fn = lambda s=slots_arg, p=pay: rank_route(s, p)  # noqa: E731
+        yard_fn = lambda s=slots_arg, a=loc, b=val: rank_fills_then_stencil(s, a, b)  # noqa: E731
+        got = route_fn()[sel].clone()
+        want_f = yard_fn()[sel]
+        torch.cuda.synchronize()
+        bitwise = max_err(got, want_f)
+        check(bitwise == 0.0, f"rank {r_s} level {lmax} {label}: the route equals the fills then the stencil "
+                              f"bitwise ({bitwise})")
+        plain = plain_rank(slots_arg, pay)[sel]
+        err = max_err(got, plain)
+        torch.testing.assert_close(got, plain, **TOL[torch.float32])
+        del got, want_f, plain
+        med = median_ms({"route": route_fn, "fills then stencil": yard_fn}, n=30)
+        plain_ms_ = time_ms(lambda s=slots_arg, p=pay: plain_rank(s, p), iters=2, warmup=1)
+        tr_r = route_traffic(local_t, msg_t if pay else (), listed, i_s, int(np.prod(f_r.shape[2:])))
+        extra = ((tr_r["src_outside"] + tr_r["payload_rows"] - tr_r["rows"]) * lattice.Q * f_r.element_size()
+                 + tr_r["index_bytes"])
+        bound_ms_, by_ = stencil_bound_ms(f_r[sel], m_r[sel], cfg.collision, extra_bytes=extra)
+        rank_rows[label] = dict(blocks=len(listed), ms=med["route"][0], fill_then_stencil_ms=med["fills then stencil"][0],
+                                quartiles={k: v[1:] for k, v in med.items()}, plain_ms=plain_ms_, bound_ms=bound_ms_,
+                                bound_by=by_, max_abs_err=err, max_abs_err_fill_then_stencil=bitwise, **tr_r)
+        yard = " + ".join(k for k, on in (("local fills", loc), ("values fills", val)) if on)
+        say(f"lbm_stream_collide[halo{'+slots' if slots_arg is not None else ''}] rank {r_s} level {lmax} {label} "
+            f"({len(listed)} of {f_r.shape[0]} blocks; {tr_r['rows']} ghost rows, {tr_r['payload_rows']} of them from "
+            f"{len(msg_t) if pay else 0} payloads, {len(local_t)} local segments; yardstick {yard} + stencil): "
+            f"max |err| {bitwise:.1e} against the fills then the stencil, {err:.3e} against plain; medians of 30 "
+            f"single calls in turn (quartiles): "
+            + ", ".join(f"{k} {m:.4f} ms ({q1:.4f}-{q3:.4f})" for k, (m, q1, q3) in med.items())
+            + f"; plain {plain_ms_:.4f} ms; bound {bound_ms_:.4f} ms ({by_}), {bound_ms_ / med['route'][0]:.1%} of bound")
+    halves_ms = [rank_rows[h][k] for k in ("ms", "fill_then_stencil_ms") for h in ("interior half", "boundary half")]
+    say(f"rank {r_s} level {lmax}: the two halves together take {halves_ms[0] + halves_ms[1]:.4f} ms on the route "
+        f"and {halves_ms[2] + halves_ms[3]:.4f} ms as fills then stencils (the same work on both sides); unsplit "
+        f"{rank_rows['unsplit level']['ms']:.4f} against {rank_rows['unsplit level']['fill_then_stencil_ms']:.4f} ms")
+    del out_route, out_fill, work_r, srcs_r, payloads_s, hm_r, out_s, fs_pdfs
 
     # the member routes at main-path shapes: the serving members' level-2
     # coefficients on M = 4 distinct states of the level-2 stack, stencil
@@ -3020,34 +3174,31 @@ def main(lm: bool = True) -> int:
              spills=halo_stencils["trt+halo+members"]["local_bytes"],
              occupancy=halo_stencils["trt+halo+members"]["occupancy"],
              shape=f"M={M} x level {lmax} B={B2} 34^3 D3Q19 TRT f32"),
-        # the halo kernel's first port: the from-sources fill of every
-        # segment (launches: lbm_halo_fill) followed by the stencil, on the
-        # rank paths (the fused and serving paths take the halo route)
-        dict(name="lbm_stream_collide_halo", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=fs_launches["lbm_halo_fill"], launches_by_path=path_launches("lbm_halo_fill"),
-             max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain_ms, bound_ms=k2_bound_ms, bound_by=k2_by, library_ms=None,
-             registers=max(r["registers"] for r in main_fills),
-             spills=max(r["local_bytes"] for r in main_fills),
-             entry="lbm_halo_fill (from sources) then lbm_stream_collide",
-             shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32",
-             fill_ms=fill_ms, fill_bound_ms=fill_bound_ms, slab_form_ms=slab_ms,
-             fill_split_ms={f"{c}/{kind}": ms for (c, kind), ms in sorted(split_ms.items())},
-             fill_z_face_share=z_share, copy_ms=copy_ms, copy_bytes=copy_bytes),
-        # the rank-sharded routes of the same two kernels on the
-        # fused_sharded path: the stencil over a slot list (interior and
-        # boundary halves), and the fill's values kind for inbound messages
+        # the halo kernel on the rank paths: a rank's level, its local rows
+        # and its inbound payloads' rows read through one map, over the
+        # slot list of a half (fused_sharded's split; unsplit in
+        # device_sharded and unsplit absorbs, counted under [halo])
+        dict(name="lbm_stream_collide[halo+slots]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
+             launches=fs_launches["lbm_stream_collide[halo+slots]"],
+             launches_by_path=path_launches("lbm_stream_collide[halo+slots]"),
+             max_abs_err=rank_rows["boundary half"]["max_abs_err"],
+             max_abs_err_fill_then_stencil=rank_rows["boundary half"]["max_abs_err_fill_then_stencil"],
+             ms=rank_rows["boundary half"]["ms"], fill_then_stencil_ms=rank_rows["boundary half"]["fill_then_stencil_ms"],
+             plain_ms=rank_rows["boundary half"]["plain_ms"], bound_ms=rank_rows["boundary half"]["bound_ms"],
+             bound_by=rank_rows["boundary half"]["bound_by"], library_ms=None,
+             registers=halo_stencils["trt+slots+halo+payloads"]["registers"],
+             spills=halo_stencils["trt+slots+halo+payloads"]["local_bytes"],
+             occupancy=halo_stencils["trt+slots+halo+payloads"]["occupancy"], rank_level=rank_rows,
+             shape=f"rank {r_s} level {lmax}: boundary half, {slots_np.size} of {f_r.shape[0]} blocks, "
+                   f"D3Q19 TRT f32"),
+        # the stencil over a slot list (interior and boundary halves of
+        # levels without rows)
         dict(name="lbm_stream_collide[slots]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
              launches=fs_launches["lbm_stream_collide[slots]"],
              launches_by_path=path_launches("lbm_stream_collide[slots]"), max_abs_err=ks_err,
              max_abs_err_whole_stack=ks_bitwise, ms=ks_ms, plain_ms=ks_plain_ms, bound_ms=ks_bound_ms,
              bound_by=ks_by, library_ms=None,
              shape=f"rank {r_s} level {lmax}: {slots_np.size} of {f_r.shape[0]} blocks, D3Q19 TRT f32"),
-        dict(name="lbm_halo_fill[values]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL2_REPLACES,
-             launches=fs_launches["lbm_halo_fill[values]"], launches_by_path=path_launches("lbm_halo_fill[values]"),
-             max_abs_err=kv_err, ms=kv_ms, plain_ms=kv_plain_ms, bound_ms=kv_bound_ms, bound_by="bytes",
-             library_ms=kv_library_ms, library="Tensor.index_put_",
-             shape=f"message {m_v.src_rank}->{r_v}, {n_v} rows x {lattice.Q} f32 into level {dl_v}"),
         # the member routes of both kernels on the serving path: one launch
         # for all members of an ensemble
         dict(name="lbm_stream_collide[members]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,

@@ -5,9 +5,9 @@
 //   * stream_collide_kernel <- repro/kernels/lbm_collide/lbm_collide.py
 //                              lbm_stream_collide_pallas (_kernel ->
 //                              _stream_collide_body)
-//   * stream_collide_kernel's HALO instantiations (the fused and serving
-//     paths), or halo_fill_kernel then stream_collide_kernel (the rank
-//     paths and the slab interface)
+//   * stream_collide_kernel's HALO instantiations (the fused, serving and
+//     rank paths), or halo_fill_kernel then stream_collide_kernel (the slab
+//     interface)
 //                           <- lbm_stream_collide_halo_pallas (_halo_kernel)
 //
 // What bounds both: bytes. Per cell the stencil reads Q pdfs and one int32
@@ -49,7 +49,8 @@
 //     of a stack's blocks in place of a gathered sub-stack: grid z indexes
 //     the list, and block slots[z] of f is read and of out written. The
 //     rank-sharded engine steps its interior blocks, then its boundary
-//     blocks, into one output tensor this way.
+//     blocks, into one output tensor this way, through a halo map where the
+//     level has fill rows (SLOTS and HALO together).
 //   * A member axis (the MEMBERS instantiations) steps M ensemble members
 //     that share one forest in one launch: f and out are (M * B, Q, X, Y, Z)
 //     views of an (M, B, ...) stack, grid z covers all M * B blocks, block
@@ -64,7 +65,7 @@
 // padded (B, P, Q) slab of ghost values a block, because one grid step
 // owned one block; on the card that slab is pure traffic. The halo route
 // (the HALO instantiations) folds the fill into the stencil instead, and
-// replaces the separate fill launches of the fused and serving paths:
+// replaces the separate fill launches of the fused, serving and rank paths:
 //   * what bounds a separate fill is the z faces. The layout is (B, Q, X,
 //     Y, Z) with z fastest, so a z-face ghost cell and its source each lie
 //     alone in a 32-byte sector of every q-plane: on a 34^3 block those
@@ -90,9 +91,21 @@
 //     kernel cost more in instruction fetch than the redirects themselves;
 //   * the output equals the fill then the stencil bitwise, ghost ring
 //     included: the stencil's arithmetic is the same code, and the fill's
-//     arithmetic is repeated exactly.
-// The separate fill (the rank paths, whose messages arrive between fills
-// and stencils, and the slab interface) reads its sources directly:
+//     arithmetic is repeated exactly;
+//   * a rank's inbound halo messages are segments too: a received (N, Q)
+//     payload, whose row i holds direction q at element i Q + q, is a
+//     segment of direction stride 1 (a stack's is X Y Z), and a message row
+//     is a copy row at offset row Q. So a rank's level, its local rows and
+//     the rows of every payload that reaches it, is one launch; a message
+//     row is read where the stencil pulls it, as a local row is, and no
+//     ghost cell of the pre-step buffers is written. A stride read from
+//     the segment cost a stacks-only launch (fused) 0.7 % against the
+//     constant X Y Z, so the launcher takes the PAYLOADS instantiations,
+//     which read it, only where a segment is a payload. Over a slot list
+//     (SLOTS and HALO) the listed blocks read the map at their own slots:
+//     a rank's interior half before its messages arrive, then its
+//     boundary half with the payloads bound.
+// The separate fill (the slab interface) reads its sources directly:
 //   * one thread per ghost row, rows sorted by (dst slot, dst cell) on the
 //     host, so for each q a warp's loads and stores fall on neighbouring
 //     cells of one q-plane; index arrays are int32;
@@ -101,8 +114,7 @@
 //     1/8 with round-to-nearest intrinsics (nothing contracted or
 //     reordered: bitwise the plain version's arithmetic), "values" rows read
 //     a row of an (N, Q) array (the slab interface, where a valid byte a row
-//     skips the pad rows, and a rank's inbound halo message, where the
-//     valid array is null and every row is written);
+//     skips the pad rows; with a null valid array every row is written);
 //   * it writes into the ghost ring of the destination buffer in place. A
 //     fill racing a stencil's read would be wrong, so the launch boundary
 //     orders them; fill targets are ghost cells and fill sources interior
@@ -113,10 +125,25 @@
 //
 // C interface: plain functions taking raw pointers and the CUDA stream,
 // returning cudaGetLastError() as an int, loaded from Python with ctypes.
+//
+// Parts: the build compiles this source once for each (dtype, Q) pair, all
+// at once, into a library a pair (LBM_PART_DTYPE: 0 float, 1 double;
+// LBM_PART_Q: 19 or 27), so that the build takes the longest part's time,
+// not the sum of all. A part instantiates only its pair's kernels, and its
+// entry points refuse another pair (cudaErrorInvalidValue). Both macros are
+// required.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#if !defined(LBM_PART_DTYPE) || !defined(LBM_PART_Q)
+#error "compile one (dtype, Q) part: define LBM_PART_DTYPE (0 or 1) and LBM_PART_Q (19 or 27)"
+#endif
+#define LBM_F32 (LBM_PART_DTYPE == 0)
+#define LBM_F64 (LBM_PART_DTYPE == 1)
+#define LBM_Q19 (LBM_PART_Q == 19)
+#define LBM_Q27 (LBM_PART_Q == 27)
 
 namespace {
 
@@ -221,11 +248,15 @@ constexpr int halo_min_ctas() {
 // other cell. stage marks a fine row whose cell reads its own values (it is
 // not fluid, or a neighbour is not: bounce-back), set by the host from the
 // mask.
-// A copy row's value of direction q is the element q n further on; a fine
-// row's is the mean of the octet starting there (offsets 0, 1, Z, Z + 1,
-// YZ, ..., YZ + Z + 1: the canonical order). src is the segment's pre-step
-// stack of member 0, mstride the elements between two members' stacks.
-constexpr int kHaloSegs = 3;
+// A copy row's value of direction q is the element q qstride further on
+// (qstride: X Y Z in a stack, 1 in an (N, Q) payload); a fine row's is the
+// mean of the octet starting there (offsets 0, 1, Z, Z + 1, YZ, ..., YZ +
+// Z + 1: the canonical order), always in a stack. src is the segment's
+// pre-step stack of member 0 or a payload, mstride the elements between
+// two members' stacks. A rank's level takes its local kinds (at most 3)
+// and one segment a payload that reaches it; the segment field's 5 bits
+// (58 to 62) bound the count at 32.
+constexpr int kHaloSegs = 32;
 // The HALO grid order: the CTAs of kHaloGroup consecutive blocks (a Morton
 // octet) at one x plane run together, then the next plane, then the next
 // group. The z-face source rows a block's ghost cells read are rows its
@@ -242,14 +273,25 @@ template <typename T>
 struct HaloSeg {
   const T* src;
   int64_t mstride;
+  int64_t qstride;
+};
+
+// A segment as a CTA stages it in shared memory: its member's source and
+// its direction stride, one 16-byte load a redirect.
+template <typename T>
+struct alignas(16) HaloSrc {
+  const T* src;
+  int q;
 };
 
 template <typename T>
 struct Halo {
   const int64_t* map;  // (B, X, Y, Z) of the level's blocks (shared by members)
   HaloSeg<T> seg[kHaloSegs];
+  int nseg;   // segments in use
   int group;  // kHaloGroup: the tiles of `group` blocks fastest, then x, then the block group
   int tiles;  // tiles a block plane
+  int count;  // SLOTS: the slot-list entries of the launch's chunk
 };
 
 // An 8-byte copy from global to shared memory that bypasses the registers
@@ -300,9 +342,10 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 // its instruction fetch cost a fifth of the member route's time. The
 // octet's 8 loads are issued together before the ordered sum: a fine row
 // waits for one round trip, not for eight.
-template <typename T>
-__device__ __forceinline__ T halo_value(const HaloSeg<T>* segs, int64_t e, int q, int n, int Z, int YZ) {
-  const T* __restrict__ p = segs[e >> kSegShift].src + (e & kOffMask) + static_cast<int64_t>(q) * n;
+template <typename T, bool PAYLOADS>
+__device__ __forceinline__ T halo_value(const HaloSrc<T>* segs, int64_t e, int q, int n, int Z, int YZ) {
+  const HaloSrc<T> s = segs[e >> kSegShift];
+  const T* __restrict__ p = s.src + (e & kOffMask) + static_cast<int64_t>(q) * (PAYLOADS ? s.q : n);
   if (!((e >> kFineBit) & 1)) return *p;
   // the 8 loads first, all in flight together, then the sum in order
   T v[8];
@@ -317,15 +360,17 @@ __device__ __forceinline__ T halo_value(const HaloSeg<T>* segs, int64_t e, int q
 // blockDim = (TZ, TY); grid = (tiles_y * tiles_z, X, B), or (..., X, S) over
 // a slot list of S entries, each in [0, nblocks) (checked; others step
 // nothing), or (..., X, chunk) over an M-member stack from block mem.b0 on.
-// HALO: (tiles_y * tiles_z * h.group, X, block groups of a chunk).
-template <typename T, int Q, bool TRT, bool SLOTS, bool MEMBERS, bool HALO>
+// HALO: (tiles_y * tiles_z * h.group, X, block groups of a chunk), the
+// groups over h.count slot-list entries with SLOTS. PAYLOADS: some segment
+// is a payload, so each segment's direction stride is read (else it is n).
+template <typename T, int Q, bool TRT, bool SLOTS, bool MEMBERS, bool HALO, bool PAYLOADS>
 __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : stencil_min_ctas<T, Q>()))
     stream_collide_kernel(const T* __restrict__ f, const int32_t* __restrict__ mask,
                           T* __restrict__ out, const int32_t* __restrict__ slots,
                           int nblocks, int X, int Y, int Z, int tiles_z, Coefs<T, Q> k,
                           Members<T> mem, Halo<T> h) {
   static_assert(!(SLOTS && MEMBERS), "a slot list and a member axis do not combine");
-  static_assert(!(SLOTS && HALO), "a slot list and a halo map do not combine");
+  static_assert(!PAYLOADS || (HALO && !MEMBERS), "payload segments need a halo map and no member axis");
   __shared__ uint8_t tile[kMaskTile];
   // the CTA's member's coefficients (lid[Q], om_a, om_b); a placeholder in
   // the solo instantiations, which read k instead
@@ -334,7 +379,7 @@ __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : sten
   // dynamic shared memory sized to it) and the CTA's segments, each source
   // offset to its member
   extern __shared__ int64_t hsrc[];
-  __shared__ HaloSeg<T> hseg[HALO ? kHaloSegs : 1];
+  __shared__ HaloSrc<T> hseg[HALO ? kHaloSegs : 1];
   const int TZ = blockDim.x;
   const int TY = blockDim.y;
   int ty_tile = blockIdx.x / tiles_z;  // uniform over the CTA
@@ -345,12 +390,13 @@ __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : sten
   int64_t b = blockIdx.z;
   int64_t b_mask = b;
   int member = 0;
-  // HALO: grid (tiles * group, X, groups); the CTA's block of the chunk
+  // HALO: grid (tiles * group, X, groups); the CTA's block (or slot-list
+  // entry) of the chunk
   unsigned hb = blockIdx.z;
   if constexpr (HALO) {
     const unsigned bg = blockIdx.x / h.tiles;  // one uniform division a CTA
     hb = blockIdx.z * h.group + bg;
-    if (hb >= static_cast<unsigned>(nblocks)) return;  // the last group's missing blocks
+    if (hb >= static_cast<unsigned>(SLOTS ? h.count : nblocks)) return;  // the last group's missing blocks
     ty_tile = (blockIdx.x - bg * h.tiles) / tiles_z;
     z0 = (blockIdx.x - bg * h.tiles - ty_tile * tiles_z) * TZ;
     y0 = ty_tile * TY;
@@ -358,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : sten
     b_mask = b;
   }
   if (SLOTS) {
-    b = slots[blockIdx.z];
+    b = slots[HALO ? hb : blockIdx.z];
     if (b < 0 || b >= nblocks) return;  // uniform over the CTA
     b_mask = b;
   }
@@ -375,15 +421,16 @@ __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : sten
     for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < Q + 2; i += blockDim.x * blockDim.y) mcoef[i] = row[i];
   }
   if constexpr (HALO) {
-    // one thread a segment, each entry of the by-value struct read at a
-    // compile-time index (a runtime index would copy it to local memory)
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    // the CTA's segments, each offset to its member, staged by one thread
+    // before the mask and pdf loads: each entry of the by-value struct is read at a
+    // compile-time index (a runtime index would copy it to local memory),
+    // and only the h.nseg in use
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
 #pragma unroll
-    for (int s = 0; s < kHaloSegs; ++s) {
-      if (tid == s) {
-        HaloSeg<T> seg = h.seg[s];
-        seg.src += member * seg.mstride;
-        hseg[s] = seg;
+      for (int s = 0; s < kHaloSegs; ++s) {
+        if (s == h.nseg) break;
+        const HaloSeg<T> seg = h.seg[s];
+        hseg[s] = HaloSrc<T>{seg.src + member * seg.mstride, static_cast<int>(seg.qstride)};
       }
     }
   }
@@ -474,30 +521,33 @@ __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : sten
   T* __restrict__ o = ob + cell;
   const int centre = (SY + threadIdx.y + 1) * SZ + threadIdx.x + 1;
   // HALO: where the thread's own values come from (they are read where the
-  // cell is not fluid or bounces back): its row's source cell for a copy
-  // row; for a fine row marked stage its Q octet means, staged in the
-  // cell's own output slots, which the step overwrites last. The Q means
-  // wait on Q round trips in turn, so only the fine cells that read them
-  // (few: most are fluid among fluid) stage them; an unmarked fine cell
-  // never reads fcb.
+  // cell is not fluid or bounces back), fq elements apart: its row's source
+  // cell for a copy row (a payload row's directions are adjacent); for a
+  // fine row marked stage its Q octet means, staged in the cell's own
+  // output slots, which the step overwrites last. The Q means wait on Q
+  // round trips in turn, so only the fine cells that read them (few: most
+  // are fluid among fluid) stage them; an unmarked fine cell never reads
+  // fcb.
   const T* fcb = fc;
+  int fq = n;
   if constexpr (HALO) {
     const int64_t own = hsrc[centre];
     if (own >= 0) {
-      const T* p = hseg[own >> kSegShift].src + (own & kOffMask);
+      const HaloSrc<T> s = hseg[own >> kSegShift];
       if ((own >> kStageBit) & 1) {
         T* st = ob + cell;
 #pragma unroll 1
-        for (int q = 0; q < Q; ++q) st[q * n] = halo_value<T>(hseg, own, q, n, Z, YZ);
+        for (int q = 0; q < Q; ++q) st[q * n] = halo_value<T, PAYLOADS>(hseg, own, q, n, Z, YZ);
         fcb = st;
       } else {
-        fcb = p;
+        fcb = s.src + (own & kOffMask);
+        if constexpr (PAYLOADS) fq = s.q;
       }
     }
   }
   if (tile[centre] != kFluid) {
 #pragma unroll
-    for (int q = 0; q < Q; ++q, o += n) *o = fcb[q * n];
+    for (int q = 0; q < Q; ++q, o += n) *o = fcb[q * fq];
     return;
   }
 
@@ -508,7 +558,7 @@ __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : sten
   for (int q = 0; q < Q; ++q) {
     const int ms = tile[centre - (cx_of(q) * SY + cy_of(q)) * SZ - cz_of(q)];
     if (ms != kFluid) {
-      fin[q] = fcb[opposite_of(q) * n];  // replaces the dead pulled value
+      fin[q] = fcb[opposite_of(q) * fq];  // replaces the dead pulled value
       if (ms == kLid) {
         if constexpr (MEMBERS) {
           fin[q] = fin[q] + mcoef[q];
@@ -521,7 +571,7 @@ __global__ void __launch_bounds__(kThreads, (HALO ? halo_min_ctas<T, Q>() : sten
       // source, one load that nothing waits on until the moments, so the
       // redirected loads of every direction are in flight together
       const int64_t e = hsrc[centre - (cx_of(q) * SY + cy_of(q)) * SZ - cz_of(q)];
-      if (e >= 0) fin[q] = halo_value<T>(hseg, e, q, n, Z, YZ);
+      if (e >= 0) fin[q] = halo_value<T, PAYLOADS>(hseg, e, q, n, Z, YZ);
     }
   }
 
@@ -661,11 +711,11 @@ cudaError_t launch_stencil(const void* f, const void* mask, void* out, const voi
     const int64_t nb = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
     const dim3 grid(t.tiles_y * t.tiles_z, X, static_cast<unsigned>(nb));
     if (slots != nullptr) {
-      stream_collide_kernel<T, Q, TRT, true, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
+      stream_collide_kernel<T, Q, TRT, true, false, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
           static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out),
           static_cast<const int32_t*>(slots) + b0, static_cast<int>(nblocks), X, Y, Z, t.tiles_z, k, none, no_halo);
     } else {
-      stream_collide_kernel<T, Q, TRT, false, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
+      stream_collide_kernel<T, Q, TRT, false, false, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
           static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
           static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, t.tiles_z, k, none, no_halo);
     }
@@ -688,7 +738,7 @@ cudaError_t launch_stencil_members(const void* f, const void* mask, void* out, c
     const int64_t nb = total - b0 < kMaxGridZ ? total - b0 : kMaxGridZ;
     const dim3 grid(t.tiles_y * t.tiles_z, X, static_cast<unsigned>(nb));
     const Members<T> mem{static_cast<const T*>(coef), static_cast<int>(B), static_cast<int>(b0)};
-    stream_collide_kernel<T, Q, TRT, false, true, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
+    stream_collide_kernel<T, Q, TRT, false, true, false, false><<<grid, dim3(t.TZ, t.TY), 0, stream>>>(
         static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out), nullptr,
         static_cast<int>(total), X, Y, Z, t.tiles_z, unused, mem, Halo<T>{});
     const cudaError_t err = cudaGetLastError();
@@ -698,38 +748,53 @@ cudaError_t launch_stencil_members(const void* f, const void* mask, void* out, c
 }
 
 // The HALO stencil: B blocks of f stepped into out (coef null, coefficients
-// k), or M members of B blocks each (coef the (M, Q + 2) device table), the
-// ghost values read through h. Grid (tiles * kHaloGroup, X, groups) in
-// chunks of at most kMaxGridZ groups: the CTAs of kHaloGroup blocks at one
-// x plane run together.
-template <typename T, int Q, bool TRT>
-cudaError_t launch_stencil_halo(const void* f, const void* mask, void* out, const void* coef, int64_t M,
-                                int64_t B, int X, int Y, int Z, const Coefs<T, Q>& k, Halo<T> h,
-                                cudaStream_t stream) {
+// k), the S entries of a slot list into f's B blocks (slots non-null), or M
+// members of B blocks each (coef the (M, Q + 2) device table), the ghost
+// values read through h. Grid (tiles * kHaloGroup, X, groups) in chunks of
+// at most kMaxGridZ groups: the CTAs of kHaloGroup blocks (or consecutive
+// slot-list entries) at one x plane run together. PAYLOADS: some segment is
+// an (N, Q) payload (not with members).
+template <typename T, int Q, bool TRT, bool PAYLOADS>
+cudaError_t launch_stencil_halo(const void* f, const void* mask, void* out, const void* slots, int64_t S,
+                                const void* coef, int64_t M, int64_t B, int X, int Y, int Z,
+                                const Coefs<T, Q>& k, Halo<T> h, cudaStream_t stream) {
   const StencilTiles t(Y, Z);
   h.tiles = t.tiles_y * t.tiles_z;
   h.group = kHaloGroup;
-  const int64_t total = (coef != nullptr ? M : 1) * B;
+  const int64_t total = slots != nullptr ? S : (coef != nullptr ? M : 1) * B;
   const size_t smem = sizeof(int64_t) * 3 * (t.TY + 2) * (t.TZ + 2);  // the map's tile
   const int64_t chunk = kMaxGridZ * kHaloGroup;
-  if (X > 65535 || total > 0x7fffffff || static_cast<int64_t>(h.tiles) * kHaloGroup > 0x7fffffff)
+  if (X > 65535 || total > 0x7fffffff || B > 0x7fffffff || static_cast<int64_t>(h.tiles) * kHaloGroup > 0x7fffffff)
     return cudaErrorInvalidConfiguration;
   const dim3 block(t.TZ, t.TY);
   for (int64_t b0 = 0; b0 < total; b0 += chunk) {
     const int64_t nb = total - b0 < chunk ? total - b0 : chunk;
     const dim3 grid(h.tiles * kHaloGroup, X, static_cast<unsigned>((nb + kHaloGroup - 1) / kHaloGroup));
-    if (coef != nullptr) {
-      const Members<T> mem{static_cast<const T*>(coef), static_cast<int>(B), static_cast<int>(b0)};
-      stream_collide_kernel<T, Q, TRT, false, true, true><<<grid, block, smem, stream>>>(
-          static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out), nullptr,
-          static_cast<int>(nb), X, Y, Z, t.tiles_z, k, mem, h);
+    if (slots != nullptr) {
+      // the chunk's entries index the whole stack, whose operands (map
+      // included) stay whole
+      Halo<T> hc = h;
+      hc.count = static_cast<int>(nb);
+      stream_collide_kernel<T, Q, TRT, true, false, true, PAYLOADS><<<grid, block, smem, stream>>>(
+          static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out),
+          static_cast<const int32_t*>(slots) + b0, static_cast<int>(B), X, Y, Z, t.tiles_z, k,
+          Members<T>{nullptr, 0, 0}, hc);
+    } else if (coef != nullptr) {
+      if constexpr (PAYLOADS) {
+        return cudaErrorInvalidValue;
+      } else {
+        const Members<T> mem{static_cast<const T*>(coef), static_cast<int>(B), static_cast<int>(b0)};
+        stream_collide_kernel<T, Q, TRT, false, true, true, false><<<grid, block, smem, stream>>>(
+            static_cast<const T*>(f), static_cast<const int32_t*>(mask), static_cast<T*>(out), nullptr,
+            static_cast<int>(nb), X, Y, Z, t.tiles_z, k, mem, h);
+      }
     } else {
       // a solo chunk offsets its block operands, map included; the
       // segments' offsets address whole source stacks
       const int64_t n = static_cast<int64_t>(X) * Y * Z;
       Halo<T> hc = h;
       hc.map += b0 * n;
-      stream_collide_kernel<T, Q, TRT, false, false, true><<<grid, block, smem, stream>>>(
+      stream_collide_kernel<T, Q, TRT, false, false, true, PAYLOADS><<<grid, block, smem, stream>>>(
           static_cast<const T*>(f) + b0 * Q * n, static_cast<const int32_t*>(mask) + b0 * n,
           static_cast<T*>(out) + b0 * Q * n, nullptr, static_cast<int>(nb), X, Y, Z, t.tiles_z, k,
           Members<T>{nullptr, 0, 0}, hc);
@@ -765,10 +830,14 @@ cudaError_t launch_fill(void* dst, const void* src, int64_t rows, int n, const v
 template <typename T>
 cudaError_t dispatch_members(int Q, int trt, const void* f, const void* mask, void* out,
                              const void* coef, int64_t M, int64_t B, int X, int Y, int Z, cudaStream_t s) {
+#if LBM_Q19
   if (Q == 19 && trt) return launch_stencil_members<T, 19, true>(f, mask, out, coef, M, B, X, Y, Z, s);
   if (Q == 19) return launch_stencil_members<T, 19, false>(f, mask, out, coef, M, B, X, Y, Z, s);
+#endif
+#if LBM_Q27
   if (Q == 27 && trt) return launch_stencil_members<T, 27, true>(f, mask, out, coef, M, B, X, Y, Z, s);
   if (Q == 27) return launch_stencil_members<T, 27, false>(f, mask, out, coef, M, B, X, Y, Z, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
@@ -776,39 +845,73 @@ template <typename T>
 cudaError_t dispatch_stencil(int Q, int trt, const void* f, const void* mask, void* out,
                              const void* slots, int64_t nblocks, int64_t B, int X, int Y, int Z,
                              double om_a, double om_b, const double* lid, cudaStream_t s) {
+#if LBM_Q19
   if (Q == 19 && trt)
     return launch_stencil<T, 19, true>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
   if (Q == 19)
     return launch_stencil<T, 19, false>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+#endif
+#if LBM_Q27
   if (Q == 27 && trt)
     return launch_stencil<T, 27, true>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
   if (Q == 27)
     return launch_stencil<T, 27, false>(f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
+// The operands of one HALO launch beyond the coefficients.
+struct HaloLaunch {
+  const void* f;
+  const void* mask;
+  void* out;
+  const void* slots;
+  int64_t S;
+  const void* coef;
+  int64_t M;
+  int64_t B;
+  int X, Y, Z;
+};
+
+template <typename T, int Q, bool TRT>
+cudaError_t dispatch_halo_p(bool payloads, const HaloLaunch& a, const Coefs<T, Q>& k, const Halo<T>& h,
+                            cudaStream_t s) {
+  if (payloads)
+    return launch_stencil_halo<T, Q, TRT, true>(a.f, a.mask, a.out, a.slots, a.S, a.coef, a.M, a.B, a.X, a.Y, a.Z, k, h, s);
+  return launch_stencil_halo<T, Q, TRT, false>(a.f, a.mask, a.out, a.slots, a.S, a.coef, a.M, a.B, a.X, a.Y, a.Z, k, h, s);
+}
+
 template <typename T, int Q>
-cudaError_t dispatch_halo_q(int trt, const void* f, const void* mask, void* out, const void* coef, int64_t M,
-                            int64_t B, int X, int Y, int Z, double om_a, double om_b, const double* lid,
-                            const Halo<T>& h, cudaStream_t s) {
+cudaError_t dispatch_halo_q(int trt, bool payloads, const HaloLaunch& a, double om_a, double om_b,
+                            const double* lid, const Halo<T>& h, cudaStream_t s) {
   Coefs<T, Q> k;
   for (int q = 0; q < Q; ++q) k.lid[q] = static_cast<T>(lid[q]);
   k.om_a = static_cast<T>(om_a);
   k.om_b = static_cast<T>(om_b);
-  if (trt) return launch_stencil_halo<T, Q, true>(f, mask, out, coef, M, B, X, Y, Z, k, h, s);
-  return launch_stencil_halo<T, Q, false>(f, mask, out, coef, M, B, X, Y, Z, k, h, s);
+  if (trt) return dispatch_halo_p<T, Q, true>(payloads, a, k, h, s);
+  return dispatch_halo_p<T, Q, false>(payloads, a, k, h, s);
 }
 
 template <typename T>
-cudaError_t dispatch_halo(int Q, int trt, const void* f, const void* mask, void* out, const void* coef, int64_t M,
-                          int64_t B, int X, int Y, int Z, double om_a, double om_b, const double* lid,
+cudaError_t dispatch_halo(int Q, int trt, const HaloLaunch& a, double om_a, double om_b, const double* lid,
                           const void* map, int nseg, const void* const* seg_src, const long long* seg_mstride,
-                          cudaStream_t s) {
+                          const long long* seg_qstride, cudaStream_t s) {
   Halo<T> h{};
   h.map = static_cast<const int64_t*>(map);
-  for (int i = 0; i < nseg; ++i) h.seg[i] = HaloSeg<T>{static_cast<const T*>(seg_src[i]), seg_mstride[i]};
-  if (Q == 19) return dispatch_halo_q<T, 19>(trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, h, s);
-  if (Q == 27) return dispatch_halo_q<T, 27>(trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, h, s);
+  h.nseg = nseg;
+  // a stack's direction stride is the block's cells; any other is a payload's
+  const int64_t n = static_cast<int64_t>(a.X) * a.Y * a.Z;
+  bool payloads = false;
+  for (int i = 0; i < nseg; ++i) {
+    h.seg[i] = HaloSeg<T>{static_cast<const T*>(seg_src[i]), seg_mstride[i], seg_qstride[i]};
+    payloads = payloads || seg_qstride[i] != n;
+  }
+#if LBM_Q19
+  if (Q == 19) return dispatch_halo_q<T, 19>(trt, payloads, a, om_a, om_b, lid, h, s);
+#endif
+#if LBM_Q27
+  if (Q == 27) return dispatch_halo_q<T, 27>(trt, payloads, a, om_a, om_b, lid, h, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
@@ -826,8 +929,12 @@ template <typename T>
 cudaError_t dispatch_fill(int Q, int kind, void* dst, const void* src, int64_t rows, int n,
                           const void* ds, const void* dc, const void* ss, const void* sc,
                           const void* valid, FillMembers m, cudaStream_t s) {
+#if LBM_Q19
   if (Q == 19) return dispatch_fill_kind<T, 19>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, m, s);
+#endif
+#if LBM_Q27
   if (Q == 27) return dispatch_fill_kind<T, 27>(kind, dst, src, rows, n, ds, dc, ss, sc, valid, m, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
@@ -853,16 +960,22 @@ template <typename T, int Q>
 cudaError_t attrs_q(int which, int variant, int* out) {
   if (which == 0) {
     switch (variant) {
-      case 0: return attrs_of(stream_collide_kernel<T, Q, false, false, false, false>, out);
-      case 1: return attrs_of(stream_collide_kernel<T, Q, true, false, false, false>, out);
-      case 2: return attrs_of(stream_collide_kernel<T, Q, false, true, false, false>, out);
-      case 3: return attrs_of(stream_collide_kernel<T, Q, true, true, false, false>, out);
-      case 4: return attrs_of(stream_collide_kernel<T, Q, false, false, true, false>, out);
-      case 5: return attrs_of(stream_collide_kernel<T, Q, true, false, true, false>, out);
-      case 8: return attrs_of(stream_collide_kernel<T, Q, false, false, false, true>, out);
-      case 9: return attrs_of(stream_collide_kernel<T, Q, true, false, false, true>, out);
-      case 12: return attrs_of(stream_collide_kernel<T, Q, false, false, true, true>, out);
-      case 13: return attrs_of(stream_collide_kernel<T, Q, true, false, true, true>, out);
+      case 0: return attrs_of(stream_collide_kernel<T, Q, false, false, false, false, false>, out);
+      case 1: return attrs_of(stream_collide_kernel<T, Q, true, false, false, false, false>, out);
+      case 2: return attrs_of(stream_collide_kernel<T, Q, false, true, false, false, false>, out);
+      case 3: return attrs_of(stream_collide_kernel<T, Q, true, true, false, false, false>, out);
+      case 4: return attrs_of(stream_collide_kernel<T, Q, false, false, true, false, false>, out);
+      case 5: return attrs_of(stream_collide_kernel<T, Q, true, false, true, false, false>, out);
+      case 8: return attrs_of(stream_collide_kernel<T, Q, false, false, false, true, false>, out);
+      case 9: return attrs_of(stream_collide_kernel<T, Q, true, false, false, true, false>, out);
+      case 10: return attrs_of(stream_collide_kernel<T, Q, false, true, false, true, false>, out);
+      case 11: return attrs_of(stream_collide_kernel<T, Q, true, true, false, true, false>, out);
+      case 12: return attrs_of(stream_collide_kernel<T, Q, false, false, true, true, false>, out);
+      case 13: return attrs_of(stream_collide_kernel<T, Q, true, false, true, true, false>, out);
+      case 24: return attrs_of(stream_collide_kernel<T, Q, false, false, false, true, true>, out);
+      case 25: return attrs_of(stream_collide_kernel<T, Q, true, false, false, true, true>, out);
+      case 26: return attrs_of(stream_collide_kernel<T, Q, false, true, false, true, true>, out);
+      case 27: return attrs_of(stream_collide_kernel<T, Q, true, true, false, true, true>, out);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -885,10 +998,14 @@ extern "C" int lbm_stream_collide(int dtype, int Q, int trt, const void* f, cons
                                   void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (B * X * Y * Z == 0) return cudaSuccess;
+#if LBM_F32
   if (dtype == 0)
     return dispatch_stencil<float>(Q, trt, f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+#endif
+#if LBM_F64
   if (dtype == 1)
     return dispatch_stencil<double>(Q, trt, f, mask, out, slots, nblocks, B, X, Y, Z, om_a, om_b, lid, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
@@ -902,32 +1019,44 @@ extern "C" int lbm_stream_collide_members(int dtype, int Q, int trt, const void*
                                           int X, int Y, int Z, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (M * B * X * Y * Z == 0) return cudaSuccess;
+#if LBM_F32
   if (dtype == 0) return dispatch_members<float>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, s);
+#endif
+#if LBM_F64
   if (dtype == 1) return dispatch_members<double>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
 // The stencil with the ghost ring read through a halo map (halo in tile):
-// f (B, Q, X, Y, Z) stepped into out, or with coef (the member table) M
-// members' stacks (M * B, ...) sharing mask and map. map: (B, X, Y, Z)
-// int64, at each cell with a fill row seg << 58 | fine << 57 | the element
-// offset of its source (direction 0; a fine row's octet base) in the
-// segment's stack, -1 elsewhere. Segment i (i < nseg <= 3): source stack
-// seg_src[i] (member 0), seg_mstride[i] elements a member. lid: host array
-// of Q values (solo). Returns the cudaError_t of the launch.
+// f (B, Q, X, Y, Z) stepped into out, or only the S blocks a device array
+// slots (S int32 entries, each in [0, B)) names (slots non-null, solo), or
+// with coef (the member table) M members' stacks (M * B, ...) sharing mask
+// and map. map: (B, X, Y, Z) int64, at each cell with a fill row seg << 58
+// | fine << 57 | stage << 56 | the element offset of its source (direction
+// 0; a fine row's octet base) in the segment's source, -1 elsewhere.
+// Segment i (i < nseg <= 32): source seg_src[i] (member 0; a stack or an
+// (N, Q) payload), seg_mstride[i] elements a member, seg_qstride[i]
+// elements between two directions of a row. lid: host array of Q values
+// (solo). Returns the cudaError_t of the launch.
 extern "C" int lbm_stream_collide_halo_map(int dtype, int Q, int trt, const void* f, const void* mask, void* out,
-                                           const void* coef, long long M, long long B, int X, int Y, int Z,
-                                           double om_a, double om_b, const double* lid, const void* map, int nseg,
-                                           const void* const* seg_src, const long long* seg_mstride, void* stream) {
+                                           const void* slots, long long S, const void* coef, long long M,
+                                           long long B, int X, int Y, int Z, double om_a, double om_b,
+                                           const double* lid, const void* map, int nseg, const void* const* seg_src,
+                                           const long long* seg_mstride, const long long* seg_qstride,
+                                           void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (nseg < 0 || nseg > kHaloSegs) return cudaErrorInvalidValue;
-  if ((coef != nullptr ? M : 1) * B * X * Y * Z == 0) return cudaSuccess;
+  if (nseg < 1 || nseg > kHaloSegs || (slots != nullptr && coef != nullptr)) return cudaErrorInvalidValue;
+  if ((slots != nullptr ? S : (coef != nullptr ? M : 1) * B) * X * Y * Z == 0) return cudaSuccess;
+  const HaloLaunch a{f, mask, out, slots, S, coef, M, B, X, Y, Z};
+#if LBM_F32
   if (dtype == 0)
-    return dispatch_halo<float>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, map, nseg, seg_src,
-                                seg_mstride, s);
+    return dispatch_halo<float>(Q, trt, a, om_a, om_b, lid, map, nseg, seg_src, seg_mstride, seg_qstride, s);
+#endif
+#if LBM_F64
   if (dtype == 1)
-    return dispatch_halo<double>(Q, trt, f, mask, out, coef, M, B, X, Y, Z, om_a, om_b, lid, map, nseg, seg_src,
-                                 seg_mstride, s);
+    return dispatch_halo<double>(Q, trt, a, om_a, om_b, lid, map, nseg, seg_src, seg_mstride, seg_qstride, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
@@ -946,17 +1075,30 @@ extern "C" int lbm_halo_fill(int dtype, int Q, int kind, void* dst, const void* 
   const auto s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
   const FillMembers m{members, dst_mstride, src_mstride};
+#if LBM_F32
   if (dtype == 0) return dispatch_fill<float>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, m, s);
+#endif
+#if LBM_F64
   if (dtype == 1) return dispatch_fill<double>(Q, kind, dst, src, rows, n, dst_slot, dst_cell, src_slot, src_cell, valid, m, s);
+#endif
   return cudaErrorInvalidValue;
 }
 
-// which: 0 = stencil (variant = trt + 2 * slots + 4 * members + 8 * halo), 1 = fill (variant = kind). out[5]:
+// which: 0 = stencil (variant = trt + 2 * slots + 4 * members + 8 * halo + 16 * payloads), 1 = fill
+// (variant = kind). out[5]:
 // registers, local bytes, static shared bytes, CTAs per SM, threads per CTA.
 extern "C" int lbm_kernel_attrs(int which, int dtype, int Q, int variant, int* out) {
+#if LBM_F32 && LBM_Q19
   if (dtype == 0 && Q == 19) return attrs_q<float, 19>(which, variant, out);
+#endif
+#if LBM_F32 && LBM_Q27
   if (dtype == 0 && Q == 27) return attrs_q<float, 27>(which, variant, out);
+#endif
+#if LBM_F64 && LBM_Q19
   if (dtype == 1 && Q == 19) return attrs_q<double, 19>(which, variant, out);
+#endif
+#if LBM_F64 && LBM_Q27
   if (dtype == 1 && Q == 27) return attrs_q<double, 27>(which, variant, out);
+#endif
   return cudaErrorInvalidValue;
 }

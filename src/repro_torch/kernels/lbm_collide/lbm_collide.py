@@ -28,37 +28,41 @@ launched raises; nothing falls back.
   each member with its own coefficients from a device table that each CTA
   stages in shared memory: the counterpart of the JAX ensemble's ``vmap``,
   so a batch of M members launches what one member's step launches.
-* :func:`lbm_halo_fill` is the ghost fill of the main path: one segment of
-  a level's merged fill, read straight from the source level's buffer
+* :func:`lbm_halo_fill` is the separate ghost fill: one segment of a
+  level's merged fill, read straight from the source level's buffer
   (``same``/``coarse``: one cell; ``fine``: the mean of an octet) and
   written into the destination's ghost ring in place. Bound: bytes, each
   row's source values, its Q written values and its int32 indices. Rows
   are sorted by (dst slot, dst cell), one thread a row, so for each q a
   warp touches neighbouring cells of one q-plane. Its ``"values"`` kind
-  writes the rows of an (N, Q) array instead: one segment of a rank's
-  inbound halo message, in the message's own row order. Given member
-  stacks ``(M, B, Q, X, Y, Z)`` it fills the segment of all M members in
-  one launch (grid y is the member), through one set of index tables.
+  writes the rows of an (N, Q) array instead (the slab interface below).
+  Given member stacks ``(M, B, Q, X, Y, Z)`` it fills the segment of all M
+  members in one launch (grid y is the member), through one set of index
+  tables. No engine path launches it: the rank absorb without a halo
+  stepper factory (the yardstick of the halo route there) does.
 * The halo route of :func:`lbm_stream_collide` (``halo`` and ``sources``)
   replaces ``lbm_stream_collide_halo_pallas`` (``_halo_kernel``) on the
-  fused and serving paths: one launch a filled level, the stencil reading
-  each ghost value it pulls from that value's source in the pre-step stacks
-  (halo in tile) through the level's :class:`HaloMap`, bitwise the fill
-  then the stencil. Bound: bytes, the halo step's (the stencil's, less the
-  ghost rows it need not read, plus the other levels' source cells). A
+  fused, serving and rank paths: one launch a filled level, the stencil
+  reading each ghost value it pulls from that value's source (halo in
+  tile) through the level's :class:`HaloMap`, bitwise the fill then the
+  stencil. A source is a pre-step stack, or on a rank path a received
+  ``(N, Q)`` halo payload (a ``"values"`` segment: its rows are read
+  where the stencil pulls them, and no ghost cell is written). Bound:
+  bytes, the halo step's (the stencil's, less the ghost rows it need not
+  read, plus the other levels' source cells and the payload rows). A
   separate fill pays a 32-byte sector a value for the z-face rows, whose
   cells and sources lie alone in their sectors, and writes them back; the
   route writes no ghost cell, and its grid runs 8 blocks' CTAs of one x
   plane together, so that a z-face source row, which its neighbour's CTA
-  reads whole, is an L2 hit. It works solo and over a member axis.
+  reads whole, is an L2 hit. It works solo, over a slot list (a rank's
+  interior and boundary halves) and over a member axis.
 * :func:`lbm_stream_collide_halo` replaces ``lbm_stream_collide_halo_pallas``
   at its interface: the padded (B, P, Q) ghost slab. Its CUDA path is the
   fill kernel reading the slab's valid rows, then the stencil, two launches
   on one stream: on the TPU one grid step owned a whole block; here a block
   spans many CTAs, so the launch boundary orders the fill before any
   neighbour read. The caller must treat ``f`` as consumed. No path builds
-  the slab; the rank paths run :func:`lbm_halo_fill` for every level
-  first, then the stencils.
+  the slab.
 
 The stencil wrappers allocate their output with ``torch.empty``; the
 stencil pulls from its input, so it cannot run in place. PyTorch's caching
@@ -69,9 +73,10 @@ Launch counts: each wrapper carries a plain integer ``launches`` that it
 bumps where it launches its kernel, and nowhere else; beside it,
 ``lbm_stream_collide.slot_launches`` counts the launches over a slot list,
 ``lbm_stream_collide.member_launches`` those over a member axis,
-``lbm_stream_collide.halo_launches`` those of the halo route (solo and
-over members) and ``lbm_stream_collide.halo_member_launches`` those of them
-over a member axis, and
+``lbm_stream_collide.halo_launches`` those of the halo route (solo, over a
+slot list and over members), ``lbm_stream_collide.halo_slot_launches`` and
+``lbm_stream_collide.halo_member_launches`` those of them over a slot list
+and over a member axis, and
 ``lbm_halo_fill.kind_launches`` the fill launches by kind (``copy`` for
 ``same``/``coarse``, ``fine``, ``values``; ``copy+members`` and
 ``fine+members`` over a member axis). :func:`reset_launches` zeroes them
@@ -193,7 +198,9 @@ def member_coeffs(
 HALO_SEG_SHIFT = 58
 HALO_FINE_BIT = 57
 HALO_STAGE_BIT = 56
-HALO_MAX_SEGMENTS = 3  # same, coarse, fine
+# a level's local kinds (same, coarse, fine) and one segment for each payload
+# that reaches a rank's level; the segment field's 5 bits bound it
+HALO_MAX_SEGMENTS = 32
 
 
 @dataclass(frozen=True)
@@ -208,8 +215,10 @@ class HaloMap:
     1 for a ``fine`` row, whose octet starts there, in the canonical order,
     and ``stage`` 1 for a ``fine`` row whose cell reads its own values
     under ``mask`` (it or a neighbour is not fluid); -1 everywhere else.
+    A ``"values"`` table's source is an ``(N, Q)`` payload: ``o`` is its
+    row times Q, and a row's directions are adjacent.
     ``tables`` are the level's :class:`~.ops.FillTable` segments, at most
-    :data:`HALO_MAX_SEGMENTS`: ``src`` (the source stack's position in the
+    :data:`HALO_MAX_SEGMENTS`: ``src`` (the source's position in the
     route's ``sources``) and ``kind``, and the index tensors that the plain
     version reads. ``mask`` is the cell-type stack the map was built from;
     the route takes only that one."""
@@ -254,10 +263,11 @@ def _stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _library():
+def _library(dtype: torch.dtype, Q: int):
+    """The built kernels of ``dtype`` and ``Q`` (one library a pair)."""
     from .build import load_library
 
-    return load_library()
+    return load_library(_DTYPE_CODE[dtype], Q)
 
 
 def _check_card_operands(*tensors: torch.Tensor) -> None:
@@ -312,7 +322,9 @@ def lbm_stream_collide(
                [0, B): step only those blocks (the caller builds the list on
                the host and checks its range; the kernel steps nothing for
                an index outside it). Blocks not listed are left as ``out``
-               has them. Not with ``members``.
+               has them. Not with ``members``. With ``halo``, only the
+               listed blocks' map entries are read, so their rows alone
+               must name ``halo.tables``.
       out:     optional output shaped like ``f``, ``f``'s dtype and device;
                it must not be ``f`` (the stencil pulls from its input), and
                on the halo route it must not overlap ``f`` or a source.
@@ -322,26 +334,24 @@ def lbm_stream_collide(
                the step then computes the stencil of ``f`` with every cell
                that has a fill row holding its filled value, read from the
                row's source (one cell, or an octet's mean) instead of from
-               ``f``. ``f`` and the sources are only read. Not with
-               ``slots``.
-      sources: the pre-step stacks the halo map's tables index (the
+               ``f``. ``f`` and the sources are only read.
+      sources: what the halo map's tables index: the pre-step stacks (the
                superstep's buffer tuple, ``f`` among them), each ``f``'s
-               dtype, device and block shape; member stacks with
-               ``members``.
+               dtype, device and block shape, member stacks with
+               ``members``; on a rank path then the received ``(N, Q)``
+               payloads of its ``"values"`` tables (contiguous, solo only).
     Returns:
       ``out``, or a new tensor when it is not given.
     """
     if (halo is None) != (sources is None):
         raise ValueError("a halo map and its sources come together")
     if halo is not None:
-        if slots is not None:
-            raise ValueError("the halo route takes no slot list")
-        if members is not None and omega is not None:
-            raise ValueError("a member stack takes its coefficients from members")
+        if members is not None and (omega is not None or slots is not None):
+            raise ValueError("a member stack takes its coefficients from members, and no slot list")
         if members is None and omega is None:
             raise TypeError("the halo route needs omega, or members for a member stack")
         kw = dict(omega=omega, lattice=lattice, u_wall=u_wall, collision=collision, magic=magic)
-        return _stream_collide_halo(f, mask, halo, tuple(sources), out, members, kw)
+        return _stream_collide_halo(f, mask, halo, tuple(sources), out, members, slots, kw)
     if members is not None:
         if omega is not None or slots is not None:
             raise ValueError("a member stack takes its coefficients from members, and no slot list")
@@ -349,8 +359,7 @@ def lbm_stream_collide(
     if omega is None:
         raise TypeError("lbm_stream_collide needs omega, or members for a member stack")
     _check(f, mask, lattice)
-    if slots is not None and (slots.dim() != 1 or slots.dtype != torch.int32 or slots.device != f.device):
-        raise ValueError(f"slots must be (S,) int32 on {f.device}, got {tuple(slots.shape)} {slots.dtype} {slots.device}")
+    _check_slots(f, slots)
     _check_out(f, out)
     coeffs, (trt, om_a, om_b), lid = _kernel_args(
         f.dtype, omega=omega, lattice=lattice, u_wall=u_wall,
@@ -359,7 +368,7 @@ def lbm_stream_collide(
     if f.device.type == "cpu":
         return stream_collide_into(f, mask, coeffs, lattice=lattice, collision=collision, slots=slots, out=out)
     _check_card_operands(f, mask, *(t for t in (slots, out) if t is not None))
-    lib = _library()
+    lib = _library(f.dtype, lattice.Q)
     if out is None:
         out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
     _launch_stencil(lib, f, mask, out, trt, om_a, om_b, lid, slots)
@@ -367,6 +376,11 @@ def lbm_stream_collide(
     if slots is not None:
         lbm_stream_collide.slot_launches += 1
     return out
+
+
+def _check_slots(f: torch.Tensor, slots: torch.Tensor | None) -> None:
+    if slots is not None and (slots.dim() != 1 or slots.dtype != torch.int32 or slots.device != f.device):
+        raise ValueError(f"slots must be (S,) int32 on {f.device}, got {tuple(slots.shape)} {slots.dtype} {slots.device}")
 
 
 def _check_out(f: torch.Tensor, out: torch.Tensor | None) -> None:
@@ -401,7 +415,7 @@ def _stream_collide_members(
     if f.device.type == "cpu":
         return stream_collide_into(f, mask, members.host, lattice=lattice, collision=members.collision, out=out)
     _check_card_operands(f[0], f, mask, table, *(t for t in (out,) if t is not None))
-    lib = _library()
+    lib = _library(f.dtype, lattice.Q)
     if out is None:
         out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
     _Q, X, Y, Z = f.shape[2:]
@@ -440,18 +454,27 @@ def _check_halo(f: torch.Tensor, mask: torch.Tensor, halo: HaloMap, sources: tup
         raise ValueError("the halo map was built from another mask (its stage marks follow the mask)")
     if not 0 < len(halo.tables) <= HALO_MAX_SEGMENTS:
         raise ValueError(f"a halo map takes 1 to {HALO_MAX_SEGMENTS} segments, got {len(halo.tables)}")
+    Q = f.shape[lead + 1]
     for t in halo.tables:
-        if t.kind not in ("same", "coarse", "fine") or not 0 <= t.src < len(sources):
-            raise ValueError(f"a halo segment's kind must be same, coarse or fine and its source a position "
-                             f"in sources, got {t.kind!r}, {t.src}")
+        if t.kind not in FILL_KINDS or not 0 <= t.src < len(sources):
+            raise ValueError(f"a halo segment's kind must be same, coarse, fine or values and its source a "
+                             f"position in sources, got {t.kind!r}, {t.src}")
         src = sources[t.src]
-        if (src.dim() != f.dim() or src.shape[:lead] != f.shape[:lead] or src.shape[lead + 1:] != f.shape[lead + 1:]
+        if t.kind == "values":
+            if lead:
+                raise ValueError("a payload segment takes no member axis")
+            if (src.dim() != 2 or src.shape[1] != Q or src.shape[0] < t.rows or src.dtype != f.dtype
+                    or src.device != f.device or not src.is_contiguous()):
+                raise ValueError(f"payload {t.src} must be a contiguous (>= {t.rows}, {Q}) {f.dtype} tensor on "
+                                 f"{f.device}, got {tuple(src.shape)} {src.dtype} {src.device}")
+        elif (src.dim() != f.dim() or src.shape[:lead] != f.shape[:lead] or src.shape[lead + 1:] != f.shape[lead + 1:]
                 or src.dtype != f.dtype or src.device != f.device):
             raise ValueError(f"source {t.src} {tuple(src.shape)} {src.dtype} does not match f {tuple(f.shape)} {f.dtype}")
 
 
-def _stream_collide_halo(f, mask, halo: HaloMap, sources: tuple, out, members: MemberCoeffs | None, kw: dict):
-    """The halo route of :func:`lbm_stream_collide`, solo or over members."""
+def _stream_collide_halo(f, mask, halo: HaloMap, sources: tuple, out, members: MemberCoeffs | None, slots, kw: dict):
+    """The halo route of :func:`lbm_stream_collide`, solo, over a slot list
+    or over members."""
     lead = int(members is not None)
     if members is not None:
         _check_members(f, mask, members)
@@ -462,6 +485,7 @@ def _stream_collide_halo(f, mask, halo: HaloMap, sources: tuple, out, members: M
         lattice, collision = kw["lattice"], kw["collision"]
         _check(f, mask, lattice)
         coeffs, (trt, om_a, om_b), lid = _kernel_args(f.dtype, **kw)
+    _check_slots(f, slots)
     _check_out(f, out)
     _check_halo(f, mask, halo, sources, lead)
     if out is not None and any(_overlap(out, t) for t in (f, *sources)):
@@ -470,29 +494,34 @@ def _stream_collide_halo(f, mask, halo: HaloMap, sources: tuple, out, members: M
         raise ValueError("out must not overlap f or a source stack")
     if f.device.type == "cpu":
         return halo_stream_collide_ref(f, mask, coeffs, halo.tables, sources, lattice=lattice,
-                                       collision=collision, out=out)
+                                       collision=collision, slots=slots, out=out)
     srcs = [sources[t.src] for t in halo.tables]
     stack = f[0] if lead else f
-    _check_card_operands(stack, f, mask, halo.cells, *srcs, *(t for t in (out,) if t is not None),
+    _check_card_operands(stack, f, mask, halo.cells, *srcs, *(t for t in (slots, out) if t is not None),
                          *((members.table,) if lead else ()))
-    lib = _library()
+    lib = _library(f.dtype, lattice.Q)
     if out is None:
         out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
     nseg = len(halo.tables)
-    pointers = ctypes.c_void_p * HALO_MAX_SEGMENTS
     B, _Q, X, Y, Z = stack.shape
+    strides = ctypes.c_longlong * nseg
     with torch.cuda.device(f.device):
         err = lib.lbm_stream_collide_halo_map(
             _DTYPE_CODE[f.dtype], lattice.Q, trt, f.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            None if slots is None else slots.data_ptr(), 0 if slots is None else slots.numel(),
             members.table.data_ptr() if lead else None, f.shape[0] if lead else 1, B, X, Y, Z,
             om_a, om_b, lid.ctypes.data_as(ctypes.c_void_p), halo.cells.data_ptr(), nseg,
-            pointers(*(s.data_ptr() for s in srcs)),
-            (ctypes.c_longlong * HALO_MAX_SEGMENTS)(*(s[0].numel() if lead else 0 for s in srcs)),
+            (ctypes.c_void_p * nseg)(*(s.data_ptr() for s in srcs)),
+            strides(*(s[0].numel() if lead else 0 for s in srcs)),
+            strides(*(1 if t.kind == "values" else X * Y * Z for t in halo.tables)),
             _stream_ptr(f.device),
         )
     _raise_on(err, "lbm_stream_collide (halo)")
     lbm_stream_collide.launches += 1
     lbm_stream_collide.halo_launches += 1
+    if slots is not None:
+        lbm_stream_collide.slot_launches += 1
+        lbm_stream_collide.halo_slot_launches += 1
     if lead:
         lbm_stream_collide.member_launches += 1
         lbm_stream_collide.halo_member_launches += 1
@@ -565,7 +594,7 @@ def lbm_halo_fill(
         return
     code = FILL_KINDS[kind]
     members, dst_stride, src_stride = (dst.shape[0], dst[0].numel(), src[0].numel()) if lead else (1, 0, 0)
-    lib = _library()
+    lib = _library(dst.dtype, Q)
     with torch.cuda.device(dst.device):
         err = lib.lbm_halo_fill(
             _DTYPE_CODE[dst.dtype], Q, code, dst.data_ptr(), src.data_ptr(), N,
@@ -628,7 +657,7 @@ def lbm_stream_collide_halo(
             mask=mask, lattice=lattice, collision=collision,
         )
     _check_card_operands(f, mask, halo_vals, halo_cell, halo_valid)
-    lib = _library()
+    lib = _library(f.dtype, Q)
     # the slab's rows in order: row b * P + p fills block b
     slot = torch.arange(B, dtype=torch.int32, device=f.device).repeat_interleave(P)
     with torch.cuda.device(f.device):
@@ -650,6 +679,7 @@ def reset_launches() -> None:
     lbm_stream_collide.slot_launches = 0
     lbm_stream_collide.member_launches = 0
     lbm_stream_collide.halo_launches = 0
+    lbm_stream_collide.halo_slot_launches = 0
     lbm_stream_collide.halo_member_launches = 0
     lbm_halo_fill.launches = 0
     lbm_halo_fill.kind_launches = dict.fromkeys(_KIND_NAMES + _MEMBER_KIND_NAMES, 0)
@@ -663,17 +693,20 @@ def kernel_attributes() -> list[dict]:
     """What the compiler made of every kernel instantiation: registers,
     local-memory bytes (spills), static shared bytes, and resident CTAs of
     256 threads per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
-    Needs the card: it loads the built library."""
-    lib = _library()
+    Needs the card: it loads the built libraries."""
     rows = []
     out = (ctypes.c_int * 5)()
     variants = [("stencil", 0, v, name) for v, name in ((0, "bgk"), (1, "trt"), (2, "bgk+slots"), (3, "trt+slots"),
                                                         (4, "bgk+members"), (5, "trt+members"), (8, "bgk+halo"),
-                                                        (9, "trt+halo"), (12, "bgk+halo+members"),
-                                                        (13, "trt+halo+members"))]
+                                                        (9, "trt+halo"), (10, "bgk+slots+halo"),
+                                                        (11, "trt+slots+halo"), (12, "bgk+halo+members"),
+                                                        (13, "trt+halo+members"), (24, "bgk+halo+payloads"),
+                                                        (25, "trt+halo+payloads"), (26, "bgk+slots+halo+payloads"),
+                                                        (27, "trt+slots+halo+payloads"))]
     variants += [("fill", 1, v, name) for v, name in ((0, "copy"), (1, "fine"), (_FILL_VALUES, "values"))]
     for dtype, dcode in (("f32", 0), ("f64", 1)):
         for Q in (19, 27):
+            lib = _library((torch.float32, torch.float64)[dcode], Q)
             for kernel, which, variant, name in variants:
                 _raise_on(lib.lbm_kernel_attrs(which, dcode, Q, variant, out), "lbm_kernel_attrs")
                 regs, local, shared, ctas, threads = out

@@ -24,12 +24,15 @@ kernel's member axis, with per-member coefficients as operands.
 The rank-sharded entry points (:func:`make_rank_emit`,
 :func:`make_rank_absorb`, :func:`make_rank_absorb_split`) run one rank's
 side of a sharded substep over that rank's own buffers: emit gathers the
-outbound halo messages, absorb runs the rank's local fills, writes the
-inbound messages' rows into their ghost cells and steps the active levels.
-On the ``cuda`` backend both writes are fill-kernel launches in place (the
-messages through the ``"values"`` kind), all before any stencil, and the
-split steps its interior and boundary blocks into one output tensor through
-the stencil's slot list.
+outbound halo messages, absorb fills the rank's ghost cells from its local
+sources and from the inbound messages' rows and steps the active levels.
+With a halo stepper factory (the engines' form) a level's local rows and
+message rows are one merged fill, and on the ``cuda`` backend one launch of
+the stencil's halo route, which reads a message row straight from the
+received payload; the split steps its interior and boundary blocks into
+one output tensor through the route over a slot list. Without one, the
+fills run first (fill-kernel launches in place on ``cuda``, the messages
+through the ``"values"`` kind), then the stencils.
 
 The device superstep (:func:`make_device_superstep`) composes those pieces
 for real device ranks: per ppermute round every sender's emit, zero-padded
@@ -50,6 +53,7 @@ from ...lbm.halo import lower_halo_fill
 from ...lbm.lattice import D3Q19, Lattice
 from .lbm_collide import (
     HALO_FINE_BIT,
+    HALO_MAX_SEGMENTS,
     HALO_SEG_SHIFT,
     HALO_STAGE_BIT,
     HaloMap,
@@ -73,6 +77,7 @@ __all__ = [
     "make_halo_stream_collide",
     "fill_tables",
     "FillTable",
+    "message_tables",
     "halo_map",
     "HaloStep",
     "apply_compiled_ghost_plan",
@@ -83,6 +88,7 @@ __all__ = [
     "boundary_slot_sets",
     "make_rank_absorb",
     "make_rank_absorb_split",
+    "shared_halo_steps",
     "make_device_superstep",
     "BACKENDS",
 ]
@@ -196,18 +202,25 @@ def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
 @dataclass(frozen=True)
 class FillTable:
     """One segment of a level's merged fill, lowered for
-    :func:`~.lbm_collide.lbm_halo_fill`: int32 index tensors on the device,
-    rows sorted by (``dst_slot``, ``dst_cell``). ``src`` is the source
-    level's position in the superstep's buffer tuple; ``src_slot`` is
-    ``(N,)`` for every kind (a fine row's octet lies in one block) and
-    ``src_cell`` ``(N,)``, or ``(N, 8)`` for ``"fine"``."""
+    :func:`~.lbm_collide.lbm_halo_fill` and :func:`halo_map`: int32 index
+    tensors on the device, rows sorted by (``dst_slot``, ``dst_cell``).
+    ``src`` is the source level's position in the superstep's buffer tuple;
+    ``src_slot`` is ``(N,)`` for every kind (a fine row's octet lies in one
+    block) and ``src_cell`` ``(N,)``, or ``(N, 8)`` for ``"fine"``.
+
+    A ``"values"`` table is one inbound payload's rows at a rank's level
+    (:func:`message_tables`): ``src`` is the payload's position in the halo
+    route's sources (after the pre-step tuple), ``src_cell`` the payload
+    row of each target, in the message's order, ``src_slot`` None, and
+    ``rows`` the least rows the payload must hold."""
 
     src: int
-    kind: str  # "same" | "fine" | "coarse"
+    kind: str  # "same" | "fine" | "coarse" | "values"
     dst_slot: torch.Tensor
     dst_cell: torch.Tensor
-    src_slot: torch.Tensor
+    src_slot: torch.Tensor | None
     src_cell: torch.Tensor
+    rows: int = 0
 
 
 # repro: host-ok(build-time sort of host plan arrays, once per superstep build)
@@ -239,13 +252,39 @@ def fill_tables(fill, level_index: dict[int, int], device: torch.device | str) -
     return tuple(tables)
 
 
+# repro: host-ok(build-time lowering of host plan arrays, once per program build)
+def message_tables(messages, first: int, device: torch.device | str) -> tuple[FillTable, ...]:
+    """Lower one rank level's inbound message rows into one ``"values"``
+    :class:`FillTable` a payload. ``messages`` are ``(payload, dst_slot,
+    dst_cell, offset, n)`` tuples: the ``n`` rows of the payload at position
+    ``payload`` among the received ones, from row ``offset`` on, fill those
+    targets (one tuple a scatter segment of the message, in its order).
+    ``first`` is the first payload's position in the halo route's sources
+    (the length of the pre-step tuple)."""
+    per: dict[int, list] = {}
+    for mi, db, dc, off, n in messages:
+        per.setdefault(mi, []).append((db, dc, np.arange(off, off + n)))
+    tables = []
+    for mi, parts in per.items():
+        db, dc, rows = (np.concatenate([p[k] for p in parts]) for k in range(3))
+        tables.append(FillTable(
+            first + mi, "values", *(_int32(a, device) for a in (db, dc)), None, _int32(rows, device),
+            int(rows.max(initial=-1)) + 1,
+        ))
+    return tuple(tables)
+
+
 def halo_map(tables: tuple[FillTable, ...], mask: torch.Tensor, Q: int) -> HaloMap:
     """The halo route's map of one level's fill, built once per superstep
-    build beside its :func:`fill_tables`, on their device: the target of
-    each row of ``tables[k]`` holds ``k << HALO_SEG_SHIFT`` (and a fine
-    row's ``1 << HALO_FINE_BIT``) or'ed with the element offset of the row's
-    source cell (a fine row's octet base) in a source stack of ``Q``
-    directions, every other cell of the level -1. ``mask`` is the level's
+    build beside its :func:`fill_tables` (and a rank level's
+    :func:`message_tables`), on their device: the target of each row of
+    ``tables[k]`` holds ``k << HALO_SEG_SHIFT`` (and a fine row's ``1 <<
+    HALO_FINE_BIT``) or'ed with the element offset of the row's source cell
+    (a fine row's octet base) in a source stack of ``Q`` directions, or of
+    a ``"values"`` row's payload row (its row times ``Q``), every other
+    cell of the level -1. A rank level's map holds its local and its
+    message rows; at most :data:`HALO_MAX_SEGMENTS` tables. ``mask`` is the
+    level's
     (B, X, Y, Z) cell-type stack on the tables' device, the one the route
     is launched with: a fine row's target also holds ``1 <<
     HALO_STAGE_BIT`` where the stencil reads the cell's own values, that is
@@ -254,6 +293,8 @@ def halo_map(tables: tuple[FillTable, ...], mask: torch.Tensor, Q: int) -> HaloM
     canonical 2 x 2 x 2 cube at its base (checked), so that the base alone
     names it."""
     dev = tables[0].dst_slot.device
+    if len(tables) > HALO_MAX_SEGMENTS:
+        raise ValueError(f"a halo map takes at most {HALO_MAX_SEGMENTS} segments, got {len(tables)}")
     if mask.dim() != 4 or mask.device != dev:
         raise ValueError(f"the mask must be a (B, X, Y, Z) stack on {dev}, got {tuple(mask.shape)} on {mask.device}")
     nblocks, *dims = mask.shape
@@ -269,6 +310,9 @@ def halo_map(tables: tuple[FillTable, ...], mask: torch.Tensor, Q: int) -> HaloM
     for k, t in enumerate(tables):
         base = t.src_cell.long()
         dst = t.dst_slot.long() * n + t.dst_cell.long()
+        if t.kind == "values":  # a payload row: its Q values are adjacent
+            cells[dst] = base * Q | k << HALO_SEG_SHIFT
+            continue
         value = t.src_slot.long() * (Q * n) | k << HALO_SEG_SHIFT
         if t.kind == "fine":
             assert torch.equal(base - base[:, :1], octet.expand_as(base)), "a fine row's octet is not canonical"
@@ -323,20 +367,29 @@ def _same_fill(a, b) -> bool:
 
 @dataclass(frozen=True)
 class HaloStep:
-    """One level's halo step in two phases. ``fill(pdfs)`` runs on the
-    substep's pre-step tuple, for every level that has a fill, before any
-    level of the substep steps, and returns what ``step(f, filled)`` needs
-    to finish the level."""
+    """One level's halo step in two phases. ``fill(sources)`` runs on the
+    substep's pre-step tuple (on a rank path followed by the received
+    payloads), for every level that has a fill, before any level of the
+    substep steps, and returns what ``step(f, filled, *, slots=None,
+    out=None)`` needs to finish the level, or the listed blocks of it into
+    ``out``. Given the pre-step tuple alone, a step with message rows
+    reads its local rows only (a rank's interior half, whose blocks name
+    no payload row). ``local_rows`` and ``message_rows`` count the rows of
+    each kind, ``map_bytes`` the ``cuda`` backend's map (8 bytes a cell)."""
 
-    fill: Callable[[list], object]
-    step: Callable[[torch.Tensor, object], torch.Tensor]
+    fill: Callable[[tuple], object]
+    step: Callable[..., torch.Tensor]
+    local_rows: int = 0
+    message_rows: int = 0
+    map_bytes: int = 0
 
 
 def make_halo_stream_collide(
     fill,
     level_index: dict[int, int],
     *,
-    mask: np.ndarray,
+    messages=(),
+    mask: np.ndarray | torch.Tensor,
     omega: float,
     lattice: Lattice = D3Q19,
     u_wall: tuple[float, float, float] = (0.0, 0.0, 0.0),
@@ -346,52 +399,88 @@ def make_halo_stream_collide(
     device: torch.device | str = "cuda",
 ) -> HaloStep:
     """Build the halo step of one level: its merged ghost fill ``fill``
-    (a :class:`~..lbm.halo.LevelHaloFill`) and the stream+collide stencil.
+    (a :class:`~..lbm.halo.LevelHaloFill`, or None on a rank level whose
+    rows all come in messages) and, on a rank path, the rows ``messages``
+    of the inbound payloads (:func:`message_tables`'s tuples), then the
+    stream+collide stencil.
 
     ``level_index`` maps levels to positions in the superstep's buffer
-    tuple. On the ``cuda`` backend ``fill(pdfs)`` only hands on the pre-step
-    tuple, and ``step`` is one launch of the stencil's halo route
+    tuple; payload ``i`` follows it in the sources, at ``len(level_index) +
+    i``. On the ``cuda`` backend ``fill(sources)`` only hands the sources
+    on, and ``step`` is one launch of the stencil's halo route
     (:func:`~.lbm_collide.lbm_stream_collide` with the level's
-    :func:`halo_map`): each ghost value it needs is read from its source in
-    the pre-step stacks, and no buffer is written but the output. On the
-    ``ref`` backend ``fill(pdfs)`` gathers the ``(N, Q)`` fill values and
-    ``step`` scatters them into a copy of ``f`` feeding the stencil, with
-    the streaming selectors precomputed on the host
-    (:func:`~.ref.precompute_stream_masks`).
+    :func:`halo_map`, over ``slots`` when given): each ghost value it needs
+    is read from its source, a pre-step stack or a payload row, and no
+    buffer is written but the output. On the ``ref`` backend
+    ``fill(sources)`` gathers the ``(N, Q)`` fill values, the local rows'
+    then the message rows' (slices of the payloads), and ``step`` scatters
+    them into a copy of ``f`` feeding the stencil, with the streaming
+    selectors precomputed on the host (:func:`~.ref.precompute_stream_masks`)
+    where ``mask`` is a host array.
 
-    ``mask`` is the level's host ``(B, X, Y, Z)`` cell-type stack, closed
-    over as a constant (programs are rebuilt on mask refresh / AMR events).
+    ``mask`` is the level's ``(B, X, Y, Z)`` cell-type stack, a host array
+    (uploaded to ``device``) or a tensor on ``device`` (used as it is),
+    closed over as a constant (programs are rebuilt on mask refresh / AMR
+    events).
     """
     _check_backend(backend)
-    mask = np.asarray(mask)  # repro: host-ok(the host mask stack closed over at program build)
     device = torch.device(device)
-    assert fill.num_cells > 0, "use make_stream_collide when there is no fill"
+    if not isinstance(mask, torch.Tensor):
+        mask = np.asarray(mask)  # repro: host-ok(the host mask stack closed over at program build)
+    mask_t = torch.as_tensor(mask, device=device)
+    messages = tuple(messages)
+    local_rows = 0 if fill is None else fill.num_cells
+    message_rows = sum(n for *_r, n in messages)
+    assert local_rows + message_rows > 0, "use make_stream_collide when there is no fill"
     kw = dict(omega=omega, lattice=lattice, u_wall=u_wall, collision=collision, magic=magic)
+    npre = len(level_index)
 
     if backend == "cuda":
-        mask_t = torch.as_tensor(mask, device=device)
-        hmap = halo_map(fill_tables(fill, level_index, device), mask_t, lattice.Q)
+        local = fill_tables(fill, level_index, device) if local_rows else ()
+        hmap = halo_map(local + message_tables(messages, npre, device), mask_t, lattice.Q)
+        # the map of the local rows alone: the same cells, read only by
+        # blocks that name no payload row
+        local_map = hmap if not messages else (HaloMap(hmap.cells, local, mask_t) if local else None)
 
-        def step(f: torch.Tensor, pdfs: tuple) -> torch.Tensor:
-            return lbm_stream_collide(f, mask_t, halo=hmap, sources=pdfs, **kw)
+        def step(f: torch.Tensor, sources: tuple, *, slots=None, out=None) -> torch.Tensor:
+            halo = hmap if len(sources) > npre else local_map
+            if halo is None:  # no local row, and no payload bound
+                return lbm_stream_collide(f, mask_t, slots=slots, out=out, **kw)
+            return lbm_stream_collide(f, mask_t, halo=halo, sources=sources, slots=slots, out=out, **kw)
 
-        return HaloStep(lambda pdfs: pdfs, step)
+        return HaloStep(lambda sources: sources, step, local_rows, message_rows,
+                        hmap.cells.numel() * hmap.cells.element_size())
 
-    pm = {
-        k: torch.as_tensor(v, device=device)
-        for k, v in precompute_stream_masks(mask, lattice).items()
-    }
-    db = _index(fill.dst_slot, device)
-    dc = _index(fill.dst_cell, device)
-    gathers = _lower_fill_gathers(fill, level_index, device)
+    if isinstance(mask, np.ndarray):
+        pm = {k: torch.as_tensor(v, device=device) for k, v in precompute_stream_masks(mask, lattice).items()}
+        sel = dict(premask=pm)
+    else:
+        sel = dict(mask=mask_t)
+    parts = ([(fill.dst_slot, fill.dst_cell)] if local_rows else []) + [(db, dc) for _mi, db, dc, _o, _n in messages]
+    db = _index(np.concatenate([a for a, _b in parts]), device)
+    dc = _index(np.concatenate([b for _a, b in parts]), device)
+    gathers = _lower_fill_gathers(fill, level_index, device) if local_rows else ()
+    slices = tuple((npre + mi, off, n) for mi, _db, _dc, off, n in messages)
 
-    def step_ref(f: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    def fill_ref(sources: tuple) -> torch.Tensor | None:
+        extra = [sources[i][off : off + n] for i, off, n in slices] if len(sources) > npre else []
+        if not gathers and not extra:
+            return None
+        return _concat_vals(sources, gathers, extra)
+
+    def step_ref(f: torch.Tensor, vals: torch.Tensor | None, *, slots=None, out=None) -> torch.Tensor:
         coeffs = collision_coeffs(**kw, dtype=_np_dtype(f.dtype))
-        return stream_collide_halo_ref(
-            f, vals, db, dc, coeffs, premask=pm, lattice=lattice, collision=collision
-        )
+        if vals is None:
+            return stream_collide_into(f, mask_t, coeffs, lattice=lattice, collision=collision, slots=slots, out=out)
+        n = vals.shape[0]  # the local rows come first
+        if slots is None:
+            res = stream_collide_halo_ref(f, vals, db[:n], dc[:n], coeffs, lattice=lattice, collision=collision, **sel)
+            return res if out is None else out.copy_(res)
+        filled = f.clone()
+        _flat3(filled)[db[:n], :, dc[:n]] = vals
+        return stream_collide_into(filled, mask_t, coeffs, lattice=lattice, collision=collision, slots=slots, out=out)
 
-    return HaloStep(lambda bufs: _concat_vals(bufs, gathers), step_ref)
+    return HaloStep(fill_ref, step_ref, local_rows, message_rows)
 
 
 def _device_plan_ops(plan, level_index: dict[int, int], device: torch.device) -> list[tuple]:
@@ -452,9 +541,10 @@ def _lower_fill_gathers(fill, level_index: dict[int, int], device: torch.device)
     )
 
 
-def _concat_vals(bufs, gathers) -> torch.Tensor:
-    """Concatenate gathered segment values in merged-fill order."""
-    parts = [_gather_vals(bufs[si], kind, sb, sc) for si, kind, sb, sc in gathers]
+def _concat_vals(bufs, gathers, extra=()) -> torch.Tensor:
+    """Concatenate gathered segment values (then any given value rows, such
+    as inbound message slices) in merged-fill order."""
+    parts = [_gather_vals(bufs[si], kind, sb, sc) for si, kind, sb, sc in gathers] + list(extra)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
@@ -779,16 +869,14 @@ def _int32(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
 
-def _rank_fills(messages, local_plan, level_index, masks, active_levels, backend, device):
-    """One rank's ghost writes of a substep, lowered once: ``(local,
-    inbound)`` where ``local(bufs)`` runs the rank-local plan and
-    ``inbound(bufs, msgs)`` writes the received payloads, both in place
-    into the pre-step buffers. On ``cuda``, fill-kernel launches: the local
-    plan's merged fills from their sources, then one ``"values"`` launch a
-    message segment reading its slice of the payload; on ``ref``, the
-    plain gather/scatter. Asserts on the host that no ghost cell is written
-    twice and no local fill reads a written cell. Each closure's
-    ``segments`` counts the fill launches it makes on ``cuda``."""
+# repro: host-ok(build-time lowering and checks over host plan arrays, once per program build)
+def _rank_rows(messages, local_plan, level_index, masks, active_levels):
+    """One rank's ghost rows of a substep: ``(fills, inbound)``, the local
+    plan's merged fill a level and, a level, the inbound message rows as
+    :func:`message_tables` takes them (one tuple a scatter segment, in
+    (message, segment) order). Asserts on the host that every row targets
+    an active level, that no ghost cell is written twice and that no local
+    fill reads a written cell."""
     order = [l for l in sorted(level_index, key=level_index.get)]
     nblocks = [masks[l].shape[0] for l in order]
     cells = int(np.prod(tuple(masks[order[0]].shape[1:])))
@@ -796,6 +884,24 @@ def _rank_fills(messages, local_plan, level_index, masks, active_levels, backend
     assert set(fills) <= set(active_levels), (sorted(fills), sorted(active_levels))
     assert {dl for m in messages for dl, *_ in m.scatter} <= set(active_levels)
     _assert_fills_disjoint(fills, level_index, nblocks, cells, messages)
+    inbound: dict[int, list] = {}
+    for mi, m in enumerate(messages):
+        off = 0
+        for dl, db, dc, n in m.scatter:
+            inbound.setdefault(dl, []).append((mi, db, dc, off, n))
+            off += n
+    return fills, inbound
+
+
+def _rank_fills(fills, messages, local_plan, level_index, backend, device):
+    """The fill launches of a rank's absorb without a halo stepper factory,
+    lowered once: ``(local, inbound)`` where ``local(bufs)`` runs the
+    rank-local plan and ``inbound(bufs, msgs)`` writes the received
+    payloads, both in place into the pre-step buffers. On ``cuda``,
+    fill-kernel launches: the local plan's merged fills from their sources,
+    then one ``"values"`` launch a message segment reading its slice of
+    the payload; on ``ref``, the plain gather/scatter. Each closure's
+    ``segments`` counts the fill launches it makes on ``cuda``."""
     if backend == "cuda":
         tables = [(level_index[l], fill_tables(f, level_index, device)) for l, f in fills.items()]
         segs = tuple(
@@ -840,6 +946,47 @@ def _rank_fills(messages, local_plan, level_index, masks, active_levels, backend
     return local_ref, inbound_ref
 
 
+def _same_messages(a, b) -> bool:
+    """Whether two levels' inbound message rows are the same rows from the
+    same payload positions."""
+    return len(a) == len(b) and all(
+        x[0] == y[0] and x[3:] == y[3:] and np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2])
+        for x, y in zip(a, b)
+    )
+
+
+def shared_halo_steps(factory):
+    """Wrap a halo stepper factory ``(level, fill, level_index, messages=())
+    -> HaloStep`` so that the calls of one rank's programs (one call a
+    pattern and level) whose rows are the same, the same merged local fill
+    and the same message rows, share one :class:`HaloStep` and so one map,
+    as :func:`make_fused_superstep` shares a level's fill between its
+    patterns. Every call must pass the same ``level_index``. The wrapper's
+    ``steps()`` lists the distinct steps it built."""
+    built: dict[int, list] = {}
+
+    def shared(level, fill, level_index, messages=()):
+        for f, m, hstep in built.setdefault(level, []):
+            if (f is None) == (fill is None) and (f is None or _same_fill(f, fill)) and _same_messages(m, messages):
+                return hstep
+        hstep = factory(level, fill, level_index, messages=messages)
+        built[level].append((fill, messages, hstep))
+        return hstep
+
+    shared.steps = lambda: [h for per in built.values() for _f, _m, h in per]
+    return shared
+
+
+def _rank_halo_steps(factory, fills, inbound, level_index, order) -> dict:
+    """A rank's halo step of each active level that has rows, local or
+    inbound, from ``factory``."""
+    return {
+        l: factory(l, fills.get(l), level_index, messages=tuple(inbound.get(l, ())))
+        for l in order
+        if l in fills or l in inbound
+    }
+
+
 def make_rank_absorb(
     messages,
     local_plan,
@@ -850,6 +997,7 @@ def make_rank_absorb(
     active_levels,
     backend: str = "cuda",
     device: torch.device | str = "cuda",
+    halo_stepper_factory=None,
 ):
     """Build one rank's receive+exchange+step side of a sharded substep.
 
@@ -861,16 +1009,44 @@ def make_rank_absorb(
     (:func:`make_stream_collide`) and device mask stacks; ``active_levels``
     is this substep pattern's active set intersected with the rank's levels.
 
-    Returns ``absorb(pdfs: tuple, msgs: tuple) -> tuple``: every ghost write
-    of the rank (local fills, then the inbound rows) lands in place in the
-    pre-step buffers, then every active level steps, finest first. The
-    caller rebinds the result and never reads the tuple it passed in. Its
-    ``fill_segments`` counts the fill launches a call makes on ``cuda``.
+    Returns ``absorb(pdfs: tuple, msgs: tuple) -> tuple``. With
+    ``halo_stepper_factory`` (``(level, fill, level_index, messages=()) ->
+    HaloStep``, the engines' form, as in the JAX package), the local fill
+    and the inbound message rows of each level are merged into one fill,
+    folded into the level's halo step (:func:`make_halo_stream_collide`):
+    on ``cuda`` one launch of the stencil's halo route a level with rows,
+    over the pre-step tuple and the payloads, which writes nothing but its
+    output; every other active level is the plain stencil. Without it,
+    every ghost write of the rank (local fills, then the inbound rows)
+    lands in place in the pre-step buffers, then every active level steps.
+    Levels step finest first. The caller rebinds the result and never reads
+    the tuple it passed in. Its ``fill_segments`` counts the fill launches
+    and ``halo_steps`` the halo-route launches a call makes on ``cuda``,
+    and ``halo`` maps the levels with a halo step to it.
     """
     _check_backend(backend)
     device = torch.device(device)
     order = tuple(sorted(active_levels, reverse=True))  # finest first
-    local, inbound = _rank_fills(messages, local_plan, level_index, masks, active_levels, backend, device)
+    fills, inbound_rows = _rank_rows(messages, local_plan, level_index, masks, active_levels)
+
+    if halo_stepper_factory is not None:
+        hsteps = _rank_halo_steps(halo_stepper_factory, fills, inbound_rows, level_index, order)
+
+        def absorb(pdfs, msgs):
+            sources = (*pdfs, *msgs)
+            bufs = list(pdfs)
+            for l in order:
+                i = level_index[l]
+                h = hsteps.get(l)
+                bufs[i] = steppers[l](pdfs[i], masks[l]) if h is None else h.step(pdfs[i], h.fill(sources))
+            return tuple(bufs)
+
+        absorb.fill_segments = 0
+        absorb.halo_steps = len(hsteps)
+        absorb.halo = hsteps
+        return absorb
+
+    local, inbound = _rank_fills(fills, messages, local_plan, level_index, backend, device)
 
     def absorb(pdfs, msgs):
         bufs = list(pdfs)
@@ -882,6 +1058,8 @@ def make_rank_absorb(
         return tuple(bufs)
 
     absorb.fill_segments = local.segments + inbound.segments
+    absorb.halo_steps = 0
+    absorb.halo = {}
     return absorb
 
 
@@ -895,6 +1073,7 @@ def make_rank_absorb_split(
     active_levels,
     backend: str = "cuda",
     device: torch.device | str = "cuda",
+    halo_stepper_factory=None,
 ):
     """Split one rank's substep into an interior and a boundary half so the
     host's message routing overlaps interior stepping.
@@ -902,21 +1081,29 @@ def make_rank_absorb_split(
     *Boundary* blocks are the slots whose ghost layer depends on inbound
     messages (:func:`boundary_slot_sets`); everything else is *interior* —
     an interior block's ghosts are filled entirely by the rank-local plan.
-    ``interior(pdfs) -> state`` runs **every** local fill (boundary blocks'
-    local-sourced ghosts included) on the pre-step buffers, allocates each
-    active level's output and steps the interior slots into it through the
-    stencil's slot list. ``boundary(state, msgs) -> pdfs`` writes the
-    inbound rows into the pre-step buffers and steps the boundary slots
-    into the same outputs. No sub-stack is gathered or scattered back. The
-    two halves together equal :func:`make_rank_absorb` bit for bit: a block
-    steps on its own, and every ghost write lands before the block that
-    reads it steps. Arguments as for :func:`make_rank_absorb`; each half's
-    ``fill_segments`` counts its fill launches on ``cuda``.
+    ``interior(pdfs) -> state`` allocates each active level's output and
+    steps the interior slots into it; ``boundary(state, msgs) -> pdfs``
+    steps the boundary slots into the same outputs, once the payloads have
+    arrived. No sub-stack is gathered or scattered back. With
+    ``halo_stepper_factory`` each half is, on ``cuda``, one launch of the
+    stencil's halo route a level with rows over its slot list, both halves
+    reading one map: the interior half's blocks name local rows only
+    (asserted when built), so it reads the pre-step tuple alone, and the
+    boundary half reads the payloads too. Without it, the interior half
+    runs **every** local fill (boundary blocks' local-sourced ghosts
+    included) in place on the pre-step buffers before stepping, and the
+    boundary half writes the inbound rows before stepping; the halves then
+    step through the stencil's slot list. Either way the two halves
+    together equal :func:`make_rank_absorb` bit for bit: a block steps on
+    its own, and every ghost value it reads is the one the unsplit absorb
+    gives it. Arguments as for :func:`make_rank_absorb`; each half's
+    ``fill_segments`` and ``halo_steps`` count its fill and halo-route
+    launches on ``cuda``.
     """
     _check_backend(backend)
     device = torch.device(device)
     order = tuple(sorted(active_levels, reverse=True))
-    local, inbound = _rank_fills(messages, local_plan, level_index, masks, active_levels, backend, device)
+    fills, inbound_rows = _rank_rows(messages, local_plan, level_index, masks, active_levels)
     bnd = boundary_slot_sets(messages, {l: masks[l] for l in order})
     nblocks = {l: masks[l].shape[0] for l in order}
     # per level, (interior, boundary): whether the half steps any block of
@@ -928,33 +1115,56 @@ def make_rank_absorb_split(
         halves[l] = tuple(
             (idx.size > 0, None if idx.size == nblocks[l] else _int32(idx, device)) for idx in (i, b)
         )
+        # repro: host-ok(build-time check over host plan arrays)
+        named = np.concatenate([np.asarray(db) for _mi, db, *_r in inbound_rows.get(l, ())] or [np.zeros(0, int)])
+        assert not np.isin(i, named).any(), f"an interior block of level {l} names a payload row"
 
-    def step_half(bufs, outs, which):
+    if halo_stepper_factory is not None:
+        hsteps = _rank_halo_steps(halo_stepper_factory, fills, inbound_rows, level_index, order)
+        local = inbound = None
+    else:
+        hsteps = {}
+        local, inbound = _rank_fills(fills, messages, local_plan, level_index, backend, device)
+
+    def step_half(pdfs, sources, outs, which):
         for l in order:
             run, slots = halves[l][which]
             if run:
                 i = level_index[l]
-                steppers[l](bufs[i], masks[l], slots=slots, out=outs[i])
+                h = hsteps.get(l)
+                if h is None:
+                    steppers[l](pdfs[i], masks[l], slots=slots, out=outs[i])
+                else:
+                    h.step(pdfs[i], h.fill(sources), slots=slots, out=outs[i])
 
     def interior(pdfs):
         bufs = list(pdfs)
-        local(bufs)
+        if local is not None:
+            local(bufs)
         outs = {level_index[l]: torch.empty_like(bufs[level_index[l]]) for l in order}
-        step_half(bufs, outs, 0)
+        step_half(bufs, tuple(bufs), outs, 0)
         return bufs, outs
 
     def boundary(state, msgs):
         bufs, outs = state
-        inbound(bufs, msgs)
-        step_half(bufs, outs, 1)
+        if inbound is not None:
+            inbound(bufs, msgs)
+        step_half(bufs, (*bufs, *msgs), outs, 1)
         return tuple(outs.get(i, b) for i, b in enumerate(bufs))
 
-    interior.fill_segments = local.segments
-    boundary.fill_segments = inbound.segments
+    interior.fill_segments = 0 if local is None else local.segments
+    boundary.fill_segments = 0 if inbound is None else inbound.segments
+    # a half launches the route at a level it steps where it reads rows:
+    # the interior half its local rows only
+    interior.halo_steps = sum(bool(halves[l][0][0] and h.local_rows) for l, h in hsteps.items())
+    boundary.halo_steps = sum(bool(halves[l][1][0]) for l in hsteps)
+    interior.halo = boundary.halo = hsteps
     return interior, boundary
 
 
-def make_device_superstep(*, levels, plans, schedules, steppers, masks, devices, backend: str = "cuda"):
+def make_device_superstep(
+    *, levels, plans, schedules, steppers, masks, devices, halo_stepper_factories, backend: str = "cuda"
+):
     """One coarse step of the ``device_sharded`` mode: every rank's padded
     block stacks on its own device, halo payloads moved device to device.
 
@@ -968,10 +1178,12 @@ def make_device_superstep(*, levels, plans, schedules, steppers, masks, devices,
     the message moves to the destination rank's device in one copy into a
     receive tensor: a peer copy when the ranks sit on two cards, an
     on-device copy when they share one. Then every rank's
-    :func:`make_rank_absorb`, built on the rank's own device, runs its local
-    fills from their sources, writes the logical ``m.num_cells`` rows of
-    each inbound message (the fill's ``values`` kind on ``cuda``) and steps
-    the active levels, finest first. The reference's ``lax.switch`` over
+    :func:`make_rank_absorb`, built on the rank's own device, steps the
+    active levels, finest first, with its ghost cells filled from its local
+    sources and from the logical ``m.num_cells`` rows of each inbound
+    message: one halo-route launch a level with rows on ``cuda``, reading
+    each message row from the received (padded) payload, and no fill
+    launch. The reference's ``lax.switch`` over
     ranks is a loop over ranks here; its ``unroll_limit`` / ``fori_loop``
     have no counterpart, since a coarse step is a plain Python loop over its
     ``2^lmax`` substeps, as in :func:`make_fused_superstep`. Nothing in a
@@ -998,19 +1210,25 @@ def make_device_superstep(*, levels, plans, schedules, steppers, masks, devices,
             level; closed over, as in every superstep of this module (the
             engine rebuilds the superstep when masks change).
         devices: rank -> the rank's ``torch.device``.
+        halo_stepper_factories: rank -> halo stepper factory
+            (:func:`make_rank_absorb`'s), built over the rank's padded
+            masks on its device; each is shared by the rank's patterns
+            (:func:`shared_halo_steps`).
         backend: ``"cuda"`` (the kernels) or ``"ref"``.
 
     Returns:
         ``superstep(pdfs: dict[rank, tuple]) -> dict[rank, tuple]`` advancing
-        one coarse step; it consumes its input tuples. Its ``fill_segments``
-        and ``payload_copies`` attributes count the fill launches (on
-        ``cuda``) and the message copies of a coarse step.
+        one coarse step; it consumes its input tuples. Its ``fill_segments``,
+        ``halo_steps`` and ``payload_copies`` attributes count the fill and
+        halo-route launches (on ``cuda``) and the message copies of a coarse
+        step, and ``halo_step_objects()`` lists the distinct halo steps.
     """
     _check_backend(backend)
     levels = tuple(sorted(levels))
     index = {l: i for i, l in enumerate(levels)}
     lmax = levels[-1]
     ranks = tuple(sorted(devices))
+    factories = {r: shared_halo_steps(halo_stepper_factories[r]) for r in ranks}
 
     def make_branch(p: int):
         active = {l for l in levels if l >= lmax - p}
@@ -1031,6 +1249,7 @@ def make_device_superstep(*, levels, plans, schedules, steppers, masks, devices,
                 active_levels=active,
                 backend=backend,
                 device=devices[r],
+                halo_stepper_factory=factories[r],
             )
             for r in ranks
         }
@@ -1044,6 +1263,7 @@ def make_device_superstep(*, levels, plans, schedules, steppers, masks, devices,
             return {r: absorbs[r](pdfs[r], tuple(recv[m.key] for m in inbound[r])) for r in ranks}
 
         branch.fill_segments = sum(a.fill_segments for a in absorbs.values())
+        branch.halo_steps = sum(a.halo_steps for a in absorbs.values())
         branch.payload_copies = sum(len(rnd) for rnd in sends)
         return branch
 
@@ -1057,5 +1277,7 @@ def make_device_superstep(*, levels, plans, schedules, steppers, masks, devices,
         return pdfs
 
     superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
+    superstep.halo_steps = sum(branches[p].halo_steps for p in pattern)
     superstep.payload_copies = sum(branches[p].payload_copies for p in pattern)
+    superstep.halo_step_objects = lambda: [h for f in factories.values() for h in f.steps()]
     return superstep

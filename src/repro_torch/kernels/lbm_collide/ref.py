@@ -368,18 +368,24 @@ def halo_stream_collide_ref(
     *,
     lattice: Lattice = D3Q19,
     collision: str = "bgk",
+    slots: torch.Tensor | None = None,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The halo route's function: a clone of ``f`` filled segment by
     segment with :func:`halo_fill_ref` (each table's ``kind``, targets and
-    source indices, its source stack ``sources[table.src]``), then
-    :func:`stream_collide_into` on the clone. ``f`` and every source stack
-    are left as they are. With member stacks (M, B, Q, X, Y, Z) every member
-    is filled through the same tables."""
+    source indices, its source ``sources[table.src]``; a ``"values"``
+    table's source is an (N, Q) payload, whose rows ``src_cell`` it
+    writes), then :func:`stream_collide_into` on the clone, over ``slots``
+    when given. ``f`` and every source are left as they are. With member
+    stacks (M, B, Q, X, Y, Z) every member is filled through the same
+    tables."""
     filled = f.clone()
     for t in tables:
-        halo_fill_ref(filled, sources[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
-    return stream_collide_into(filled, mask, coeffs, lattice=lattice, collision=collision, out=out)
+        if t.kind == "values":
+            halo_fill_ref(filled, sources[t.src][t.src_cell.long()], "values", t.dst_slot, t.dst_cell)
+        else:
+            halo_fill_ref(filled, sources[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+    return stream_collide_into(filled, mask, coeffs, lattice=lattice, collision=collision, slots=slots, out=out)
 
 
 def _np_dtype(dtype: torch.dtype):

@@ -29,8 +29,9 @@ back each substep), ``fused`` (the whole coarse step on the device over a
 events), ``sharded`` (per-rank host arenas, cross-rank ghost data as p2p
 messages through ``Comm``) and ``fused_sharded`` (per-rank device
 residency: each rank emits its halo messages on the device, the host routes
-them through ``Comm``, and each rank absorbs them with the fill kernel and
-steps, with no host transfer between AMR events) and ``device_sharded``
+them through ``Comm``, and each rank steps with its local and message rows
+read in the stencil's halo route, with no host transfer between AMR
+events) and ``device_sharded``
 (one device per rank: each rank's padded block stacks live on its own
 device, and every halo payload moves device to device with no host routing
 per substep; the control plane stays on the host).
@@ -57,6 +58,7 @@ from ..kernels.lbm_collide.ops import (
     make_rank_absorb_split,
     make_rank_emit,
     make_stream_collide,
+    shared_halo_steps,
     substep_patterns,
 )
 from ..telemetry import get_tracer
@@ -129,17 +131,21 @@ class StepEngine:
             backend=cfg.kernel_backend,
         )
 
-    def _halo_stepper_factory(self, masks_host: dict[int, np.ndarray]):
-        """``(level, fill, level_index) -> HaloStep`` builder for the
-        halo-in-tile superstep; ``masks_host`` are host mask stacks (copied —
-        the factory's constants must not alias mutable arena storage)."""
+    def _halo_stepper_factory(self, masks: dict, device: torch.device | None = None):
+        """``(level, fill, level_index, messages=()) -> HaloStep`` builder
+        for the halo-in-tile supersteps and rank absorbs; ``masks`` are host
+        mask stacks (copied — the factory's constants must not alias
+        mutable arena storage) or a rank's device mask stacks on ``device``
+        (default: the engine's)."""
+        device = self.device if device is None else device
 
-        def factory(level: int, fill, level_index: dict[int, int]):
+        def factory(level: int, fill, level_index: dict[int, int], messages=()):
             return make_halo_stream_collide(
                 fill,
                 level_index,
-                mask=masks_host[level],
-                device=self.device,
+                messages=messages,
+                mask=masks[level],
+                device=device,
                 **self._stepper_kwargs(level),
             )
 
@@ -500,6 +506,8 @@ class _RankPrograms:
     # index, for the protocol verifier
     plans: dict[int, object] = field(default_factory=dict)
     rank_slots: dict[int, dict[int, dict[int, int]]] = field(default_factory=dict)
+    # each rank's shared halo stepper factory (its ``steps()``: the maps)
+    factories: dict[int, Callable] = field(default_factory=dict)
 
 
 @_register
@@ -560,8 +568,16 @@ class FusedShardedEngine(ShardedEngine):
         ranks = tuple(r for r in range(self.cfg.nranks) if per_rank[r].levels())
         rank_levels = {r: tuple(per_rank[r].levels()) for r in ranks}
         rank_slots = {r: {l: per_rank[r].slots(l) for l in rank_levels[r]} for r in ranks}
+        # one halo stepper factory a rank, shared by its patterns: a level
+        # whose rows are the same in several patterns gets one map
+        factories = {
+            # repro: host-ok(mask copy at program build, once per arena version)
+            r: shared_halo_steps(self._halo_stepper_factory({l: np.array(per_rank[r].buffer(l, "mask"))
+                                                             for l in rank_levels[r]}))
+            for r in ranks
+        }
         progs = _RankPrograms(levels=levels, nsub=nsub, pattern=substep_patterns(lmax), ranks=ranks,
-                              rank_levels=rank_levels, rank_slots=rank_slots)
+                              rank_levels=rank_levels, rank_slots=rank_slots, factories=factories)
         backend = self.cfg.kernel_backend
         for p in range(lmax + 1):
             active = {l for l in levels if l >= lmax - p}
@@ -592,6 +608,7 @@ class FusedShardedEngine(ShardedEngine):
                     active_levels=rank_active,
                     backend=backend,
                     device=self.device,
+                    halo_stepper_factory=factories[r],
                 )
                 bnd = boundary_slot_sets(recvs, {l: kw["masks"][l] for l in rank_active})
                 n_interior = sum(kw["masks"][l].shape[0] - len(bnd.get(l, ())) for l in rank_active)
@@ -857,6 +874,11 @@ class DeviceShardedEngine(ShardedEngine):
             masks=self._dev_masks,
             devices=dict(enumerate(self.rank_devices)),
             backend=self.cfg.kernel_backend,
+            # each rank's halo steps read its padded device masks
+            halo_stepper_factories={
+                r: self._halo_stepper_factory(dict(zip(levels, self._dev_masks[r])), device)
+                for r, device in enumerate(self.rank_devices)
+            },
         )
         return _DevicePrograms(
             levels=levels, counts=counts, nsub=1 << lmax, pattern=substep_patterns(lmax), fn=fn,
@@ -924,7 +946,7 @@ class DeviceShardedEngine(ShardedEngine):
     # -- stepping --------------------------------------------------------------
     def advance(self, coarse_steps: int) -> None:
         """Run whole coarse steps: upload once per storage version, then
-        every substep's emits, payload copies, fills and stencils run on the
+        every substep's emits, payload copies and stencils run on the
         rank devices; the host only attributes the known message traffic to
         the ``DeviceComm`` counters."""
         progs = self._programs()  # a current superstep implies current device stacks

@@ -446,6 +446,111 @@ def test_halo_member_grid_chunks_past_65535_blocks_on_card():
         torch.testing.assert_close(got[m], solo, rtol=0, atol=0)
 
 
+_RANK_BASE = dict(
+    root_grid=(2, 2, 2), cells_per_block=(8, 8, 8), omega=1.5, u_lid=(0.08, 0.0, 0.0),
+    max_level=1, refine_upper=0.03, refine_lower=0.004,
+)
+
+
+def _rank_cases():
+    """Every rank substep with inbound messages of a 4-rank ``BASE`` run
+    (stepped on the CPU) past its first AMR event: (messages, local plan,
+    level index, active levels, host masks, pdf stack shapes) a case."""
+    from repro_torch.lbm.halo import compile_rank_halo_plan
+
+    sim = AMRLBM(LidDrivenCavityConfig(nranks=4, stepping_mode="fused_sharded", device="cpu", **_RANK_BASE))
+    sim.advance(4)
+    sim.adapt()
+    levels = sorted(sim.forest.levels_in_use())
+    per_rank = sim.engine.arenas.per_rank
+    rank_slots = {r: {l: per_rank[r].slots(l) for l in per_rank[r].levels()} for r in range(4) if per_rank[r].levels()}
+    out = []
+    for p in range(levels[-1] + 1):
+        active = {l for l in levels if l >= levels[-1] - p}
+        plan = compile_rank_halo_plan(sim.forest, sim.fields, rank_slots, fields=("pdf",), levels=active)
+        for r in rank_slots:
+            rl = per_rank[r].levels()
+            recvs = [m for m in plan.messages if m.dst_rank == r]
+            if recvs and active & set(rl):
+                out.append((recvs, plan.local.get(r), {l: i for i, l in enumerate(rl)}, active & set(rl),
+                            {l: np.array(per_rank[r].buffer(l, "mask")) for l in rl},
+                            {l: per_rank[r].buffer(l, "pdf").shape[2:] for l in rl}))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lattice", [D3Q19, D3Q27], ids=["d3q19", "d3q27"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_rank_halo_route_matches_fills_then_stencil_on_card(dtype, lattice):
+    """A rank's levels of every pattern of a 4-rank run, random pdfs and
+    payloads: the route through the payload segments alone equals the
+    ``values`` fills then the stencil; the route over a slot list equals
+    the whole-stack route on the listed blocks and leaves the others as
+    ``out`` had them; the rank absorb with a halo stepper factory (unsplit,
+    and its split halves) equals its factory-less form (fills, then
+    stencils). All bitwise."""
+    from repro_torch.kernels.lbm_collide import ops
+
+    _require_card()
+    rng = np.random.default_rng(23)
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    phys = dict(omega=1.4, lattice=lattice, collision="trt", u_wall=(0.05, 0.01, 0.0))
+    payload_levels = slot_routes = 0
+    for recvs, local, index, active, masks_np, dims in _rank_cases():
+        levels = sorted(index, key=index.get)
+        pdfs = tuple(torch.as_tensor(0.05 + 0.01 * rng.standard_normal((masks_np[l].shape[0], lattice.Q, *dims[l])),
+                                     dtype=tdtype, device="cuda") for l in levels)
+        msgs = tuple(torch.as_tensor(0.05 + 0.01 * rng.standard_normal((m.num_cells, lattice.Q)), dtype=tdtype,
+                                     device="cuda") for m in recvs)
+        sources = (*pdfs, *msgs)
+        masks = {l: torch.from_numpy(masks_np[l]).cuda() for l in levels}
+        kw = dict(steppers={l: ops.make_stream_collide(**phys) for l in levels}, masks=masks, active_levels=active,
+                  device="cuda")
+        factory = lambda l, fill, idx, messages=(): ops.make_halo_stream_collide(  # noqa: E731
+            fill, idx, messages=messages, mask=masks[l], device="cuda", **phys)
+        want = ops.make_rank_absorb(recvs, local, index, **kw)(tuple(t.clone() for t in pdfs), msgs)
+        absorb = ops.make_rank_absorb(recvs, local, index, halo_stepper_factory=factory, **kw)
+        interior, boundary = ops.make_rank_absorb_split(recvs, local, index, halo_stepper_factory=factory, **kw)
+        n0 = lbm_halo_fill.launches
+        got = absorb(tuple(t.clone() for t in pdfs), msgs)
+        halves = boundary(interior(tuple(t.clone() for t in pdfs)), msgs)
+        torch.cuda.synchronize()
+        assert lbm_halo_fill.launches == n0
+        for a, b, c in zip(got, halves, want):
+            torch.testing.assert_close(a, c, rtol=0, atol=0)
+            torch.testing.assert_close(b, c, rtol=0, atol=0)
+        fills, inbound = ops._rank_rows(recvs, local, index, masks, active)
+        for l, rows in inbound.items():
+            i = index[l]
+            # the payload segments alone, against the values fills then the stencil
+            hm = halo_map(ops.message_tables(rows, len(levels), "cuda"), masks[l], lattice.Q)
+            g = pdfs[i].clone()
+            for mi, db, dc, off, n in rows:
+                lbm_halo_fill(g, msgs[mi][off : off + n], "values", torch.as_tensor(db, dtype=torch.int32).cuda(),
+                              torch.as_tensor(dc, dtype=torch.int32).cuda())
+            torch.testing.assert_close(lbm_stream_collide(pdfs[i], masks[l], halo=hm, sources=sources, **phys),
+                                       lbm_stream_collide(g, masks[l], **phys), rtol=0, atol=0)
+            payload_levels += 1
+            # local and message rows over the boundary slot list
+            tables = (ops.fill_tables(fills[l], index, "cuda") if l in fills else ()) + ops.message_tables(
+                rows, len(levels), "cuda")
+            hm = halo_map(tables, masks[l], lattice.Q)
+            listed = sorted({int(s) for _mi, db, *_r in rows for s in np.unique(db)})
+            slots = torch.tensor(listed, dtype=torch.int32, device="cuda")
+            sentinel = torch.full_like(pdfs[i], -7.0)
+            out = sentinel.clone()
+            n1 = lbm_stream_collide.halo_slot_launches
+            lbm_stream_collide(pdfs[i], masks[l], halo=hm, sources=sources, slots=slots, out=out, **phys)
+            whole = lbm_stream_collide(pdfs[i], masks[l], halo=hm, sources=sources, **phys)
+            torch.cuda.synchronize()
+            assert lbm_stream_collide.halo_slot_launches == n1 + 1
+            rest = [b for b in range(pdfs[i].shape[0]) if b not in listed]
+            torch.testing.assert_close(out[slots.long()], whole[slots.long()], rtol=0, atol=0)
+            torch.testing.assert_close(out[rest], sentinel[rest], rtol=0, atol=0)
+            slot_routes += 1
+    assert payload_levels > 0 and slot_routes > 0
+
+
 @pytest.mark.gpu
 def test_service_batch_equals_solo_fused_runs_on_card():
     """Four jobs of different physics, batched by the service on the
@@ -503,13 +608,14 @@ def _run_on_card(mode, **over):
 @pytest.mark.gpu
 def test_device_sharded_on_one_card_matches_fused_bitwise_on_card():
     """Four ranks that share the card (``rank_devices=("cuda:0",) * 4``):
-    payloads move by on-device copies, the stacks are padded, and every
-    block's interior ends with ``fused``'s bits."""
+    payloads move by on-device copies, the stacks are padded, each rank
+    reads its payloads through the stencil's halo route with no fill
+    launch, and every block's interior ends with ``fused``'s bits."""
     _require_card()
-    n0 = (lbm_stream_collide.launches, lbm_halo_fill.kind_launches["values"])
+    n0 = (lbm_stream_collide.halo_launches, lbm_halo_fill.launches)
     got = _run_on_card("device_sharded", rank_devices=("cuda:0",) * 4)
     assert got.engine.rank_devices == (torch.device("cuda:0"),) * 4
-    assert lbm_stream_collide.launches > n0[0] and lbm_halo_fill.kind_launches["values"] > n0[1]
+    assert lbm_stream_collide.halo_launches > n0[0] and lbm_halo_fill.launches == n0[1]
     assert got.comm.ppermute_rounds > 0
     _assert_runs_bitwise(got, _run_on_card("fused"))
 

@@ -203,8 +203,14 @@ def test_halo_route_checks_its_operands(forests):
     f = bufs[index[l]]
     with pytest.raises(ValueError, match="come together"):
         lbm_stream_collide(f, mask, omega=1.5, halo=hm)
+    # the route takes a slot list of int32 block indices, and none over a
+    # member axis
+    with pytest.raises(ValueError, match="slots must be"):
+        lbm_stream_collide(f, mask, omega=1.5, halo=hm, sources=bufs, slots=torch.zeros(1, dtype=torch.int64))
+    mc = member_coeffs([1.5, 1.6], [(0.08, 0.0, 0.0)] * 2)
     with pytest.raises(ValueError, match="no slot list"):
-        lbm_stream_collide(f, mask, omega=1.5, halo=hm, sources=bufs, slots=torch.zeros(1, dtype=torch.int32))
+        lbm_stream_collide(torch.stack([f, f]), mask, members=mc, halo=hm, sources=tuple(torch.stack([b, b]) for b in bufs),
+                           slots=torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="does not match"):
         lbm_stream_collide(f, mask, omega=1.5, halo=hm, sources=tuple(b.double() for b in bufs))
     with pytest.raises(ValueError, match="halo map must be"):

@@ -11,15 +11,19 @@ conformance suite's ``BASE`` scenario (2^3 roots, 8^3 cells,
   same forest after each AMR event, interior density and velocity within
   the f32 kernel tolerance (rtol 3e-5 / atol 3e-6: the frameworks sum
   moments in different orders), mass within 1e-6 relative.
-* On the ``cuda`` backend a rank's absorb writes every ghost cell with the
-  fill kernel (inbound messages through its ``"values"`` kind) before any
-  stencil, scatters nothing, and the split steps its halves through the
-  stencil's slot list into one output.
+* On the ``cuda`` backend the engines' rank absorbs launch no fill and
+  gather or scatter nothing: a level with rows, local or inbound, is one
+  launch of the stencil's halo route (a half's, over its slot list, in the
+  split), which reads each message row from the received payload. The
+  absorb built without a halo stepper factory fills every ghost cell with
+  the fill kernel (inbound messages through its ``"values"`` kind) before
+  any stencil.
 * Between AMR events ``fused_sharded`` moves nothing between host and
   device, and its ``Comm`` traffic equals the host-sharded mode's.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -170,60 +174,124 @@ def _refined(mode="fused_sharded", nranks=4, **over):
     return sim
 
 
-def test_cuda_absorb_fills_every_ghost_before_any_stencil(monkeypatch):
-    """On the ``cuda`` backend a rank's absorb (split or not) runs its local
-    fills from their sources and one ``values`` fill a message segment, in
-    place, before any stencil; no ghost value is gathered or scattered by
-    index, and the split's halves step through slot lists."""
-    calls = []
+def _spy(monkeypatch, calls):
+    """Record the fill and stencil launches of the rank programs; any index
+    gather or scatter of ghost values raises."""
     fill, stencil = ops.lbm_halo_fill, ops.lbm_stream_collide
 
     def spy_fill(dst, src, kind, *args):
         calls.append(("fill", kind))
         fill(dst, src, kind, *args)
 
-    def spy_stencil(f, mask, *, slots=None, out=None, **kw):
-        calls.append(("stencil", slots is not None))
-        return stencil(f, mask, slots=slots, out=out, **kw)
+    def spy_stencil(f, mask, *, slots=None, out=None, halo=None, sources=None, **kw):
+        calls.append(("halo" if halo is not None else "stencil", slots is not None))
+        return stencil(f, mask, slots=slots, out=out, halo=halo, sources=sources, **kw)
 
     def no_index_op(*args):
         raise AssertionError("the cuda backend moved ghost values by index")
-
-    def marked(fn):
-        def call(*args):
-            calls.append(("program", None))
-            return fn(*args)
-
-        return call
 
     monkeypatch.setattr(ops, "lbm_halo_fill", spy_fill)
     monkeypatch.setattr(ops, "lbm_stream_collide", spy_stencil)
     monkeypatch.setattr(ops, "_concat_vals", no_index_op)
     monkeypatch.setattr(ops, "_run_plan_ops", no_index_op)
+
+
+def test_cuda_absorb_fills_every_ghost_before_any_stencil(monkeypatch):
+    """On the ``cuda`` backend the engine's rank programs (absorb, or the
+    interior and boundary halves) fill every ghost value inside the
+    stencil: no fill launch, no index gather or scatter; each program
+    launches one stencil a level it steps, through the halo route at every
+    level where its blocks read rows (as many as its ``halo_steps``), over
+    slot lists in the split; and the route reads inbound payloads."""
+    calls = []
+    _spy(monkeypatch, calls)
     for split in (False, True):
         sim = _refined(overlap_split=split)
         progs = sim.engine._programs()
+        per_program = []
+
+        def marked(fn):
+            def call(*args):
+                calls.clear()
+                out = fn(*args)
+                per_program.append((fn, list(calls)))
+                return out
+
+            return call
+
         for table in (progs.absorbs, progs.interiors, progs.boundaries):
             for per in table.values():
                 for r, fn in per.items():
                     per[r] = marked(fn)
-        calls.clear()
         sim.advance(1)
-        kinds = {k for what, k in calls if what == "fill"}
-        assert "values" in kinds and kinds & {"same", "coarse", "fine"}
-        assert any(slot for what, slot in calls if what == "stencil") == split
-        # inside each program (absorb, interior or boundary half): its fills,
-        # then its stencils
-        programs = "".join("|" if what == "program" else what[0] for what, _ in calls).split("|")
-        assert programs[0] == "" and len(programs) > 1
-        for prog in programs[1:]:
-            assert prog == "f" * prog.count("f") + "s" * prog.count("s"), prog
+        assert per_program
+        halo_calls = with_payload = 0
+        for fn, prog in per_program:
+            assert not [c for c in prog if c[0] == "fill"], prog
+            assert sum(what == "halo" for what, _s in prog) == fn.halo_steps and fn.fill_segments == 0
+            halo_calls += fn.halo_steps
+            with_payload += bool(fn.halo_steps and fn.__name__ in ("absorb", "boundary")
+                                 and any(h.message_rows for h in fn.halo.values()))
+        assert halo_calls > 0 and with_payload > 0
+        slot_calls = [s for prog in per_program for what, s in prog[1] if what in ("halo", "stencil")]
+        assert any(slot_calls) == split
+
+
+def test_factory_less_absorb_fills_every_ghost_before_any_stencil(monkeypatch):
+    """Built without a halo stepper factory (the JAX package's ``None``
+    form), a rank's absorb (split or not) on ``cuda`` runs its local fills
+    from their sources and one ``values`` fill a message segment, in place,
+    before any stencil; the split's halves step through slot lists."""
+    calls = []
+    sim = _refined(nranks=4)
+    per_rank = sim.engine.arenas.per_rank
+    levels = sorted(sim.forest.levels_in_use())
+    rank_slots = {r: {l: per_rank[r].slots(l) for l in per_rank[r].levels()} for r in range(4) if per_rank[r].levels()}
+    rng = np.random.default_rng(5)
+    _spy(monkeypatch, calls)
+    kinds, slot_steps = set(), 0
+    for p in range(levels[-1] + 1):
+        active = {l for l in levels if l >= levels[-1] - p}
+        plan = compile_rank_halo_plan(sim.forest, sim.fields, rank_slots, fields=("pdf",), levels=active)
+        for r in rank_slots:
+            rl = per_rank[r].levels()
+            recvs = [m for m in plan.messages if m.dst_rank == r]
+            if not recvs or not active & set(rl):
+                continue
+            kw = dict(
+                steppers={l: ops.make_stream_collide(omega=1.5, collision="trt", u_wall=(0.08, 0, 0)) for l in rl},
+                masks={l: torch.from_numpy(np.array(per_rank[r].buffer(l, "mask"))) for l in rl},
+                active_levels=active & set(rl), backend="cuda", device="cpu",
+            )
+            idx = {l: i for i, l in enumerate(rl)}
+            pdfs = tuple(torch.from_numpy((0.05 + 0.01 * rng.standard_normal(per_rank[r].buffer(l, "pdf").shape))
+                                          .astype(np.float32)) for l in rl)
+            msgs = tuple(torch.from_numpy(rng.standard_normal((m.num_cells, 19)).astype(np.float32)) for m in recvs)
+            absorb = ops.make_rank_absorb(recvs, plan.local.get(r), idx, **kw)
+            interior, boundary = ops.make_rank_absorb_split(recvs, plan.local.get(r), idx, **kw)
+            for which in ("absorb", "interior", "boundary"):
+                state = interior(pdfs) if which == "boundary" else None
+                calls.clear()
+                if which == "absorb":
+                    absorb(pdfs, msgs)
+                elif which == "interior":
+                    interior(pdfs)
+                else:
+                    boundary(state, msgs)
+                prog = "".join(what[0] for what, _s in calls)
+                assert "h" not in prog and prog == "f" * prog.count("f") + "s" * prog.count("s"), prog
+                kinds |= {k for what, k in calls if what == "fill"}
+                slot_steps += sum(s for what, s in calls if what == "stencil")
+            assert absorb.fill_segments == interior.fill_segments + boundary.fill_segments > 0
+            assert absorb.halo_steps == interior.halo_steps == boundary.halo_steps == 0
+    assert "values" in kinds and kinds & {"same", "coarse", "fine"} and slot_steps > 0
 
 
 def test_split_equals_unsplit_absorb_bitwise_for_every_rank_and_pattern():
     """Build both forms of every rank's substep on a two-level forest and
     run them on the same random buffers: the interior + boundary halves
-    give the unsplit absorb's bits, on both backends."""
+    give the unsplit absorb's bits, on both backends, with and without a
+    halo stepper factory."""
     sim = _refined(nranks=4)
     eng = sim.engine
     forest = sim.forest
@@ -248,14 +316,20 @@ def test_split_equals_unsplit_absorb_bitwise_for_every_rank_and_pattern():
                 for l in rl
             )
             msgs = tuple(torch.from_numpy(rng.standard_normal((m.num_cells, 19)).astype(np.float32)) for m in recvs)
-            for backend in ("cuda", "ref"):
+            for backend, halo in itertools.product(("cuda", "ref"), (False, True)):
+                phys = dict(omega=1.5, collision="trt", u_wall=(0.08, 0, 0))
+                masks = {l: np.array(per_rank[r].buffer(l, "mask")) for l in rl}
                 kw = dict(
-                    steppers={l: ops.make_stream_collide(omega=1.5, collision="trt", u_wall=(0.08, 0, 0), backend=backend) for l in rl},
-                    masks={l: torch.from_numpy(np.array(per_rank[r].buffer(l, "mask"))) for l in rl},
+                    steppers={l: ops.make_stream_collide(backend=backend, **phys) for l in rl},
+                    masks={l: torch.from_numpy(masks[l]) for l in rl},
                     active_levels=rank_active,
                     backend=backend,
                     device="cpu",
                 )
+                if halo:  # the engines' form: one map a level, local and message rows
+                    kw["halo_stepper_factory"] = lambda l, fill, index, messages=(), backend=backend, masks=masks: (
+                        ops.make_halo_stream_collide(fill, index, messages=messages, mask=masks[l], backend=backend,
+                                                     device="cpu", **phys))
                 absorb = ops.make_rank_absorb(recvs, plan.local.get(r), idx, **kw)
                 interior, boundary = ops.make_rank_absorb_split(recvs, plan.local.get(r), idx, **kw)
                 want = absorb(tuple(t.clone() for t in pdfs), msgs)

@@ -6,10 +6,12 @@ between two versions of the port's CUDA source.
 
 Needs ``nvcc`` and ``cuobjdump`` (CUDA toolkit under ``CUDA_HOME``, default
 ``/usr/local/cuda``); no card. Each source is compiled to a cubin for
-``sm_90a`` with the build's optimisation flags, its SASS dumped, and every
+``sm_90a`` with the build's optimisation flags once for each of the build's
+(dtype, Q) parts (``-DLBM_PART_DTYPE``, ``-DLBM_PART_Q``; a source older
+than the parts ignores them), all at once, its SASS dumped, and every
 ``stream_collide_kernel`` instantiation of the old source matched to the
-new one's by (dtype, Q, TRT, SLOTS) with no member axis and no halo map
-(sources older than either template parameter lack it). Instruction text
+new one's by (dtype, Q, TRT, SLOTS) with no member axis, no halo map and
+no payload segments (sources older than a template parameter lack it). Instruction text
 is compared with addresses and encodings stripped. Prints one line per
 instantiation and exits 1 when any differs or is missing.
 """
@@ -26,9 +28,11 @@ import tempfile
 from pathlib import Path
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin")
-# dtype, Q, TRT, SLOTS and (newer sources only) MEMBERS and HALO of a
-# mangled name
-_NAME = re.compile(r"stream_collide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?(?:Lb([01])E)?")
+_PARTS = ((0, 19), (0, 27), (1, 19), (1, 27))  # the build's (dtype, Q) parts
+# dtype, Q, TRT, SLOTS and (newer sources only) MEMBERS, HALO and PAYLOADS
+# of a mangled name
+_NAME = re.compile(r"stream_collide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E(?:Lb([01])E)?(?:Lb([01])E)?"
+                   r"(?:Lb([01])E)?")
 
 
 def _tool(name: str) -> str:
@@ -37,16 +41,20 @@ def _tool(name: str) -> str:
 
 def solo_stencils(source: Path, workdir: Path) -> dict[tuple, list[str]]:
     """(dtype, Q, TRT, SLOTS) -> instruction lines of each solo stencil."""
-    cubin = workdir / (source.stem + ".cubin")
-    subprocess.run([_tool("nvcc"), *_FLAGS, "-o", str(cubin), str(source)], check=True)
-    dump = subprocess.run([_tool("cuobjdump"), "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
+    cubins = [workdir / f"{source.stem}_{d}_{q}.cubin" for d, q in _PARTS]
+    procs = [subprocess.Popen([_tool("nvcc"), *_FLAGS, f"-DLBM_PART_DTYPE={d}", f"-DLBM_PART_Q={q}", "-o", str(c),
+                               str(source)]) for (d, q), c in zip(_PARTS, cubins)]
+    if any([p.wait() != 0 for p in procs]):
+        raise RuntimeError(f"nvcc failed on {source}")
+    dump = "".join(subprocess.run([_tool("cuobjdump"), "-sass", str(c)], capture_output=True, text=True,
+                                  check=True).stdout for c in cubins)
     funcs: dict[tuple, list[str]] = {}
     current = None
     for line in dump.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             m = _NAME.search(head.group(1))
-            current = None if m is None or "1" in (m.group(5), m.group(6)) else m.groups()[:4]
+            current = None if m is None or "1" in m.groups()[4:] else m.groups()[:4]
             if current is not None:
                 funcs[current] = []
             continue

@@ -104,7 +104,21 @@
 //     which read it, only where a segment is a payload. Over a slot list
 //     (SLOTS and HALO) the listed blocks read the map at their own slots:
 //     a rank's interior half before its messages arrive, then its
-//     boundary half with the payloads bound.
+//     boundary half with the payloads bound;
+//   * what bounds the rank route beyond the whole-stack route is its
+//     launch groups: kHaloGroup consecutive slot-list entries run
+//     together, and a rank's stack is not octet-aligned while the split
+//     cuts octets apart, so a group of consecutive entries rarely holds a
+//     block's z- and y-neighbours (3 of 16 groups of a rank's level-2
+//     stack were whole octets, none of its boundary half's). The host
+//     lists each half, and an unsplit rank level whole, in neighbour
+//     order (whole octets first, then groups grown by shared faces, z
+//     first), which took the boundary half from 42 to 45 % of its byte
+//     bound and the unsplit level from 42 to 45 %, the whole-stack
+//     route's share (PERF.md, section 6). The payload rows are not what
+//     bounds it: read direction-major, fully coalesced, they gained
+//     nothing, so they are read where the stencil pulls them, as a
+//     stack's rows are, and not staged in shared memory.
 // The separate fill (the slab interface) reads its sources directly:
 //   * one thread per ghost row, rows sorted by (dst slot, dst cell) on the
 //     host, so for each q a warp's loads and stores fall on neighbouring
@@ -262,7 +276,9 @@ constexpr int kHaloSegs = 32;
 // group. The z-face source rows a block's ghost cells read are rows its
 // z-neighbours' CTAs read whole at the same time, so they are L2 hits; a
 // group of 1 (the stencil's order) or of a whole level's blocks was slower
-// (PERF.md, section 6). The launcher sets Halo::group to it.
+// (PERF.md, section 6). The launcher sets Halo::group to it. Over a slot
+// list the groups are kHaloGroup consecutive entries, which the host
+// orders so that they are neighbours.
 constexpr int kHaloGroup = 8;
 constexpr int kSegShift = 58;
 constexpr int kFineBit = 57;

@@ -201,6 +201,9 @@ HALO_STAGE_BIT = 56
 # a level's local kinds (same, coarse, fine) and one segment for each payload
 # that reaches a rank's level; the segment field's 5 bits bound it
 HALO_MAX_SEGMENTS = 32
+# the route's grid runs the CTAs of this many consecutive blocks (or slot-list
+# entries) at one x plane together: the source's kHaloGroup
+HALO_GROUP = 8
 
 
 @dataclass(frozen=True)

@@ -30,9 +30,12 @@ With a halo stepper factory (the engines' form) a level's local rows and
 message rows are one merged fill, and on the ``cuda`` backend one launch of
 the stencil's halo route, which reads a message row straight from the
 received payload; the split steps its interior and boundary blocks into
-one output tensor through the route over a slot list. Without one, the
-fills run first (fill-kernel launches in place on ``cuda``, the messages
-through the ``"values"`` kind), then the stencils.
+one output tensor through the route over a slot list. On ``cuda`` every
+rank route runs over a slot list in neighbour order (:func:`neighbour_order`,
+a full-length list for an unsplit level), so that each launch group of
+the route's grid holds neighbouring blocks. Without one, the fills run
+first (fill-kernel launches in place on ``cuda``, the messages through
+the ``"values"`` kind), then the stencils.
 
 The device superstep (:func:`make_device_superstep`) composes those pieces
 for real device ranks: per ppermute round every sender's emit, zero-padded
@@ -53,6 +56,7 @@ from ...lbm.halo import lower_halo_fill
 from ...lbm.lattice import D3Q19, Lattice
 from .lbm_collide import (
     HALO_FINE_BIT,
+    HALO_GROUP,
     HALO_MAX_SEGMENTS,
     HALO_SEG_SHIFT,
     HALO_STAGE_BIT,
@@ -86,6 +90,9 @@ __all__ = [
     "substep_patterns",
     "make_rank_emit",
     "boundary_slot_sets",
+    "face_neighbours",
+    "neighbour_order",
+    "cube_groups",
     "make_rank_absorb",
     "make_rank_absorb_split",
     "shared_halo_steps",
@@ -865,6 +872,108 @@ def boundary_slot_sets(messages, masks) -> dict[int, frozenset[int]]:
     return {l: frozenset(s) for l, s in bnd.items()}
 
 
+# the weight of a shared face by axis (x, y, z) when blocks are grouped: a
+# z-face ghost cell and its source each lie alone in a 32-byte sector, so a
+# source row that a neighbour's CTA reads at the same time (an L2 hit) saves
+# the most there; a y-face source row is read by the neighbour's CTA of the
+# same x plane too; an x-face source plane at another time
+_FACE_WEIGHT = (1, 3, 9)
+
+
+# repro: host-ok(build-time scan of host plan arrays, once per program build)
+def face_neighbours(fill, dims) -> dict[int, dict[int, int]]:
+    """A level's same-level face neighbours, from its merged local fill (a
+    :class:`~..lbm.halo.LevelHaloFill`, or None): block -> {neighbour:
+    axis (0 x, 1 y, 2 z)}. A same-level neighbour fills a whole face of the
+    ghost layer, so the ``"same"`` rows of the 6 face centres name them
+    all. ``dims`` is the block's cells (ghost layer included)."""
+    out: dict[int, dict[int, int]] = {}
+    if fill is None:
+        return out
+    X, Y, Z = dims
+    cx, cy, cz = X // 2, Y // 2, Z // 2
+    axis_of = {(x * Y + y) * Z + z: i // 2 for i, (x, y, z) in enumerate(
+        ((0, cy, cz), (X - 1, cy, cz), (cx, 0, cz), (cx, Y - 1, cz), (cx, cy, 0), (cx, cy, Z - 1)))}
+    start = 0
+    for seg in fill.segments:
+        stop = start + seg.src_cell.shape[0]
+        if seg.kind == "same" and seg.src_level == fill.dst_level:
+            dc = np.asarray(fill.dst_cell[start:stop])
+            for row in np.flatnonzero(np.isin(dc, list(axis_of))):
+                a, b, axis = int(fill.dst_slot[start + row]), int(seg.src_slot[row]), axis_of[int(dc[row])]
+                if a != b:
+                    out.setdefault(a, {})[b] = axis
+                    out.setdefault(b, {})[a] = axis
+        start = stop
+    return out
+
+
+def _is_cube(blocks, neighbours) -> bool:
+    """Whether 8 blocks are a 2 x 2 x 2 cube: each has one neighbour among
+    them along each axis."""
+    members = set(blocks)
+    return len(members) == 8 and all(
+        sorted(ax for c, ax in neighbours.get(b, {}).items() if c in members) == [0, 1, 2] for b in blocks
+    )
+
+
+def cube_groups(order, neighbours, group: int = HALO_GROUP) -> int:
+    """How many of the route's launch groups (``group`` consecutive entries
+    of ``order``) are whole octets: 2 x 2 x 2 cubes of face neighbours."""
+    order = [int(b) for b in order]
+    return sum(_is_cube(order[i : i + group], neighbours) for i in range(0, len(order) - group + 1, group))
+
+
+def neighbour_order(listed, neighbours, group: int = HALO_GROUP) -> np.ndarray:
+    """The halo route's slot list over the blocks ``listed``, ordered so that
+    each launch group of ``group`` consecutive entries holds neighbours:
+    first every whole octet among them (8 consecutive blocks in block order
+    that make a 2 x 2 x 2 cube of face neighbours, as a Morton octet does),
+    in block order; then the other blocks, each group grown from the first
+    block left by the one that shares the most face weight with it (z faces
+    first, :data:`_FACE_WEIGHT`; ties to the lower block), or by the next
+    block left where none shares a face (octets are kept whole only for
+    groups of 8). A permutation of ``listed``: a block steps on its own, so
+    the order changes no output bit, only which CTAs run together."""
+    listed = sorted(int(b) for b in listed)
+    used: set[int] = set()
+    groups = []
+    i = 0
+    while i + group <= len(listed):
+        window = listed[i : i + group]
+        if group == 8 and _is_cube(window, neighbours):
+            groups.append(window)
+            used.update(window)
+            i += group
+        else:
+            i += 1
+    rest = [b for b in listed if b not in used]
+    inside = set(rest)
+    nxt = 0
+    while len(used) < len(listed):
+        while rest[nxt] in used:
+            nxt += 1
+        g = [rest[nxt]]
+        used.add(g[0])
+        score: dict[int, int] = {}
+        while len(g) < group and len(used) < len(listed):
+            for c, axis in neighbours.get(g[-1], {}).items():
+                if c in inside and c not in used:
+                    score[c] = score.get(c, 0) + _FACE_WEIGHT[axis]
+            for c in [c for c in score if c in used]:
+                del score[c]
+            if score:
+                c = max(score, key=lambda c: (score[c], -c))
+            else:
+                while rest[nxt] in used:
+                    nxt += 1
+                c = rest[nxt]
+            g.append(c)
+            used.add(c)
+        groups.append(g)
+    return np.asarray([b for g in groups for b in g], dtype=np.int32)
+
+
 def _int32(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
@@ -987,6 +1096,15 @@ def _rank_halo_steps(factory, fills, inbound, level_index, order) -> dict:
     }
 
 
+# repro: host-ok(build-time ordering over host plan arrays, once per program build)
+def _route_slots(listed, fill, mask, device) -> tuple[np.ndarray, torch.Tensor]:
+    """The halo route's slot list over the blocks ``listed`` of a rank
+    level: :func:`neighbour_order` over the level's face neighbours (read
+    off its merged local fill ``fill``), on the host and on ``device``."""
+    order = neighbour_order(listed, face_neighbours(fill, tuple(mask.shape[1:])))
+    return order, _int32(order, device)
+
+
 def make_rank_absorb(
     messages,
     local_plan,
@@ -1016,13 +1134,16 @@ def make_rank_absorb(
     folded into the level's halo step (:func:`make_halo_stream_collide`):
     on ``cuda`` one launch of the stencil's halo route a level with rows,
     over the pre-step tuple and the payloads, which writes nothing but its
-    output; every other active level is the plain stencil. Without it,
+    output, over a full-length slot list of the level's blocks in
+    neighbour order (:func:`neighbour_order`); every other active level is
+    the plain stencil. Without it,
     every ghost write of the rank (local fills, then the inbound rows)
     lands in place in the pre-step buffers, then every active level steps.
     Levels step finest first. The caller rebinds the result and never reads
     the tuple it passed in. Its ``fill_segments`` counts the fill launches
     and ``halo_steps`` the halo-route launches a call makes on ``cuda``,
-    and ``halo`` maps the levels with a halo step to it.
+    ``halo`` maps the levels with a halo step to it, and ``slot_lists``
+    those levels to their host slot lists (``cuda`` only).
     """
     _check_backend(backend)
     device = torch.device(device)
@@ -1031,6 +1152,13 @@ def make_rank_absorb(
 
     if halo_stepper_factory is not None:
         hsteps = _rank_halo_steps(halo_stepper_factory, fills, inbound_rows, level_index, order)
+        # on cuda each halo step runs over a full-length slot list in
+        # neighbour order (the route's launch groups hold neighbours)
+        lists = {
+            l: _route_slots(np.arange(masks[l].shape[0]), fills.get(l), masks[l], device)
+            for l in hsteps
+            if backend == "cuda"
+        }
 
         def absorb(pdfs, msgs):
             sources = (*pdfs, *msgs)
@@ -1038,12 +1166,18 @@ def make_rank_absorb(
             for l in order:
                 i = level_index[l]
                 h = hsteps.get(l)
-                bufs[i] = steppers[l](pdfs[i], masks[l]) if h is None else h.step(pdfs[i], h.fill(sources))
+                if h is None:
+                    bufs[i] = steppers[l](pdfs[i], masks[l])
+                elif l in lists:
+                    bufs[i] = h.step(pdfs[i], h.fill(sources), slots=lists[l][1], out=torch.empty_like(pdfs[i]))
+                else:
+                    bufs[i] = h.step(pdfs[i], h.fill(sources))
             return tuple(bufs)
 
         absorb.fill_segments = 0
         absorb.halo_steps = len(hsteps)
         absorb.halo = hsteps
+        absorb.slot_lists = {l: s for l, (s, _t) in lists.items()}
         return absorb
 
     local, inbound = _rank_fills(fills, messages, local_plan, level_index, backend, device)
@@ -1060,6 +1194,7 @@ def make_rank_absorb(
     absorb.fill_segments = local.segments + inbound.segments
     absorb.halo_steps = 0
     absorb.halo = {}
+    absorb.slot_lists = {}
     return absorb
 
 
@@ -1086,10 +1221,11 @@ def make_rank_absorb_split(
     steps the boundary slots into the same outputs, once the payloads have
     arrived. No sub-stack is gathered or scattered back. With
     ``halo_stepper_factory`` each half is, on ``cuda``, one launch of the
-    stencil's halo route a level with rows over its slot list, both halves
-    reading one map: the interior half's blocks name local rows only
-    (asserted when built), so it reads the pre-step tuple alone, and the
-    boundary half reads the payloads too. Without it, the interior half
+    stencil's halo route a level with rows over its slot list in
+    neighbour order (:func:`neighbour_order`), both halves reading one map:
+    the interior half's blocks name local rows only (asserted when built),
+    so it reads the pre-step tuple alone, and the boundary half reads the
+    payloads too. Without it, the interior half
     runs **every** local fill (boundary blocks' local-sourced ghosts
     included) in place on the pre-step buffers before stepping, and the
     boundary half writes the inbound rows before stepping; the halves then
@@ -1098,7 +1234,8 @@ def make_rank_absorb_split(
     its own, and every ghost value it reads is the one the unsplit absorb
     gives it. Arguments as for :func:`make_rank_absorb`; each half's
     ``fill_segments`` and ``halo_steps`` count its fill and halo-route
-    launches on ``cuda``.
+    launches on ``cuda``, and its ``slot_lists`` maps the levels it steps
+    through the route to their host slot lists.
     """
     _check_backend(backend)
     device = torch.device(device)
@@ -1106,25 +1243,31 @@ def make_rank_absorb_split(
     fills, inbound_rows = _rank_rows(messages, local_plan, level_index, masks, active_levels)
     bnd = boundary_slot_sets(messages, {l: masks[l] for l in order})
     nblocks = {l: masks[l].shape[0] for l in order}
-    # per level, (interior, boundary): whether the half steps any block of
-    # the level, and its slot list (None: every block, no list)
-    halves = {}
-    for l in order:
-        b = np.asarray(sorted(bnd.get(l, ())), dtype=np.int32)
-        i = np.setdiff1d(np.arange(nblocks[l], dtype=np.int32), b)
-        halves[l] = tuple(
-            (idx.size > 0, None if idx.size == nblocks[l] else _int32(idx, device)) for idx in (i, b)
-        )
-        # repro: host-ok(build-time check over host plan arrays)
-        named = np.concatenate([np.asarray(db) for _mi, db, *_r in inbound_rows.get(l, ())] or [np.zeros(0, int)])
-        assert not np.isin(i, named).any(), f"an interior block of level {l} names a payload row"
-
     if halo_stepper_factory is not None:
         hsteps = _rank_halo_steps(halo_stepper_factory, fills, inbound_rows, level_index, order)
         local = inbound = None
     else:
         hsteps = {}
         local, inbound = _rank_fills(fills, messages, local_plan, level_index, backend, device)
+    # per level, (interior, boundary): whether the half steps any block of
+    # the level, and its slot list (None: every block, no list); on cuda a
+    # halo step's lists are in neighbour order
+    halves = {}
+    lists = ({}, {})
+    for l in order:
+        b = np.asarray(sorted(bnd.get(l, ())), dtype=np.int32)
+        i = np.setdiff1d(np.arange(nblocks[l], dtype=np.int32), b)
+        half = []
+        for k, idx in enumerate((i, b)):
+            if idx.size and l in hsteps and backend == "cuda":
+                lists[k][l], slots = _route_slots(idx, fills.get(l), masks[l], device)
+            else:
+                slots = None if idx.size == nblocks[l] else _int32(idx, device)
+            half.append((idx.size > 0, slots))
+        halves[l] = tuple(half)
+        # repro: host-ok(build-time check over host plan arrays)
+        named = np.concatenate([np.asarray(db) for _mi, db, *_r in inbound_rows.get(l, ())] or [np.zeros(0, int)])
+        assert not np.isin(i, named).any(), f"an interior block of level {l} names a payload row"
 
     def step_half(pdfs, sources, outs, which):
         for l in order:
@@ -1159,6 +1302,7 @@ def make_rank_absorb_split(
     interior.halo_steps = sum(bool(halves[l][0][0] and h.local_rows) for l, h in hsteps.items())
     boundary.halo_steps = sum(bool(halves[l][1][0]) for l in hsteps)
     interior.halo = boundary.halo = hsteps
+    interior.slot_lists, boundary.slot_lists = lists
     return interior, boundary
 
 
@@ -1181,9 +1325,10 @@ def make_device_superstep(
     :func:`make_rank_absorb`, built on the rank's own device, steps the
     active levels, finest first, with its ghost cells filled from its local
     sources and from the logical ``m.num_cells`` rows of each inbound
-    message: one halo-route launch a level with rows on ``cuda``, reading
-    each message row from the received (padded) payload, and no fill
-    launch. The reference's ``lax.switch`` over
+    message: one halo-route launch a level with rows on ``cuda``, over the
+    padded stack's blocks in neighbour order, reading each message row from
+    the received (padded) payload, and no fill launch. The reference's
+    ``lax.switch`` over
     ranks is a loop over ranks here; its ``unroll_limit`` / ``fori_loop``
     have no counterpart, since a coarse step is a plain Python loop over its
     ``2^lmax`` substeps, as in :func:`make_fused_superstep`. Nothing in a

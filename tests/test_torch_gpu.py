@@ -484,11 +484,13 @@ def _rank_cases():
 def test_rank_halo_route_matches_fills_then_stencil_on_card(dtype, lattice):
     """A rank's levels of every pattern of a 4-rank run, random pdfs and
     payloads: the route through the payload segments alone equals the
-    ``values`` fills then the stencil; the route over a slot list equals
+    ``values`` fills then the stencil; the route over a slot list (the
+    boundary half's list in neighbour order, and that list reversed) equals
     the whole-stack route on the listed blocks and leaves the others as
     ``out`` had them; the rank absorb with a halo stepper factory (unsplit,
-    and its split halves) equals its factory-less form (fills, then
-    stencils). All bitwise."""
+    over its full-length list in neighbour order, and its split halves over
+    theirs) equals its factory-less form (fills, then stencils). All
+    bitwise."""
     from repro_torch.kernels.lbm_collide import ops
 
     _require_card()
@@ -511,6 +513,9 @@ def test_rank_halo_route_matches_fills_then_stencil_on_card(dtype, lattice):
         want = ops.make_rank_absorb(recvs, local, index, **kw)(tuple(t.clone() for t in pdfs), msgs)
         absorb = ops.make_rank_absorb(recvs, local, index, halo_stepper_factory=factory, **kw)
         interior, boundary = ops.make_rank_absorb_split(recvs, local, index, halo_stepper_factory=factory, **kw)
+        assert set(absorb.slot_lists) == set(absorb.halo) and absorb.halo
+        for l, lst in absorb.slot_lists.items():
+            assert sorted(lst.tolist()) == list(range(masks[l].shape[0]))
         n0 = lbm_halo_fill.launches
         got = absorb(tuple(t.clone() for t in pdfs), msgs)
         halves = boundary(interior(tuple(t.clone() for t in pdfs)), msgs)
@@ -536,18 +541,21 @@ def test_rank_halo_route_matches_fills_then_stencil_on_card(dtype, lattice):
                 rows, len(levels), "cuda")
             hm = halo_map(tables, masks[l], lattice.Q)
             listed = sorted({int(s) for _mi, db, *_r in rows for s in np.unique(db)})
-            slots = torch.tensor(listed, dtype=torch.int32, device="cuda")
-            sentinel = torch.full_like(pdfs[i], -7.0)
-            out = sentinel.clone()
-            n1 = lbm_stream_collide.halo_slot_launches
-            lbm_stream_collide(pdfs[i], masks[l], halo=hm, sources=sources, slots=slots, out=out, **phys)
+            order = boundary.slot_lists[l]
+            assert sorted(order.tolist()) == listed
             whole = lbm_stream_collide(pdfs[i], masks[l], halo=hm, sources=sources, **phys)
-            torch.cuda.synchronize()
-            assert lbm_stream_collide.halo_slot_launches == n1 + 1
             rest = [b for b in range(pdfs[i].shape[0]) if b not in listed]
-            torch.testing.assert_close(out[slots.long()], whole[slots.long()], rtol=0, atol=0)
-            torch.testing.assert_close(out[rest], sentinel[rest], rtol=0, atol=0)
-            slot_routes += 1
+            for lst in (order, order[::-1].copy()):
+                slots = torch.as_tensor(lst, device="cuda")
+                sentinel = torch.full_like(pdfs[i], -7.0)
+                out = sentinel.clone()
+                n1 = lbm_stream_collide.halo_slot_launches
+                lbm_stream_collide(pdfs[i], masks[l], halo=hm, sources=sources, slots=slots, out=out, **phys)
+                torch.cuda.synchronize()
+                assert lbm_stream_collide.halo_slot_launches == n1 + 1
+                torch.testing.assert_close(out[slots.long()], whole[slots.long()], rtol=0, atol=0)
+                torch.testing.assert_close(out[rest], sentinel[rest], rtol=0, atol=0)
+                slot_routes += 1
     assert payload_levels > 0 and slot_routes > 0
 
 

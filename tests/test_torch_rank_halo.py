@@ -20,7 +20,12 @@ made from a seed with numpy:
   the frameworks sum moments in different orders; f64 1e-12);
 * (d) the route's operand checks refuse a payload of the wrong shape or
   dtype, a payload on a member stack, more segments than the maximum, and
-  an interior half whose blocks name a payload row.
+  an interior half whose blocks name a payload row;
+* (e) the route's slot lists (the ``cuda`` backend's neighbour order): each
+  half's list, and the unsplit level's full-length list, is a permutation
+  of its blocks, and every octet of siblings that a list holds whole is one
+  of its launch groups; the split absorb over those lists equals the
+  unsplit absorb and the factory-less form bitwise.
 """
 
 import dataclasses
@@ -40,6 +45,7 @@ from repro_torch.kernels.lbm_collide.lbm_collide import (
     lbm_stream_collide,
     member_coeffs,
 )
+from repro_torch.core.blockid import parent_id
 from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
 from repro_torch.lbm.halo import compile_rank_halo_plan
 
@@ -82,6 +88,7 @@ class RankCase:
     active: set
     masks: dict  # level -> host (B, X, Y, Z) int32
     shapes: dict  # level -> pdf stack shape
+    parents: dict  # level -> the parent id of each slot's block
 
 
 @pytest.fixture(scope="module")
@@ -114,6 +121,8 @@ def cases():
                         plan.local.get(r), active & set(rl),
                         {l: np.array(per_rank[r].buffer(l, "mask")) for l in rl},
                         {l: per_rank[r].buffer(l, "pdf").shape for l in rl},
+                        {l: np.array([parent_id(b) for b in sorted(per_rank[r].slots(l), key=per_rank[r].slots(l).get)])
+                         for l in rl},
                     ))
             cache[nranks] = out
         return cache[nranks]
@@ -296,3 +305,79 @@ def test_rank_halo_route_operand_checks(cases, monkeypatch):
     with pytest.raises(AssertionError, match="names a payload row"):
         ops.make_rank_absorb_split(case.recvs, case.local, case.index, halo_stepper_factory=_factory(case, "cuda"),
                                    **_port_kw(case, "cuda"))
+
+
+def _sibling_octets(parents: np.ndarray, listed) -> list[set]:
+    """The octets of siblings (8 blocks of one parent) among ``listed``."""
+    by_parent: dict[int, set] = {}
+    for s in listed:
+        by_parent.setdefault(int(parents[s]), set()).add(int(s))
+    return [g for g in by_parent.values() if len(g) == 8]
+
+
+@pytest.mark.parametrize("nranks", RANKS)
+def test_rank_route_slot_lists_group_whole_octets(cases, nranks):
+    """(e): the lists are permutations of their halves' blocks and hold
+    each whole octet of siblings as one launch group; the split absorb over
+    them equals the unsplit absorb and the factory-less form bitwise."""
+    lists_seen = octets_seen = 0
+    for i, case in enumerate(cases(nranks)):
+        kw = _port_kw(case, "cuda")
+        factory = _factory(case, "cuda")
+        absorb = ops.make_rank_absorb(case.recvs, case.local, case.index, halo_stepper_factory=factory, **kw)
+        interior, boundary = ops.make_rank_absorb_split(case.recvs, case.local, case.index,
+                                                        halo_stepper_factory=factory, **kw)
+        bnd = ops.boundary_slot_sets(case.recvs, case.masks)
+        assert set(absorb.slot_lists) == set(absorb.halo)
+        for l, h in absorb.halo.items():
+            nblocks = case.masks[l].shape[0]
+            b = set(bnd.get(l, ()))
+            want = {"unsplit": set(range(nblocks)), "interior": set(range(nblocks)) - b, "boundary": b}
+            got = {"unsplit": absorb.slot_lists.get(l), "interior": interior.slot_lists.get(l),
+                   "boundary": boundary.slot_lists.get(l)}
+            for name, lst in got.items():
+                if not want[name]:
+                    assert lst is None
+                    continue
+                assert lst.dtype == np.int32 and sorted(lst.tolist()) == sorted(want[name]), name
+                groups = [set(lst[k : k + 8].tolist()) for k in range(0, lst.size, 8)]
+                for octet in _sibling_octets(case.parents[l], want[name]):
+                    assert octet in groups, (name, sorted(octet))
+                    octets_seen += 1
+                lists_seen += 1
+        pdfs, msgs = _inputs(case, np.float32, seed=200 + i)
+        want_out = ops.make_rank_absorb(case.recvs, case.local, case.index, **kw)(_t(pdfs), _t(msgs))
+        _assert_bitwise(absorb(_t(pdfs), _t(msgs)), want_out)
+        _assert_bitwise(boundary(interior(_t(pdfs)), _t(msgs)), want_out)
+    assert lists_seen > 0
+    assert (octets_seen > 0) == (nranks < 13)  # at 13 ranks no rank holds a whole octet
+
+
+def test_neighbour_order_puts_cubes_then_z_neighbours_together():
+    """A 2 x 2 x 4 column of blocks: labelled in Morton order (the two
+    cubes' blocks consecutive), both cubes become launch groups, and a list
+    whose first cube is broken keeps the second whole; labelled z fastest
+    (x * 8 + y * 4 + z: no 8 consecutive blocks make a cube), a group grows
+    along z first, then y, then x."""
+    def neighbours(label):
+        nbr: dict[int, dict[int, int]] = {}
+        for x, y, z in np.ndindex(2, 2, 4):
+            for axis, (dx, dy, dz) in enumerate(((1, 0, 0), (0, 1, 0), (0, 0, 1))):
+                if x + dx < 2 and y + dy < 2 and z + dz < 4:
+                    a, b = label(x, y, z), label(x + dx, y + dy, z + dz)
+                    nbr.setdefault(a, {})[b] = axis
+                    nbr.setdefault(b, {})[a] = axis
+        return nbr
+
+    morton = neighbours(lambda x, y, z: (z // 2) * 8 + x * 4 + y * 2 + z % 2)
+    assert ops.cube_groups(range(16), morton) == 2
+    np.testing.assert_array_equal(ops.neighbour_order(reversed(range(16)), morton), np.arange(16))
+    broken = ops.neighbour_order(range(1, 16), morton)
+    assert sorted(broken.tolist()) == list(range(1, 16))
+    assert broken[:8].tolist() == list(range(8, 16)) and ops.cube_groups(broken, morton) == 1
+
+    z_fastest = neighbours(lambda x, y, z: x * 8 + y * 4 + z)
+    order = ops.neighbour_order(range(16), z_fastest)
+    assert ops.cube_groups(range(16), z_fastest) == 0
+    # the seed's z column, then its y neighbours' column; the x neighbours last
+    assert order[:4].tolist() == [0, 1, 2, 3] and set(order[:8].tolist()) == set(range(8))

@@ -19,17 +19,24 @@ mesh it does not have. Per cell it instead:
 The CLI puts each mesh on torch's ``fake`` process group (256 or 512 ranks
 as rank 0; its collectives move nothing), so it runs on one host. A cell
 whose trace raises is reported ``FAIL:<exception>`` and, with ``--out``,
-written as ``.err``; nothing is written without ``--out``.
+written as ``.err``; nothing is written without ``--out``. Both meshes are
+traced, the multi-pod one as the single one: on its three axes
+``mesh_scope`` places products, views and pointwise operations
+(``repro_torch.sharding.fixed_placements``). With ``--jobs N`` each cell
+runs in a process of its own, N at a time.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi --no-trace --out /tmp/dryrun
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi --out /tmp/dryrun [--jobs 4]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
+import sys
 import time
 import traceback
 from pathlib import Path
@@ -56,7 +63,7 @@ from .mesh import fake_process_group, make_production_mesh, mesh_axes, mesh_axis
 from .perf_model import hbm_bytes_estimate, model_flops
 from .step_analysis import StepStats, analyze_step, roofline_terms
 
-__all__ = ["run_cell", "main"]
+__all__ = ["run_cell", "cell_step", "main"]
 
 
 def _microbatches(cfg: ArchConfig, shape: ShapeConfig, n_batch_shards: int) -> int:
@@ -89,12 +96,13 @@ def run_cell(
     verbose: bool = True,
 ) -> dict:
     """One cell on ``mesh`` (a ``DeviceMesh`` with the production mesh's
-    axis names; any sizes): ``arch`` and ``shape`` by id or as configs.
-    Without ``trace`` only the placement is made: argument bytes and the
-    analytic model. DTensor plans each new operation signature once, and on
-    a 3-D mesh a product whose batch dimensions merge into a strided shard
-    took it 26–222 s to plan (torch 2.13 on one CPU core), so a multi-pod
-    trace takes hours: ``--no-trace`` leaves it out."""
+    axis names; any sizes, 2-D or with "pod" first): ``arch`` and ``shape``
+    by id or as configs. Without ``trace`` only the placement is made:
+    argument bytes and the analytic model. With it the step runs once on
+    the mesh: DTensor plans each new operation signature once, and on the
+    3-D mesh ``mesh_scope`` places products, views and pointwise ops by one
+    rule, where DTensor's own planning took more than 20 s a product
+    (torch 2.13, one CPU core; ``PERF.md`` section 6)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     axes, sizes = mesh_axes(mesh), mesh_axis_sizes(mesh)
@@ -171,24 +179,30 @@ def run_cell(
     return result
 
 
+def cell_step(model, shape: ShapeConfig, args: dict, microbatches: int) -> tuple:
+    """The cell's step as a function and its arguments: the train step
+    (``microbatches``), the prefill to the last position's logits, or one
+    decode step."""
+    if shape.kind == "train":
+        return make_train_step(model, AdamWConfig(), microbatches=microbatches), (args["opt_state"], args["batch"])
+    if shape.kind == "prefill":
+
+        def prefill(b):
+            h, _aux = model.hidden(b)
+            # last-position logits (the served token distribution)
+            return logits_from_hidden(model, h[:, -1:])
+
+        return prefill, (args["batch"],)
+    b = dict(args["batch"])
+    token = b.pop("tokens")
+    return model.decode, (token, args["cache"], b or None)
+
+
 def _trace(model, shape: ShapeConfig, mesh, args: dict, microbatches: int) -> StepStats:
     """The cell's step run once inside ``mesh_scope`` under ``analyze_step``."""
     with mesh_scope(mesh):
-        if shape.kind == "train":
-            step = make_train_step(model, AdamWConfig(), microbatches=microbatches)
-            _, stats = analyze_step(step, args["opt_state"], args["batch"])
-        elif shape.kind == "prefill":
-
-            def prefill(b):
-                h, _aux = model.hidden(b)
-                # last-position logits (the served token distribution)
-                return logits_from_hidden(model, h[:, -1:])
-
-            _, stats = analyze_step(prefill, args["batch"])
-        else:
-            b = dict(args["batch"])
-            token = b.pop("tokens")
-            _, stats = analyze_step(model.decode, token, args["cache"], b or None)
+        step, step_args = cell_step(model, shape, args, microbatches)
+        _, stats = analyze_step(step, *step_args)
     return stats
 
 
@@ -201,46 +215,101 @@ def main(argv: list[str] | None = None) -> list[tuple]:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--layout", choices=["tp-fsdp", "fsdp"], default="tp-fsdp")
     ap.add_argument("--microbatches", type=int, default=None)
-    ap.add_argument("--no-trace", action="store_true", help="place only: argument bytes and the analytic model")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="place only: argument bytes and the analytic model (every mesh traces by default)")
     ap.add_argument("--out", default=None, help="directory for one JSON (or .err) a cell; none by default")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once, each in a process of its own with one thread (needs --out)")
     args = ap.parse_args(argv)
+    if args.jobs > 1 and not args.out:
+        ap.error("--jobs needs --out")
 
     out_dir = Path(args.out) if args.out else None
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
     archs = args.arch or (all_arch_ids() if args.all else ["qwen2-0.5b"])
-    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
-
-    summary = []
-    for multi in meshes:
-        mesh_name = "multi" if multi else "single"
-        with fake_process_group(512 if multi else 256):
-            mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
-            for arch in archs:
-                cfg = get_config(arch)
-                for shape_id in args.shape or [s.shape_id for s in cells_for(cfg)]:
-                    suffix = "" if args.layout == "tp-fsdp" else f"--{args.layout}"
-                    if args.microbatches:
-                        suffix += f"--mb{args.microbatches}"
-                    path = out_dir / f"{arch}__{shape_id}__{mesh_name}{suffix}.json" if out_dir else None
-                    if args.skip_existing and path is not None and path.exists():
-                        print(f"skip {path.name}")
-                        continue
-                    try:
-                        res = run_cell(arch, shape_id, mesh, layout=args.layout, microbatches=args.microbatches,
-                                       trace=not args.no_trace)
-                        if path is not None:
-                            path.write_text(json.dumps(res, indent=1))
-                        summary.append((arch, shape_id, mesh_name, "OK", res.get("roofline", {}).get("dominant", "-"),
-                                        res.get("trace_s", "-")))
-                    except Exception as e:  # noqa: BLE001 — report, keep going
-                        traceback.print_exc()
-                        summary.append((arch, shape_id, mesh_name, f"FAIL:{type(e).__name__}", "-", 0))
-                        if path is not None:
-                            path.with_suffix(".err").write_text(traceback.format_exc())
+    suffix = "" if args.layout == "tp-fsdp" else f"--{args.layout}"
+    if args.microbatches:
+        suffix += f"--mb{args.microbatches}"
+    cells = []
+    for mesh_name in {"single": ["single"], "multi": ["multi"], "both": ["single", "multi"]}[args.mesh]:
+        for arch in archs:
+            for shape_id in args.shape or [s.shape_id for s in cells_for(get_config(arch))]:
+                path = out_dir / f"{arch}__{shape_id}__{mesh_name}{suffix}.json" if out_dir else None
+                if args.skip_existing and path is not None and path.exists():
+                    print(f"skip {path.name}")
+                    continue
+                cells.append((mesh_name, arch, shape_id, path))
+    run = _run_in_processes if args.jobs > 1 else _run_here
+    summary = run(cells, args)
     print("\n=== dry-run summary ===")
     for row in summary:
         print(f"{row[0]:24s} {row[1]:12s} {row[2]:7s} {row[3]:18s} dominant={row[4]:12s} trace={row[5]}s")
+    return summary
+
+
+def _run_here(cells: list[tuple], args) -> list[tuple]:
+    """Each cell traced in this process, a fake process group a mesh."""
+    summary = []
+    for multi in (False, True):
+        mine = [c for c in cells if (c[0] == "multi") == multi]
+        if not mine:
+            continue
+        with fake_process_group(512 if multi else 256):
+            mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+            for mesh_name, arch, shape_id, path in mine:
+                try:
+                    res = run_cell(arch, shape_id, mesh, layout=args.layout, microbatches=args.microbatches,
+                                   trace=not args.no_trace)
+                    if path is not None:
+                        path.write_text(json.dumps(res, indent=1))
+                    summary.append((arch, shape_id, mesh_name, "OK", res.get("roofline", {}).get("dominant", "-"),
+                                    res.get("trace_s", "-")))
+                except Exception as e:  # noqa: BLE001 — report, keep going
+                    traceback.print_exc()
+                    summary.append((arch, shape_id, mesh_name, f"FAIL:{type(e).__name__}", "-", 0))
+                    if path is not None:
+                        path.with_suffix(".err").write_text(traceback.format_exc())
+    return summary
+
+
+def _run_in_processes(cells: list[tuple], args) -> list[tuple]:
+    """Each cell traced by this CLI in a process of its own (one intra-op
+    thread, its output in ``<cell>.log`` beside its JSON), ``args.jobs`` at
+    a time; a row a cell as it ends. The processes are stopped on exit."""
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    flags = ["--layout", args.layout, "--out", args.out]
+    flags += ["--microbatches", str(args.microbatches)] if args.microbatches else []
+    flags += ["--no-trace"] if args.no_trace else []
+    pending, running, summary = list(cells), {}, []
+    try:
+        while pending or running:
+            while pending and len(running) < args.jobs:
+                mesh_name, arch, shape_id, path = cell = pending.pop(0)
+                cmd = [sys.executable, "-m", __spec__.name, "--arch", arch, "--shape", shape_id, "--mesh", mesh_name,
+                       *flags]
+                with open(path.with_suffix(".log"), "w") as log:
+                    running[cell] = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env)
+            time.sleep(0.5)
+            for cell, proc in list(running.items()):
+                if proc.poll() is None:
+                    continue
+                del running[cell]
+                mesh_name, arch, shape_id, path = cell
+                if path.exists():
+                    res = json.loads(path.read_text())
+                    row = (arch, shape_id, mesh_name, "OK", res.get("roofline", {}).get("dominant", "-"),
+                           res.get("trace_s", "-"))
+                else:
+                    row = (arch, shape_id, mesh_name, f"FAIL:rc={proc.returncode}", "-", 0)
+                summary.append(row)
+                print(f"{row[0]:24s} {row[1]:12s} {row[2]:7s} {row[3]:18s} trace={row[5]}s", flush=True)
+    finally:
+        for proc in running.values():
+            proc.kill()
+            proc.wait()
     return summary
 
 

@@ -16,12 +16,16 @@ on such a mesh to count each rank's bytes and collectives.
 ``DistContext`` constrains its DTensors on the mesh of the innermost
 scope, and inside the scope the tensors the model creates itself (rope
 tables, masks, accumulators) meet DTensors as replicated ones, in the
-forward and the backward pass alike.
+forward and the backward pass alike. On a mesh of three or more axes the
+scope also places products, views, pointwise operations and the
+embedding's index by one fixed rule
+(``repro_torch.sharding.fixed_placements``), where DTensor's own planning
+took more than 20 s a product.
 """
 
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Iterator
 
 import torch.distributed as dist
@@ -73,6 +77,9 @@ def fake_process_group(world_size: int) -> Iterator[None]:
 
 
 _SCOPES: list[DeviceMesh] = []
+# the fewest mesh axes on which ``mesh_scope`` places operations by
+# ``repro_torch.sharding.fixed_placements``
+FIXED_PLACEMENTS_FROM_AXES = 3
 
 
 def current_mesh() -> DeviceMesh | None:
@@ -85,15 +92,23 @@ def mesh_scope(mesh: DeviceMesh) -> Iterator[DeviceMesh]:
     """Run a model with an active ``DistContext`` on ``mesh``. Inside, plain
     tensors that meet DTensors in an operation count as replicated (DTensor's
     implicit replication); torch's own ``implicit_replication`` clears that
-    flag on exit, so this scope restores the value it found and scopes nest."""
+    flag on exit, so this scope restores the value it found and scopes nest.
+    On a mesh of three or more axes, the operations that
+    ``repro_torch.sharding.fixed_placements.FixedPlacements`` covers are
+    placed by it while the scope is open; a 1-D or 2-D mesh leaves them to
+    DTensor."""
     from torch.distributed.tensor import DTensor
+
+    from ..sharding.fixed_placements import FixedPlacements
 
     dispatcher = DTensor._op_dispatcher
     before = dispatcher._allow_implicit_replication
     dispatcher._allow_implicit_replication = True
     _SCOPES.append(mesh)
+    rule = FixedPlacements(mesh) if mesh.ndim >= FIXED_PLACEMENTS_FROM_AXES else nullcontext()
     try:
-        yield mesh
+        with rule:
+            yield mesh
     finally:
         _SCOPES.pop()
         dispatcher._allow_implicit_replication = before

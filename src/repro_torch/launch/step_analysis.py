@@ -14,6 +14,13 @@ eagerly (on meta tensors for a dry run) under two dispatch modes:
   which ``torch.distributed.tensor.debug.CommDebugMode`` counts, and the
   in-place ``c10d`` ones. Each collective's first tensor operand is its
   operand, as the reference's parser takes the first operand's shape.
+  A mode's handler runs with the modes above it suspended, and a DTensor
+  operation runs below every mode, so what moves inside an operation is
+  counted where it is made: DTensor's redistributions of an operation's
+  operands (the dispatcher's ``redistribute_local_args``, wrapped while
+  the step runs) and those of a mode entered before the step
+  (``mesh_scope``'s fixed placements on a 3-axis mesh) run inside
+  ``counting_collectives``.
 
 ``roofline_terms`` keeps the reference's signature and keys, at the
 published rates of one NVIDIA H100 SXM 80GB (``HW``).
@@ -21,14 +28,16 @@ published rates of one NVIDIA H100 SXM 80GB (``HW``).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
+from typing import Iterator
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["HW", "StepStats", "analyze_step", "roofline_terms"]
+__all__ = ["HW", "StepStats", "analyze_step", "counting_collectives", "roofline_terms"]
 
 
 class HW:
@@ -84,13 +93,57 @@ class _CollectiveBytes(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+_OPEN: list[StepStats] = []  # the stats of each running ``analyze_step``, innermost last
+
+
+@contextmanager
+def counting_collectives() -> Iterator[None]:
+    """The collectives issued inside are counted into the innermost running
+    ``analyze_step``'s stats (nothing is counted outside one). For a
+    dispatch mode entered before the step, whose handler runs while the
+    step's own counter is suspended."""
+    if not _OPEN:
+        yield
+        return
+    with _CollectiveBytes(_OPEN[-1]):
+        yield
+
+
+@contextmanager
+def _counting_dtensor_moves() -> Iterator[None]:
+    """DTensor's dispatcher redistributes an operation's operands inside
+    ``counting_collectives`` while the scope is open."""
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    own = vars(dispatcher).get("redistribute_local_args")
+    inner = dispatcher.redistribute_local_args
+
+    def counted(*args, **kwargs):
+        with counting_collectives():
+            return inner(*args, **kwargs)
+
+    dispatcher.redistribute_local_args = counted
+    try:
+        yield
+    finally:
+        if own is None:
+            del dispatcher.redistribute_local_args
+        else:
+            dispatcher.redistribute_local_args = own
+
+
 def analyze_step(fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` run once under the FLOP counter and the
     collective counter: returns (its result, ``StepStats``)."""
     stats = StepStats()
     flop_mode = FlopCounterMode(display=False)
-    with flop_mode, _CollectiveBytes(stats):
-        out = fn(*args, **kwargs)
+    _OPEN.append(stats)
+    try:
+        with _counting_dtensor_moves(), flop_mode, _CollectiveBytes(stats):
+            out = fn(*args, **kwargs)
+    finally:
+        _OPEN.pop()
     stats.flops = float(flop_mode.get_total_flops())
     return out, stats
 

@@ -3,29 +3,36 @@
 
 * ``analyze_step``: a chain of products counts 2·M·N·K FLOPs each; an
   all-gather of a known shard on a fake 4-rank mesh counts its operand
-  bytes. ``roofline_terms``: the reference's dominance leg at the H100's
-  rates.
+  bytes, whether it is called, made by DTensor inside an operation, or
+  made by the fixed placements of a 3-axis mesh. ``roofline_terms``: the
+  reference's dominance leg at the H100's rates.
 * ``run_cell`` at full size, qwen2-0.5b ``train_4k`` and ``decode_32k`` on
   a fake 16 x 16 mesh: OK, each rank's argument bytes equal, byte for
   byte, to the reference's specs applied to its ``jax.eval_shape`` trees
   (each leaf's shape divided by its axes' sizes, times its itemsize), and
   ``model_flops`` equal to the reference's.
+* qwen2-0.5b ``decode_32k`` at full size on a fake (2, 16, 16) mesh,
+  traced: the same bytes, and every product counted once. Reduced
+  qwen2-0.5b ``train_4k`` on fake (2, 2) and (2, 2, 2) meshes: each kind
+  of collective bytes a rank within a factor 2 of the other mesh's.
 * Every reduced arch's cells on a fake (2, 2, 2) mesh, each cell's
   sequence cut to 32 and its batch to 8 (``long_500k`` keeps its batch of
   1), placed without a trace: argument bytes held the same way.
   ``tests/test_torch_dryrun_cells.py`` traces every such cell on a fake
-  (2, 2) mesh.
+  (2, 2) mesh, ``tests/test_torch_dryrun_multi.py`` on the (2, 2, 2) one.
 """
+
+import math
 
 import pytest
 import torch
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro.configs import get_config as jax_get_config
 from repro_torch.configs import SHAPES, all_arch_ids, cells_for, get_config
 from repro_torch.launch.dryrun import main, run_cell
-from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+from repro_torch.launch.mesh import fake_process_group, make_production_mesh, mesh_scope
 from repro_torch.launch.step_analysis import HW, analyze_step, roofline_terms
 from torch_dryrun_cases import assert_bytes, assert_traced_cell, cut
 
@@ -56,6 +63,35 @@ def test_an_all_gather_counts_its_operand_bytes():
         full, stats = analyze_step(x.full_tensor)
     assert tuple(full.shape) == (4096, 64)
     assert stats.collective_bytes == {"all-gather": 1024 * 64 * 4}
+    assert stats.collective_count == {"all-gather": 1}
+
+
+def test_an_operation_counts_the_collectives_dtensor_makes_inside_it():
+    """A softmax over the sharded dimension: DTensor gathers the operand
+    inside the operation, below the counter's mode, and it is counted."""
+    with fake_process_group(4):
+        mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+        x = DTensor.from_local(torch.zeros(1024, 64), mesh, [Shard(0)], run_check=False)
+        y, stats = analyze_step(torch.softmax, x, 0)
+    assert y.placements == (Replicate(),)
+    assert stats.collective_bytes == {"all-gather": 1024 * 64 * 4}
+    assert stats.collective_count == {"all-gather": 1}
+
+
+def test_the_fixed_placements_count_their_own_collectives():
+    """On a fake (2, 2, 2) mesh ``mesh_scope`` places a product by the
+    fixed rule: ``a``'s rows on "pod" and "data", ``b``'s contraction on
+    "data" and its columns on "model", so ``b`` is gathered on "data" (its
+    (3, 2) f32 shard) inside the rule's handler, and counted; no other
+    collective is made."""
+    with fake_process_group(8):
+        mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        a = DTensor.from_local(torch.zeros(2, 6), mesh, [Shard(0), Shard(0), Replicate()], run_check=False)
+        b = DTensor.from_local(torch.zeros(3, 2), mesh, [Replicate(), Shard(0), Shard(1)], run_check=False)
+        with mesh_scope(mesh):
+            out, stats = analyze_step(torch.matmul, a, b)
+    assert out.placements == (Shard(0), Shard(0), Shard(1)) and tuple(out.shape) == (8, 4)
+    assert stats.collective_bytes == {"all-gather": 3 * 2 * 4}
     assert stats.collective_count == {"all-gather": 1}
 
 
@@ -95,11 +131,47 @@ def test_qwen2_cells_at_full_size_on_the_production_mesh(shape_id):
         assert res["flops"]["counted_cluster"] == res["flops"]["model_cluster"]
 
 
+def test_qwen2_decode_at_full_size_on_the_multi_pod_mesh():
+    """qwen2-0.5b ``decode_32k`` traced on a fake (2, 16, 16) mesh, where
+    ``mesh_scope`` places products, views and pointwise operations by the fixed
+    rule: argument bytes the reference's, every product of the step counted
+    once (``train_4k`` there takes about 70 s: ``PERF.md`` section 6)."""
+    sizes = {"pod": 2, "data": 16, "model": 16}
+    with fake_process_group(512):
+        mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+        res = run_cell("qwen2-0.5b", "decode_32k", mesh, verbose=False)
+    assert_traced_cell(res, jax_get_config("qwen2-0.5b"), SHAPES["decode_32k"], ("pod", "data", "model"), sizes)
+    assert res["n_chips"] == 512 and res["mesh"] == "multi"
+    assert res["flops"]["counted_cluster"] == res["flops"]["model_cluster"]
+
+
+def test_qwen2_train_collectives_against_the_2x2_mesh():
+    """Reduced qwen2-0.5b ``train_4k`` traced on fake (2, 2) and (2, 2, 2)
+    meshes. Every collective of the step is counted on both: the
+    constraints', DTensor's inside an operation and, on (2, 2, 2), the
+    fixed placements'. Twice the batch shards halve the activations a rank
+    reduces and leave the weights it gathers, so each rank's gathered
+    bytes and its reduced bytes (all-reduce and reduce-scatter: the rule
+    reduces a partial sum where DTensor may scatter it) on (2, 2, 2) lie
+    within a factor 2 of (2, 2)'s, and neither is 0."""
+    cfg, shape = get_config("qwen2-0.5b").reduced(), cut(SHAPES["train_4k"])
+    found = {}
+    for dims, axes in (((2, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model"))):
+        with fake_process_group(math.prod(dims)):
+            mesh = init_device_mesh("cpu", dims, mesh_dim_names=axes)
+            by_kind = run_cell(cfg, shape, mesh, verbose=False)["collectives"]["bytes_by_kind"]
+        found[dims] = {"gathered": by_kind.get("all-gather", 0.0),
+                       "reduced": by_kind.get("all-reduce", 0.0) + by_kind.get("reduce-scatter", 0.0)}
+    for kind in ("gathered", "reduced"):
+        ratio = found[(2, 2, 2)][kind] / found[(2, 2)][kind]
+        assert found[(2, 2)][kind] > 0 and 0.5 <= ratio <= 2.0, (kind, found)
+
+
 def test_every_reduced_arch_cell_placed_on_a_3d_mesh():
     """Every reduced arch's cells on a fake (2, 2, 2) ("pod", "data",
-    "model") mesh, placed without a trace (a 3-D mesh's trace takes DTensor
-    minutes a product to plan; ``tests/test_torch_dryrun_cells.py`` traces
-    every cell on a 2-D mesh): argument bytes equal the reference's."""
+    "model") mesh, placed without a trace (``--no-trace``;
+    ``tests/test_torch_dryrun_multi.py`` traces every such cell): argument
+    bytes equal the reference's."""
     axes, sizes = ("pod", "data", "model"), {"pod": 2, "data": 2, "model": 2}
     with fake_process_group(8):
         mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=axes)

@@ -16,7 +16,10 @@
   over the whole cache (f32: rtol 3e-5, atol 3e-6; f64 within 1e-12);
   reduced qwen2-0.5b and granite-moe-1b-a400m on a (2, 2) mesh with an
   active context against the inactive one (loss and decode logits within
-  the f32 tolerance, every gradient within 3e-5 of its leaf's max|g|).
+  the f32 tolerance, every gradient within 3e-5 of its leaf's max|g|), and
+  the same on the 3-D meshes (2, 2, 1), (2, 1, 2) and (2, 2, 2); products
+  and views placed by ``repro_torch.sharding.fixed_placements`` on 8 ranks
+  against the whole tensors (f64, within 1e-12).
 """
 
 import jax
@@ -47,7 +50,7 @@ from repro_torch.sharding.specs import (
     to_placements,
 )
 from repro_torch.train import adamw_init
-from torch_dist_workers import active_model_rank, flash_decode_rank, run_ranks
+from torch_dist_workers import active_model_rank, fixed_placements_rank, flash_decode_rank, run_ranks
 
 MESHES = {"single": (("data", "model"), {"data": 16, "model": 16}),
           "multi": (("pod", "data", "model"), {"pod": 2, "data": 16, "model": 16})}
@@ -275,11 +278,69 @@ def test_sharded_decode_attention_matches_the_whole_cache(tmp_path, world):
                                rtol=0, atol=1e-12)
 
 
-def test_active_context_on_a_2x2_mesh_matches_the_inactive_model(tmp_path):
-    """Reduced qwen2-0.5b and granite-moe-1b-a400m: the specs and ``wsc``
-    compose into the same model (loss, gradients, 4 decode steps)."""
-    found = run_ranks(active_model_rank, 4, tmp_path, ["qwen2-0.5b", "granite-moe-1b-a400m"])
+def _assert_matches_the_inactive_model(found: dict) -> None:
     for arch, f in found.items():
         assert f["loss_err"] <= F32["atol"] + F32["rtol"] * abs(f["loss"]), (arch, f)
         assert f["grad_rel"] <= GRAD_REL, (arch, f)
         assert f["decode_err"] <= F32["atol"] + F32["rtol"] * f["logits_max"], (arch, f)
+
+
+def test_active_context_on_a_2x2_mesh_matches_the_inactive_model(tmp_path):
+    """Reduced qwen2-0.5b and granite-moe-1b-a400m: the specs and ``wsc``
+    compose into the same model (loss, gradients, 4 decode steps)."""
+    found = run_ranks(active_model_rank, 4, tmp_path, ["qwen2-0.5b", "granite-moe-1b-a400m"])
+    _assert_matches_the_inactive_model(found)
+
+
+@pytest.mark.parametrize("shape, archs", [
+    ((2, 2, 1), ["qwen2-0.5b", "granite-moe-1b-a400m"]),
+    ((2, 1, 2), ["granite-20b", "granite-moe-1b-a400m"]),
+    ((2, 2, 2), ["qwen2-0.5b"]),
+], ids=["2x2x1", "2x1x2", "2x2x2"])
+def test_active_context_on_a_3d_mesh_matches_the_inactive_model(tmp_path, shape, archs):
+    """The same on ("pod", "data", "model") meshes, where ``mesh_scope``
+    places products, views and pointwise operations by
+    ``repro_torch.sharding.fixed_placements``: (2, 2, 1)
+    shards the batch over "pod" and "data" at once; on (2, 1, 2) the heads
+    (and, in the linear layers, the sequence) on "model" merge with the
+    batch into strided shards, granite-20b's one kv head is cut from a
+    replicated one, and the row-parallel products' partial sums are
+    reduced inside the product; on (2, 2, 2) (8 ranks) both at once."""
+    world = shape[0] * shape[1] * shape[2]
+    _assert_matches_the_inactive_model(run_ranks(active_model_rank, world, tmp_path, archs, shape))
+
+
+# name: (operands as (shape, placements a mesh axis), steps), the result's placements
+FIXED_PLACEMENT_CASES = {
+    "mm: rows on pod and data, b gathered on data, its columns on model": (
+        ([(8, 6), "S0,S0,R"], [(6, 4), "R,S0,S1"]), [("@", 1, None)], ["S(0)", "S(0)", "S(1)"]),
+    "mm: the contraction on three axes, the partial sums reduced": (
+        ([(8, 8), "R,S1,S1"], [(8, 4), "S0,R,S0"]), [("@", 1, None)], ["R", "R", "R"]),
+    "bmm: the batch on pod and data, the contraction on model": (
+        ([(4, 3, 6), "S0,S0,S2"], [(4, 6, 5), "R,S0,S1"]), [("@", 1, None)], ["S(0)", "S(0)", "R"]),
+    "bmm: heads merged into a batch on two axes (strided), split back": (
+        ([(8, 4, 3, 6), "S0,S0,S1"], [(8, 4, 6, 5), "S0,S0,S1"]),
+        [("view", (32, 3, 6)), ("@", 1, (32, 6, 5)), ("view", (8, 4, 3, 5))], ["S(0)", "S(0)", "S(1)"]),
+    "bmm: a strided batch against a replicated operand, cut in its unmerged view": (
+        ([(8, 4, 3, 6), "S0,S0,S1"], [(32, 6, 5), "R,R,R"]),
+        [("view", (32, 3, 6)), ("@", 1, None), ("view", (8, 4, 3, 5))], ["S(0)", "S(0)", "S(1)"]),
+    "view: a split the shard cannot follow (6 on 2 as (3, 2)) gathers it first": (
+        ([(4, 6, 5), "S0,S0,S1"],), [("view", (4, 3, 2, 5))], ["S(0)", "S(0)", "R"]),
+    "mm: one dimension on two axes merged with one on the third, split back": (
+        ([(4, 4, 6), "S0,S0,S1"], [(6, 3), "R,R,R"]),
+        [("view", (16, 6)), ("@", 1, None), ("view", (4, 4, 3))], ["S(0)", "S(0)", "S(1)"]),
+}
+
+
+def test_fixed_placements_on_a_2x2x2_mesh_match_the_whole_tensors(tmp_path):
+    """``repro_torch.sharding.fixed_placements`` on 8 gloo ranks, in f64:
+    products and views of real DTensors (strided shards from two batch
+    axes, partial sums, a view whose shard must be gathered first) give
+    the placements the rule names and, gathered, the products of the whole
+    tensors within 1e-12 of their largest value."""
+    cases = {name: (operands, steps) for name, (operands, steps, _) in FIXED_PLACEMENT_CASES.items()}
+    found = run_ranks(fixed_placements_rank, 8, tmp_path, cases)
+    for name, (_, _, placements) in FIXED_PLACEMENT_CASES.items():
+        f = found[name]
+        assert f["placements"] == placements, (name, f)
+        assert f["err"] <= 1e-12 * f["scale"], (name, f)

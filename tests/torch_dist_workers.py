@@ -12,7 +12,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["run_ranks", "flash_decode_rank", "active_model_rank"]
+__all__ = ["run_ranks", "flash_decode_rank", "active_model_rank", "fixed_placements_rank"]
 
 
 def _init(rank: int, world: int, out_dir: str):
@@ -45,12 +45,13 @@ def flash_decode_rank(rank: int, world: int, out_dir: str, inputs: dict) -> None
         dist.destroy_process_group()
 
 
-def active_model_rank(rank: int, world: int, out_dir: str, archs: list[str]) -> None:
+def active_model_rank(rank: int, world: int, out_dir: str, archs: list[str], shape: tuple = (2, 2)) -> None:
     """For each reduced arch: the model with an active ``DistContext`` on a
-    (2, 2) ("data", "model") mesh, parameters placed by ``param_pspecs``,
-    against the same weights with an inactive context (the same token
-    groups): the loss, every gradient and 4 greedy decode steps. Rank 0
-    saves each arch's largest differences."""
+    ``shape`` mesh, ("data", "model") or, with three axes, ("pod", "data",
+    "model") (the batch sharded over "pod" and "data"), parameters placed by
+    ``param_pspecs``, against the same weights with an inactive context (the
+    same token groups): the loss, every gradient and 4 greedy decode steps.
+    Rank 0 saves each arch's largest differences."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import SHAPES, get_config
@@ -61,15 +62,17 @@ def active_model_rank(rank: int, world: int, out_dir: str, archs: list[str]) -> 
 
     _init(rank, world, out_dir)
     try:
-        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-        axes, sizes = tuple(mesh.mesh_dim_names), mesh_axis_sizes(mesh)
+        axes = ("pod", "data", "model")[-len(shape):]
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+        sizes = mesh_axis_sizes(mesh)
+        groups = world // sizes["model"]
         found = {}
         for arch in archs:
             cfg = get_config(arch).reduced()
-            plain = build_model(cfg, DistContext(n_token_groups=2), device="cpu",
+            plain = build_model(cfg, DistContext(n_token_groups=groups), device="cpu",
                                 generator=torch.Generator().manual_seed(0))
-            active = build_model(cfg, DistContext(n_token_groups=2, batch_axes=("data",), model_axis="model",
-                                                  model_size=2), device="cpu")
+            active = build_model(cfg, DistContext(n_token_groups=groups, batch_axes=axes[:-1], model_axis="model",
+                                                  model_size=sizes["model"]), device="cpu")
             active.load_state_dict(plain.state_dict())
             place_model(active, param_pspecs(cfg, active, axes, sizes), mesh)
             g = torch.Generator().manual_seed(1)
@@ -99,6 +102,52 @@ def active_model_rank(rank: int, world: int, out_dir: str, archs: list[str]) -> 
                 tok = want_logits[:, -1:].argmax(dim=-1)
             found[arch] = dict(loss=float(want), loss_err=abs(float(got.detach().full_tensor()) - float(want)), grad_rel=grad_rel,
                                decode_err=decode_err, logits_max=float(want_logits.abs().max()))
+        if rank == 0:
+            torch.save(found, Path(out_dir) / "rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _placed(spec: str):
+    """Placements from a string a mesh axis: ``R``, ``S<dim>``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Replicate() if p == "R" else Shard(int(p[1:])) for p in spec.split(",")]
+
+
+def fixed_placements_rank(rank: int, world: int, out_dir: str, cases: dict) -> None:
+    """Each case on a (2, 2, 2) ("pod", "data", "model") mesh inside
+    ``mesh_scope`` (the fixed placements of
+    ``repro_torch.sharding.fixed_placements``), in f64: its operands, made
+    from a seed, placed by their spec strings (one entry a mesh axis), then
+    a chain of steps, each ``("view", shape)`` or ``("@", i, shape)``, a
+    product with operand ``i`` (viewed as ``shape`` first where it is not
+    None). Rank 0 saves, a case, the result's placements and its largest
+    difference from the same steps on the whole tensors."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import mesh_scope
+
+    _init(rank, world, out_dir)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        g = torch.Generator().manual_seed(0)
+        found = {}
+        for name, (operands, steps) in cases.items():
+            whole = [torch.randn(shape, generator=g, dtype=torch.float64) for shape, _ in operands]
+            placed = [distribute_tensor(w, mesh, _placed(spec)) for w, (_, spec) in zip(whole, operands)]
+            want, got = whole[0], placed[0]
+            with mesh_scope(mesh):
+                for op, *arg in steps:
+                    if op == "view":
+                        want, got = want.view(arg[0]), got.view(arg[0])
+                        continue
+                    i, shape = arg
+                    w, p = (whole[i], placed[i]) if shape is None else (whole[i].view(shape), placed[i].view(shape))
+                    want, got = want @ w, got @ p
+            found[name] = dict(placements=[str(p) for p in got.placements],
+                               err=float((got.full_tensor() - want).abs().max()), scale=float(want.abs().max()))
         if rank == 0:
             torch.save(found, Path(out_dir) / "rank0.pt")
     finally:

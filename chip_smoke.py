@@ -154,8 +154,13 @@ finding per line:
    run's ``decode_32k`` cell at B = 32: its per-rank argument bytes equal to
    the storage of the same tensors made on the card and to the allocator's
    growth in 512-byte blocks, and the decode FLOPs counted on the card equal
-   to those counted on meta. It passes alone (``--only lm-dist``) and prints
-   an ``lm_dist`` JSON line.
+   to those counted on meta. Every active step runs through ``mesh_scope``'s
+   fixed placements (``repro_torch.sharding.fixed_placements``). (d) After
+   the group is destroyed, on the host: every reduced arch's cells (S = 32,
+   B = 8) traced by ``run_cell`` on fake (2, 2) and (2, 2, 2) meshes in 4
+   child processes, each cell ``OK`` and its counted FLOPs equal on both
+   meshes. It passes alone (``--only lm-dist``) and prints an ``lm_dist``
+   JSON line.
 6. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (real state and a real compiled fill of the full
    cavity): the stencil at B = 64; the level-2 fill from its sources plus
@@ -338,6 +343,11 @@ LM_DIST_FLASH = dict(B=32, T=32768)
 LM_DIST_FLASH_F32_VS_F64 = 3e-7
 # c. the dry run's decode_32k cell at a batch of 32 on the (1, 1) mesh
 LM_DIST_DRYRUN_B = 32
+# phase 5d: the reduced cells' dry run on fake meshes of the host, in child
+# processes split evenly between the meshes; a design budget of 90 s wall
+LM_DIST_CELLS_MESHES = ((2, 2), (2, 2, 2))
+LM_DIST_CELLS_WORKERS = 4
+LM_DIST_CELLS_BUDGET_S = 90.0
 
 
 def check(cond: bool, what: str) -> None:
@@ -1546,7 +1556,9 @@ def lm_dist_phase() -> dict:
     the card, and the growth of ``torch.cuda.memory_allocated()`` with each
     tensor rounded up to the caching allocator's 512-byte block; the decode
     step's FLOPs counted on the card equal those counted on meta. The phase
-    destroys its process group at its end."""
+    destroys its process group, then runs (d) ``lm_dist_cells`` on the
+    host. Every active step runs inside ``mesh_scope``, whose fixed
+    placements place its products, views and pointwise operations."""
     from dataclasses import replace
 
     import torch.distributed as dist
@@ -1688,10 +1700,85 @@ def lm_dist_phase() -> dict:
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    out = dict(card=card, arch=LM_ARCH, mesh=[1, 1], active=a, flash_decode=b, dryrun_bytes=c,
+    d = lm_dist_cells()
+    out = dict(card=card, arch=LM_ARCH, mesh=[1, 1], active=a, flash_decode=b, dryrun_bytes=c, dryrun_cells=d,
                seconds=time.perf_counter() - t_phase)
     say(f"[lm-dist] phase 5 wall time {out['seconds']:.2f} s [{card}]")
     return out
+
+
+def trace_reduced_cells(mesh_shape: tuple, cells: list) -> list[dict]:
+    """Phase 5d's child process: each (arch, cut shape) of ``cells`` traced
+    by ``run_cell`` at the arch's reduced config on a fake ``mesh_shape``
+    mesh (("pod", "data", "model"), or its last two axes), one thread. A
+    row a cell: its status (``FAIL`` and the exception where the trace
+    raised), seconds, counted FLOPs and argument bytes."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import fake_process_group
+
+    torch.set_num_threads(1)
+    rows = []
+    with fake_process_group(math.prod(mesh_shape)):
+        mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("pod", "data", "model")[-len(mesh_shape):])
+        for arch, shape in cells:
+            row = dict(mesh=list(mesh_shape), arch=arch, shape=shape.shape_id)
+            t0 = time.perf_counter()
+            try:
+                res = run_cell(get_config(arch).reduced(), shape, mesh, verbose=False)
+                row.update(status="OK", flops=res["flops"]["counted_cluster"],
+                           argument_bytes=res["memory"]["argument_bytes"])
+            except Exception as e:  # the row carries it; the parent's check fails the run
+                row["status"] = f"FAIL: {type(e).__name__}: {str(e).splitlines()[0][:200] if str(e) else ''}"
+            row["seconds"] = time.perf_counter() - t0
+            rows.append(row)
+    return rows
+
+
+def lm_dist_cells() -> dict:
+    """Phase 5d: the dry run of every reduced arch's cells, cut to S = 32
+    and B = 8 (``long_500k`` keeps its batch of 1; ``tests/
+    torch_dryrun_cases.py`` cuts them alike), traced on the host's CPU on a
+    fake (2, 2) and a fake (2, 2, 2) mesh, as the CPU tests trace them, in
+    ``LM_DIST_CELLS_WORKERS`` child processes (``spawn``), each cell's
+    status and seconds printed. Every cell must trace ``OK`` and count the
+    same FLOPs on both meshes: the card machine's torch places them through
+    ``mesh_scope``'s fixed placements as the CPU tests' torch does."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from dataclasses import replace
+
+    from repro_torch.configs import all_arch_ids, cells_for, get_config
+
+    t0 = time.perf_counter()
+    cells = [(arch, replace(s, seq_len=min(s.seq_len, 32), global_batch=min(s.global_batch, 8)))
+             for arch in all_arch_ids() for s in cells_for(get_config(arch).reduced())]
+    cells.sort(key=lambda cell: cell[1].kind != "train")  # the longest traces first, dealt round the workers
+    per_mesh = LM_DIST_CELLS_WORKERS // len(LM_DIST_CELLS_MESHES)
+    tasks = [(mesh, cells[i::per_mesh]) for mesh in LM_DIST_CELLS_MESHES for i in range(per_mesh)]
+    with ProcessPoolExecutor(len(tasks), mp_context=multiprocessing.get_context("spawn")) as pool:
+        rows = [row for part in pool.map(trace_reduced_cells, *zip(*tasks)) for row in part]
+    wall = time.perf_counter() - t0
+    for row in rows:
+        say(f"[lm-dist] d. {tuple(row['mesh'])} {row['arch']} {row['shape']}: {row['status']} "
+            f"{row['seconds']:.2f} s")
+    flops = {}
+    for row in rows:
+        check(row["status"] == "OK", f"phase 5 d: {row['arch']} {row['shape']} traces on a fake {tuple(row['mesh'])} "
+                                     f"mesh ({row['status']})")
+        flops.setdefault((row["arch"], row["shape"]), set()).add(row["flops"])
+    check(all(len(f) == 1 for f in flops.values()), "phase 5 d: every cell counts the same FLOPs on both meshes")
+    d = dict(cells=len(cells), meshes=[list(m) for m in LM_DIST_CELLS_MESHES], workers=len(tasks),
+             ok=sum(row["status"] == "OK" for row in rows), cell_seconds=sum(row["seconds"] for row in rows),
+             wall_s=wall, budget_s=LM_DIST_CELLS_BUDGET_S, torch=torch.__version__,
+             host_cores=os.cpu_count())
+    say(f"[lm-dist] d. {d['ok']} of {len(rows)} reduced cells OK on fake {' and '.join(map(str, LM_DIST_CELLS_MESHES))} "
+        f"meshes, FLOPs equal on both, {d['cell_seconds']:.1f} s of traces in {len(tasks)} processes, "
+        f"{wall:.1f} s wall (budget {LM_DIST_CELLS_BUDGET_S:g} s; torch {torch.__version__}, "
+        f"{os.cpu_count()} host cores)")
+    return d
 
 
 def main(lm: bool = True) -> int:

@@ -20,10 +20,9 @@ The CLI puts each mesh on torch's ``fake`` process group (256 or 512 ranks
 as rank 0; its collectives move nothing), so it runs on one host. A cell
 whose trace raises is reported ``FAIL:<exception>`` and, with ``--out``,
 written as ``.err``; nothing is written without ``--out``. Both meshes are
-traced, the multi-pod one as the single one: on its three axes
-``mesh_scope`` places products, views and pointwise operations
-(``repro_torch.sharding.fixed_placements``). With ``--jobs N`` each cell
-runs in a process of its own, N at a time.
+traced alike: on either ``mesh_scope`` places products, views and
+pointwise operations (``repro_torch.sharding.fixed_placements``). With
+``--jobs N`` each cell runs in a process of its own, N at a time.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
@@ -99,10 +98,11 @@ def run_cell(
     axis names; any sizes, 2-D or with "pod" first): ``arch`` and ``shape``
     by id or as configs. Without ``trace`` only the placement is made:
     argument bytes and the analytic model. With it the step runs once on
-    the mesh: DTensor plans each new operation signature once, and on the
-    3-D mesh ``mesh_scope`` places products, views and pointwise ops by one
-    rule, where DTensor's own planning took more than 20 s a product
-    (torch 2.13, one CPU core; ``PERF.md`` section 6)."""
+    the mesh inside ``mesh_scope``, which places products, views and
+    pointwise ops by one rule, each signature planned once a process;
+    DTensor plans the rest, each signature once too (``PERF.md`` section
+    6: DTensor's own planning took more than 20 s a product on a 3-D mesh,
+    and torch 2.11's cannot place sharded heads on a 2-D one)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     axes, sizes = mesh_axes(mesh), mesh_axis_sizes(mesh)

@@ -19,7 +19,7 @@ eagerly (on meta tensors for a dry run) under two dispatch modes:
   counted where it is made: DTensor's redistributions of an operation's
   operands (the dispatcher's ``redistribute_local_args``, wrapped while
   the step runs) and those of a mode entered before the step
-  (``mesh_scope``'s fixed placements on a 3-axis mesh) run inside
+  (``mesh_scope``'s fixed placements) run inside
   ``counting_collectives``.
 
 ``roofline_terms`` keeps the reference's signature and keys, at the

@@ -1,18 +1,19 @@
-"""Products, views and pointwise operations on a mesh of three or more
-axes, placed by one fixed rule instead of DTensor's search.
+"""Products, views and pointwise operations on a mesh, placed by one fixed
+rule instead of DTensor's search.
 
-DTensor plans each new signature of an operation by costing every
-combination of per-axis strategies. On a 3-D mesh that costs 0.1-0.6 s a
-pointwise signature, and a product (``aten.mm``, ``aten.bmm``) whose operand
-merges two sharded dimensions into one (the batch and the heads of
-``chunked_attention``'s ``(B*H, q, d)`` products, the batch and a sequence
-sharded on "model" in a linear layer's ``(B*S, D)``) carries a
-``_StridedShard``, for which DTensor costs each candidate with a search
-over placement states: more than 20 s a signature, where a 2-D mesh took
-1-6 s (torch 2.13 on one CPU core; ``PERF.md`` section 6).
+A product (``aten.mm``, ``aten.bmm``) whose operand merges two sharded
+dimensions into one (the batch and the heads of ``chunked_attention``'s
+``(B*H, q, d)`` products, the batch and a sequence sharded on "model" in a
+linear layer's ``(B*S, D)``) carries a ``_StridedShard`` where DTensor's
+own view rule makes it. DTensor costs each candidate strategy of such a
+product with a search over placement states: 1-6 s a signature on a 2-D
+mesh, more than 20 s on a 3-D one (torch 2.13 on one CPU core). Torch
+2.11's DTensor cannot make a strided shard at all: its view refuses to
+flatten sharded heads, and 29 of the 33 reduced cells failed on a (2, 2)
+mesh there (``PERF.md`` section 6).
 
 ``FixedPlacements`` is the dispatch mode that ``repro_torch.launch.mesh.
-mesh_scope`` holds on such a mesh. Mesh axis by mesh axis, from the
+mesh_scope`` holds on every mesh. Mesh axis by mesh axis, from the
 operands' placements:
 
 * a product ``a @ b`` (``(b, m, k) @ (b, k, n)`` or ``(m, k) @ (k, n)``):
@@ -38,7 +39,8 @@ operands' placements:
   keeps the first (torch 2.11's DTensor refuses two); a flip of unsplit
   dimensions is local, and a constant pad gathers its padded dimensions.
 
-Operations the rule does not place go to DTensor.
+Operations the rule does not place go to DTensor. The rule plans each
+signature once a process (``PLANS``), as DTensor plans its own.
 
 A shard is moved only where DTensor moves it right: a dimension that holds
 a strided shard is gathered or cut from a replicated axis, never re-split
@@ -55,6 +57,7 @@ from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
 from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -267,19 +270,35 @@ def _group_placements(shape, new_shape, placements, mesh_shape, gi: list, gj: li
 _VIEWS = {aten.view.default, aten._unsafe_view.default}
 _LAYOUT_ONLY = {aten.t.default, aten.transpose.int, aten.detach.default}
 _INDEXED = {aten.index.Tensor, aten.index_put.default, aten.index_put_.default}
+# (the mesh's shape, the call's signature) -> the rule's plan of it, None
+# where DTensor places it; filled as operations are first met, for the process
+PLANS: dict = {}
+
+
+def _signature(x):
+    """A hashable description of an argument: a tensor's global shape,
+    strides, dtype and placements (None: a plain tensor), a scalar with its
+    type (an int and a float promote differently)."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.stride(), x.dtype, tuple(x.placements) if isinstance(x, DTensor) else None
+    if isinstance(x, (list, tuple)):
+        return tuple(map(_signature, x))
+    return type(x), repr(x) if isinstance(x, float) else x
+
+
+def _normal(placements, ndim: int) -> list:
+    """Every shard's dimension counted from 0 and every ``_StridedShard``
+    of factor 1 written as the plain shard it is (the same blocks in mesh
+    order), as the rule writes them."""
+    out = [_shard_on(p, p.dim % ndim) if isinstance(p, _SHARDS) else p for p in placements]
+    return [Shard(p.dim) if isinstance(p, _StridedShard) and p.split_factor == 1 else p for p in out]
 
 
 def _operand(t):
-    """``t`` detached (below autograd; torch 2.11's DTensor has no
-    ``detach_``, which an autograd function inside a dispatch mode calls on
-    an output that requires grad), every shard's dimension counted from 0
-    and every ``_StridedShard`` of factor 1 written as the plain shard it
-    is (the same blocks in mesh order), as the rule writes them."""
+    """``t`` with its placements ``_normal``."""
     if not isinstance(t, DTensor):
         return t
-    t = t.detach()
-    placements = [_shard_on(p, p.dim % t.ndim) if isinstance(p, _SHARDS) else p for p in t.placements]
-    placements = [Shard(p.dim) if isinstance(p, _StridedShard) and p.split_factor == 1 else p for p in placements]
+    placements = _normal(t.placements, t.ndim)
     if placements == list(t.placements):
         return t
     return DTensor.from_local(t.to_local(), t.device_mesh, placements, run_check=False, shape=t.shape,
@@ -311,31 +330,77 @@ def _contiguous_stride(shape) -> tuple[int, ...]:
     return tuple(reversed(stride))
 
 
+def _like(t) -> torch.Tensor:
+    """A meta tensor of ``t``'s global shape, strides and dtype."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+
+
+def _reduced(placements) -> list:
+    return [Replicate() if isinstance(p, Partial) else p for p in placements]
+
+
 class FixedPlacements(TorchDispatchMode):
     """Inside, the operations of DTensors on ``mesh`` that the rule above
     covers are placed by it (a plain operand counts as
     replicated, as under ``mesh_scope``); every other operation goes to
-    DTensor."""
+    DTensor. The rule's plan of a call (the placements each operand is
+    moved to, the output's placements, global shape and strides) depends
+    only on its signature (``_signature``: the operation, its operands'
+    global shapes, strides, dtypes and placements, its other arguments),
+    so it is made once a process and read from ``PLANS`` after, as DTensor
+    caches its own. The outputs are made below autograd, without
+    ``DTensor.from_local``'s autograd function (``_wrap``)."""
 
     def __init__(self, mesh):
         super().__init__()
         self.mesh = mesh
+        self.mesh_shape = tuple(mesh.shape)
         self.replicated = [Replicate()] * mesh.ndim
+        self.specs = {}
+
+    def _wrap(self, local: torch.Tensor, placements, shape, stride) -> DTensor:
+        """``local`` as this rank's block of a DTensor of global ``shape``
+        and ``stride`` placed ``placements``: what ``DTensor.from_local``
+        makes, without its autograd function (this runs below autograd),
+        each spec made once a scope."""
+        key = (tuple(placements), tuple(shape), tuple(stride), local.dtype)
+        spec = self.specs.get(key)
+        if spec is None:
+            meta = TensorMeta(torch.Size(shape), tuple(stride), local.dtype)
+            spec = self.specs[key] = DTensorSpec(self.mesh, tuple(placements), tensor_meta=meta)
+        return DTensor(local, spec, requires_grad=False)
 
     def _dtensor(self, t: torch.Tensor) -> DTensor:
-        return t if isinstance(t, DTensor) else DTensor.from_local(t, self.mesh, self.replicated, run_check=False)
+        return t if isinstance(t, DTensor) else self._wrap(t.detach(), self.replicated, t.shape, t.stride())
+
+    def _plan(self, key, make):
+        """The plan of a call with signature ``key``, made by ``make`` at
+        the first such call."""
+        key = (self.mesh_shape, key)
+        try:
+            return PLANS[key]
+        except KeyError:
+            plan = PLANS[key] = make()
+            return plan
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if not any(isinstance(t, DTensor) for t in (*args, *kwargs.values())):
             return func(*args, **kwargs)
+        # below autograd, which records the operation around this handler:
+        # DTensor's own autograd functions (``from_local``, ``to_local``,
+        # ``redistribute``) record nothing here
+        with torch.no_grad():
+            return self._placed(func, args, kwargs)
+
+    def _placed(self, func, args, kwargs):
         out = None
         if func in _LABELS and not kwargs:
             return self._product(func, *map(_operand, args))
         if func in _VIEWS:
-            out = self._view(func, *map(_operand, args))
+            out = self._view(func, _operand(args[0]), args[1])
         elif func in _LAYOUT_ONLY:
-            out = self._layout_only(func, tuple(map(_operand, args)))
+            out = self._layout_only(func, _operand(args[0]), args[1:])
         elif func is aten.index_put.default:
             out = self._index_put(*map(_operand, args[:1]), [_operand(t) for t in args[1]], *args[2:])
             if out is None:
@@ -347,7 +412,7 @@ class FixedPlacements(TorchDispatchMode):
         elif func is aten.constant_pad_nd.default:
             out = self._pad(_operand(args[0]), *args[1:])
         elif _pointwise(func, kwargs):
-            out = self._pointwise(func, tuple(map(_operand, args)), {k: _operand(v) for k, v in kwargs.items()})
+            out = self._pointwise(func, args, kwargs)
         if out is not None:
             return out
         try:
@@ -363,49 +428,70 @@ class FixedPlacements(TorchDispatchMode):
         on three axes wrongly in torch 2.13), else None. With ``gather``,
         the shards of dimensions the view cannot keep are gathered first,
         as DTensor's rule gathers them on a 2-D mesh."""
-        meta = func(torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta"), shape)
-        mesh_shape = tuple(self.mesh.shape)
-        out = view_placements(tuple(x.shape), tuple(meta.shape), tuple(x.placements), mesh_shape)
-        if out is None and gather:
-            kept = view_placements(tuple(x.shape), tuple(meta.shape), tuple(x.placements), mesh_shape, gather=True)
-            if kept is None or _moves_a_strided_dim(x.placements, kept):
-                return None
+        plan = self._plan((func, _signature(x), tuple(shape), gather), lambda: self._view_plan(func, x, shape, gather))
+        if plan is None:
+            return None
+        kept, out, local, like = plan
+        if kept is not None:
             x = self._redistribute(x, kept)
-            out = view_placements(tuple(x.shape), tuple(meta.shape), tuple(x.placements), mesh_shape)
+        return self._wrap(func(x.to_local(), local), out, *like)
+
+    def _view_plan(self, func, x, shape, gather: bool):
+        """(the placements ``x`` is moved to first or None, the view's
+        placements, its local shape, its global shape and strides)."""
+        meta = func(_like(x), shape)
+        placements, kept = tuple(x.placements), None
+        out = view_placements(tuple(x.shape), tuple(meta.shape), placements, self.mesh_shape)
+        if out is None and gather:
+            kept = view_placements(tuple(x.shape), tuple(meta.shape), placements, self.mesh_shape, gather=True)
+            if kept is None or _moves_a_strided_dim(placements, kept):
+                return None
+            out = view_placements(tuple(x.shape), tuple(meta.shape), tuple(kept), self.mesh_shape)
         if out is None:
             return None
-        if not (_even(x.shape, x.placements, self.mesh.shape) and _even(meta.shape, out, self.mesh.shape)):
+        if not (_even(x.shape, kept or placements, self.mesh_shape) and _even(meta.shape, out, self.mesh_shape)):
             return None  # an uneven shard: the ranks' blocks differ, and DTensor's own rule places them
         local = list(meta.shape)
         for a, p in enumerate(out):
             if isinstance(p, _SHARDS):
-                local[p.dim] //= self.mesh.shape[a]
-        return DTensor.from_local(func(x.to_local(), local), self.mesh, out, run_check=False, shape=meta.shape,
-                                  stride=meta.stride())
+                local[p.dim] //= self.mesh_shape[a]
+        return kept, out, local, (meta.shape, meta.stride())
 
-    def _layout_only(self, func, args) -> DTensor | None:
+    def _layout_only(self, func, x, rest) -> DTensor | None:
         """A transpose or a detach of a tensor that holds a strided shard:
         the same blocks, the dimensions renamed; else None."""
-        x = args[0]
-        if not any(isinstance(p, _StridedShard) for p in x.placements):
+
+        def make():
+            if not any(isinstance(p, _StridedShard) for p in x.placements):
+                return None
+            meta = func(_like(x), *rest)
+            order = list(range(x.ndim))
+            if func is not aten.detach.default:
+                d0, d1 = rest if len(rest) == 2 else (0, 1)
+                order[d0 % x.ndim], order[d1 % x.ndim] = order[d1 % x.ndim], order[d0 % x.ndim]
+            out = [_shard_on(p, order.index(p.dim)) if isinstance(p, _SHARDS) else p for p in x.placements]
+            return out, (meta.shape, meta.stride())
+
+        plan = self._plan((func, _signature(x), tuple(rest)), make)
+        if plan is None:
             return None
-        meta = func(torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta"), *args[1:])
-        order = list(range(x.ndim))
-        if func is not aten.detach.default:
-            d0, d1 = args[1:] if len(args) == 3 else (0, 1)
-            order[d0 % x.ndim], order[d1 % x.ndim] = order[d1 % x.ndim], order[d0 % x.ndim]
-        out = [_shard_on(p, order.index(p.dim)) if isinstance(p, _SHARDS) else p for p in x.placements]
-        return DTensor.from_local(func(x.to_local(), *args[1:]), self.mesh, out, run_check=False,
-                                  shape=meta.shape, stride=meta.stride())
+        out, like = plan
+        return self._wrap(func(x.to_local(), *rest), out, *like)
 
     def _flip(self, x, dims) -> DTensor | None:
         """A flip of dimensions no axis splits (torch 2.11's DTensor has no
         rule for ``flip``: the backward of a ``cumsum``), else None."""
-        if any(isinstance(p, _SHARDS) and p.dim in [d % x.ndim for d in dims] for p in x.placements):
+
+        def make():
+            if any(isinstance(p, _SHARDS) and p.dim in [d % x.ndim for d in dims] for p in x.placements):
+                return None
+            like = aten.flip.default(_like(x), dims)
+            return like.shape, like.stride()
+
+        like = self._plan((aten.flip.default, _signature(x), tuple(dims)), make)
+        if like is None:
             return None
-        like = aten.flip.default(torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta"), dims)
-        return DTensor.from_local(aten.flip.default(x.to_local(), dims), self.mesh, list(x.placements),
-                                  run_check=False, shape=like.shape, stride=like.stride())
+        return self._wrap(aten.flip.default(x.to_local(), dims), x.placements, *like)
 
     def _index_put(self, x, indices, values, accumulate=False) -> DTensor | None:
         """An accumulating index put of one index tensor into a replicated
@@ -440,19 +526,22 @@ class FixedPlacements(TorchDispatchMode):
             return None
         local = aten.index_put.default(self._redistribute(x, tx).to_local(), [self._redistribute(idx, ti).to_local()],
                                        values.to_local(), accumulate)
-        res = DTensor.from_local(local, self.mesh, out, run_check=False, shape=x.shape, stride=x.stride())
-        return self._redistribute(res, [Replicate() if isinstance(p, Partial) else p for p in out])
+        res = self._wrap(local, out, x.shape, x.stride())
+        return self._redistribute(res, _reduced(out))
 
     def _pad(self, x, pad, value=0) -> DTensor:
         """A constant pad, each padded dimension gathered first (torch
         2.11's DTensor fails to plan the pad of a sharded sequence)."""
-        padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
-        want = [Replicate() if isinstance(p, _SHARDS) and p.dim in padded else p for p in x.placements]
+
+        def make():
+            padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
+            want = [Replicate() if isinstance(p, _SHARDS) and p.dim in padded else p for p in x.placements]
+            like = aten.constant_pad_nd.default(_like(x), pad, value)
+            return want, (like.shape, like.stride())
+
+        want, like = self._plan((aten.constant_pad_nd.default, _signature(x), tuple(pad), _signature(value)), make)
         x = self._redistribute(x, want)
-        like = aten.constant_pad_nd.default(torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta"),
-                                            pad, value)
-        return DTensor.from_local(aten.constant_pad_nd.default(x.to_local(), pad, value), self.mesh, want,
-                                  run_check=False, shape=like.shape, stride=like.stride())
+        return self._wrap(aten.constant_pad_nd.default(x.to_local(), pad, value), want, *like)
 
     def _one_axis_a_dim(self, t):
         """An index tensor whose dimensions are each split on one axis at
@@ -480,6 +569,8 @@ class FixedPlacements(TorchDispatchMode):
         target = list(target)
         if list(t.placements) == target:
             return t
+        if t.requires_grad:  # DTensor's redistribute would ``detach_`` its output here, which torch 2.11 lacks
+            t = self._wrap(t.to_local(), t.placements, t.shape, t.stride())
         with counting_collectives():
             return self._moved(t, target)
 
@@ -497,10 +588,9 @@ class FixedPlacements(TorchDispatchMode):
                 outer = p.split_factor
         for a, p in enumerate(side):
             if type(p) is Shard and p.dim == d:
-                outer *= self.mesh.shape[a]
+                outer *= self.mesh_shape[a]
         unmerged = (*t.shape[:d], outer, t.shape[d] // outer, *t.shape[d + 1:])
-        mesh_shape = tuple(self.mesh.shape)
-        there = view_placements(tuple(t.shape), unmerged, tuple(target), mesh_shape)
+        there = view_placements(tuple(t.shape), unmerged, tuple(target), self.mesh_shape)
         u = self._view(aten.view.default, t, unmerged, gather=False)
         if there is None or u is None:
             raise NotImplementedError(f"moving a strided shard: {t.placements} -> {target} for {tuple(t.shape)}")
@@ -511,42 +601,61 @@ class FixedPlacements(TorchDispatchMode):
 
     def _product(self, func, a, b):
         a, b = self._dtensor(a), self._dtensor(b)
-        ta, tb, to = product_placements(func, a.placements, b.placements)
-        if _moves_a_strided_dim(a.placements, ta) or _moves_a_strided_dim(b.placements, tb):
-            a = self._redistribute(a, _gathered_strided(a.placements))
-            b = self._redistribute(b, _gathered_strided(b.placements))
-            ta, tb, to = product_placements(func, a.placements, b.placements)
-        a = self._redistribute(a, ta)
-        b = self._redistribute(b, tb)
-        shape = torch.Size((*a.shape[:-1], b.shape[-1]))
-        out = DTensor.from_local(func(a.to_local(), b.to_local()), self.mesh, to, run_check=False, shape=shape,
-                                 stride=_contiguous_stride(shape))
-        if any(isinstance(p, Partial) for p in to):
-            out = self._redistribute(out, [Replicate() if isinstance(p, Partial) else p for p in to])
-        return out
+
+        def make():
+            pa, pb = a.placements, b.placements
+            pre = None
+            ta, tb, to = product_placements(func, pa, pb)
+            if _moves_a_strided_dim(pa, ta) or _moves_a_strided_dim(pb, tb):
+                pre = _gathered_strided(pa), _gathered_strided(pb)
+                ta, tb, to = product_placements(func, *pre)
+            shape = torch.Size((*a.shape[:-1], b.shape[-1]))
+            return pre, ta, tb, to, shape, _contiguous_stride(shape)
+
+        pre, ta, tb, to, shape, stride = self._plan((func, _signature(a), _signature(b)), make)
+        if pre is not None:
+            a, b = self._redistribute(a, pre[0]), self._redistribute(b, pre[1])
+        a, b = self._redistribute(a, ta), self._redistribute(b, tb)
+        out = self._wrap(func(a.to_local(), b.to_local()), to, shape, stride)
+        return self._redistribute(out, _reduced(to))
 
     def _pointwise(self, func, args, kwargs) -> DTensor | None:
         """The operation on each rank's blocks, its operands' partial sums
-        reduced first, or None where the rule does not place it."""
+        reduced first, or None where the rule does not place it. On meta
+        tensors (the dry run) a result is its shape and strides alone, which
+        the local operands' decide: each is computed once a plan."""
+        args, kwargs = tuple(map(_operand, args)), {k: _operand(v) for k, v in kwargs.items()}
         tensors = [t for t in (*args, *kwargs.values()) if isinstance(t, torch.Tensor)]
-        placed = {}
-        for t in tensors:
-            d = self._dtensor(t)
-            placed[id(t)] = self._redistribute(d, [Replicate() if isinstance(p, Partial) else p for p in d.placements])
-        shapes = [tuple(t.shape) for t in tensors]
-        out = pointwise_placements(shapes, [placed[id(t)].placements for t in tensors])
-        if out is None:
-            return None
-        n = len(torch.broadcast_shapes(*shapes))
-        wants = {id(t): _operand_placements(s, out, n) for t, s in zip(tensors, shapes)}
-        if any(_moves_a_strided_dim(placed[id(t)].placements, wants[id(t)]) for t in tensors):
-            return None
-        local = {id(t): self._redistribute(placed[id(t)], wants[id(t)]).to_local() for t in tensors}
-        meta = {id(t): torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta") for t in tensors}
 
         def call(swap):
             return func(*(swap[id(x)] if isinstance(x, torch.Tensor) else x for x in args),
                         **{k: swap[id(v)] if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()})
 
-        like = call(meta)  # the output's global shape and strides
-        return DTensor.from_local(call(local), self.mesh, out, run_check=False, shape=like.shape, stride=like.stride())
+        def make():
+            reduced = [_reduced(getattr(t, "placements", self.replicated)) for t in tensors]
+            shapes = [tuple(t.shape) for t in tensors]
+            out = pointwise_placements(shapes, reduced)
+            if out is None:
+                return None
+            n = len(torch.broadcast_shapes(*shapes))
+            wants = [_operand_placements(s, out, n) for s in shapes]
+            if any(_moves_a_strided_dim(r, w) for r, w in zip(reduced, wants)):
+                return None
+            like = call({id(t): _like(t) for t in tensors})  # the output's global shape, strides and dtype
+            return reduced, wants, out, like, {}
+
+        plan = self._plan((func, _signature(args), _signature(tuple(kwargs.items()))), make)
+        if plan is None:
+            return None
+        reduced, wants, out, like, on_meta = plan
+        local = {id(t): self._redistribute(self._redistribute(self._dtensor(t), r), w).to_local()
+                 for t, r, w in zip(tensors, reduced, wants)}
+        key = tuple((tuple(x.shape), x.stride()) for x in local.values()) if all(
+            x.is_meta for x in local.values()) else None
+        if key in on_meta:
+            result = torch.empty_strided(*on_meta[key], dtype=like.dtype, device="meta")
+        else:
+            result = call(local)
+            if key is not None:
+                on_meta[key] = result.shape, result.stride()
+        return self._wrap(result, out, like.shape, like.stride())

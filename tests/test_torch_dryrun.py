@@ -4,7 +4,7 @@
 * ``analyze_step``: a chain of products counts 2·M·N·K FLOPs each; an
   all-gather of a known shard on a fake 4-rank mesh counts its operand
   bytes, whether it is called, made by DTensor inside an operation, or
-  made by the fixed placements of a 3-axis mesh. ``roofline_terms``: the
+  made by the fixed placements of ``mesh_scope``. ``roofline_terms``: the
   reference's dominance leg at the H100's rates.
 * ``run_cell`` at full size, qwen2-0.5b ``train_4k`` and ``decode_32k`` on
   a fake 16 x 16 mesh: OK, each rank's argument bytes equal, byte for
@@ -20,6 +20,12 @@
   1), placed without a trace: argument bytes held the same way.
   ``tests/test_torch_dryrun_cells.py`` traces every such cell on a fake
   (2, 2) mesh, ``tests/test_torch_dryrun_multi.py`` on the (2, 2, 2) one.
+* ``mesh_scope``'s fixed placements on a 2-D mesh: reduced qwen2-0.5b's
+  cells on a fake (2, 2) mesh hand DTensor no operation with a
+  ``_StridedShard`` operand or output (torch 2.11's DTensor cannot make
+  one: it refuses to flatten sharded heads), and a cell traced a second
+  time from the rule's plans (``PLANS``) places every output and counts
+  every collective as the first trace did.
 """
 
 import math
@@ -28,12 +34,16 @@ import pytest
 import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro.configs import get_config as jax_get_config
 from repro_torch.configs import SHAPES, all_arch_ids, cells_for, get_config
 from repro_torch.launch.dryrun import main, run_cell
 from repro_torch.launch.mesh import fake_process_group, make_production_mesh, mesh_scope
 from repro_torch.launch.step_analysis import HW, analyze_step, roofline_terms
+from repro_torch.sharding.fixed_placements import PLANS, FixedPlacements
 from torch_dryrun_cases import assert_bytes, assert_traced_cell, cut
 
 
@@ -188,3 +198,79 @@ def test_cli_writes_only_to_out(tmp_path, capsys):
     assert [row[3] for row in summary] == ["OK"]
     assert [p.name for p in tmp_path.iterdir()] == ["qwen2-0.5b__decode_32k__single.json"]
     assert "dry-run summary" in capsys.readouterr().out
+
+
+# -- the fixed placements on a 2-D mesh ----------------------------------------------
+
+
+class _Torch211Lacks(TorchDispatchMode):
+    """Entered before a cell's trace, so below ``mesh_scope``'s fixed
+    placements: records each operation that reaches DTensor's own planner
+    with a ``_StridedShard`` in an operand or in its output (``strided``),
+    and each ``detach_`` of a DTensor (``detach_``), which torch 2.11's
+    DTensor has no rule for (an autograd function's output that requires
+    grad, made where grad mode is off)."""
+
+    def __init__(self):
+        super().__init__()
+        self.strided, self.detach_ = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        placed = [t for t in tree_leaves((args, kwargs or {}, out)) if isinstance(t, DTensor)]
+        if any(isinstance(p, _StridedShard) for t in placed for p in t.placements):
+            self.strided.append((str(func), [(tuple(t.shape), tuple(map(str, t.placements))) for t in placed]))
+        if func is torch.ops.aten.detach_.default and placed:
+            self.detach_.append(tuple(map(str, placed[0].placements)))
+        return out
+
+
+def test_no_strided_shard_reaches_dtensor_on_a_2x2_mesh():
+    """Reduced qwen2-0.5b's three cells on a fake (2, 2) mesh: no operation
+    that DTensor plans holds a ``_StridedShard``. DTensor's own view rule
+    makes one where the attention products merge heads sharded on "model"
+    with the batch, and torch 2.11's cannot (the sandbox's stand-in for that
+    failure, which torch 2.13 does not show); the fixed placements keep
+    strided shards between a view and the product it feeds. Nor does a
+    DTensor meet a ``detach_``, which torch 2.11's DTensor lacks."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    probe = _Torch211Lacks()
+    with fake_process_group(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        for shape in map(cut, cells_for(cfg)):
+            with probe:
+                run_cell(cfg, shape, mesh, verbose=False)
+    assert probe.strided == [], probe.strided[:5]
+    assert probe.detach_ == [], probe.detach_[:5]
+
+
+def test_a_planned_signature_places_as_a_new_one(monkeypatch):
+    """Reduced qwen2-0.5b ``train_4k`` traced twice on a fake (2, 2) mesh
+    in one process, first with no plan made, then from the plans the first
+    trace made (``PLANS``, none made anew): every operation the rule
+    places gives the same output shapes and placements, in the same order,
+    and the step the same collective bytes and counts by kind."""
+    placed = []
+    inner = FixedPlacements.__torch_dispatch__
+
+    def recorded(mode, func, types, args=(), kwargs=None):
+        out = inner(mode, func, types, args, kwargs)
+        placed.append((str(func), [(tuple(t.shape), tuple(t.placements)) for t in tree_leaves(out)
+                                   if isinstance(t, DTensor)]))
+        return out
+
+    monkeypatch.setattr(FixedPlacements, "__torch_dispatch__", recorded)
+    cfg, shape = get_config("qwen2-0.5b").reduced(), cut(SHAPES["train_4k"])
+    PLANS.clear()
+    runs = []
+    with fake_process_group(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        for _ in range(2):
+            placed.clear()
+            made = len(PLANS)
+            res = run_cell(cfg, shape, mesh, verbose=False)
+            runs.append((list(placed), res["collectives"], len(PLANS) - made))
+    (first, coll_first, made_first), (second, coll_second, made_second) = runs
+    assert made_first > 100 and made_second == 0
+    assert len(first) > 1000 and first == second
+    assert coll_first == coll_second and coll_first["bytes_total"] > 0

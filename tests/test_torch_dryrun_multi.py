@@ -14,7 +14,7 @@ reference lowers every cell on its (2, 16, 16) mesh:
   a moe layer's token groups (one a batch shard: 4 here, 2 there) could,
   where its capacity is clamped, and at these sizes do not.
 
-On this mesh ``mesh_scope`` places products, views and pointwise ops by
+As on every mesh, ``mesh_scope`` places products, views and pointwise ops by
 ``repro_torch.sharding.fixed_placements``. Each cell's sequence is cut to 32 and
 its batch to 8 (``long_500k`` keeps its batch of 1). The fake process group
 lives for the module, so the cells share DTensor's plans of each operation
@@ -27,13 +27,9 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from repro.configs import get_config as jax_get_config
 from repro_torch.configs import all_arch_ids, cells_for, get_config
-from repro_torch.launch.dryrun import _microbatches, cell_step, run_cell
-from repro_torch.launch.inputs import cache_specs, input_specs
+from repro_torch.launch.dryrun import _microbatches, run_cell
 from repro_torch.launch.mesh import fake_process_group
-from repro_torch.launch.step_analysis import analyze_step
-from repro_torch.models.zoo import DistContext, build_model
-from repro_torch.train import adamw_init
-from torch_dryrun_cases import assert_traced_cell, cut
+from torch_dryrun_cases import assert_traced_cell, cut, one_device_flops
 
 AXES, SIZES = ("pod", "data", "model"), {"pod": 2, "data": 2, "model": 2}
 GROUPS_2X2 = 2  # the (2, 2) mesh's batch shards
@@ -46,19 +42,6 @@ def mesh():
     with fake_process_group(8):
         yield init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=AXES)
     torch.set_num_threads(before)
-
-
-def one_device_flops(cfg, shape, groups: int, microbatches: int) -> float:
-    """The cell's step on one device: plain meta tensors, no mesh, with
-    ``groups`` token groups, ``microbatches`` and the dry run's remat."""
-    model = build_model(cfg, DistContext(n_token_groups=groups, remat=True), device="meta", dtype=torch.bfloat16)
-    args = {"batch": input_specs(cfg, shape)}
-    if shape.kind == "train":
-        args["opt_state"] = adamw_init(model)
-    if shape.kind == "decode":
-        args["cache"] = cache_specs(model, shape)
-    step, step_args = cell_step(model, shape, args, microbatches)
-    return analyze_step(step, *step_args)[1].flops
 
 
 @pytest.mark.parametrize("arch", all_arch_ids())

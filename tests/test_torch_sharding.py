@@ -300,7 +300,7 @@ def test_active_context_on_a_2x2_mesh_matches_the_inactive_model(tmp_path):
 def test_active_context_on_a_3d_mesh_matches_the_inactive_model(tmp_path, shape, archs):
     """The same on ("pod", "data", "model") meshes, where ``mesh_scope``
     places products, views and pointwise operations by
-    ``repro_torch.sharding.fixed_placements``: (2, 2, 1)
+    ``repro_torch.sharding.fixed_placements`` as on every mesh: (2, 2, 1)
     shards the batch over "pod" and "data" at once; on (2, 1, 2) the heads
     (and, in the linear layers, the sequence) on "model" merge with the
     batch into strided shards, granite-20b's one kv head is cut from a
@@ -341,6 +341,41 @@ def test_fixed_placements_on_a_2x2x2_mesh_match_the_whole_tensors(tmp_path):
     cases = {name: (operands, steps) for name, (operands, steps, _) in FIXED_PLACEMENT_CASES.items()}
     found = run_ranks(fixed_placements_rank, 8, tmp_path, cases)
     for name, (_, _, placements) in FIXED_PLACEMENT_CASES.items():
+        f = found[name]
+        assert f["placements"] == placements, (name, f)
+        assert f["err"] <= 1e-12 * f["scale"], (name, f)
+
+
+# the same on a ("data", "model") mesh, which torch 2.11's DTensor could not
+# trace alone: it cannot flatten heads sharded on "model" into a batch, nor
+# pad a tensor sharded on the batch
+FIXED_PLACEMENT_CASES_2X2 = {
+    "bmm: heads on model merged with a batch on data (strided), split back": (
+        ([(4, 4, 3, 6), "S0,S1"], [(4, 4, 6, 5), "S0,S1"]),
+        [("view", (16, 3, 6)), ("@", 1, (16, 6, 5)), ("view", (4, 4, 3, 5))], ["S(0)", "S(1)"]),
+    "bmm: a strided batch against a replicated operand, cut in its unmerged view": (
+        ([(4, 4, 3, 6), "S0,S1"], [(16, 6, 5), "R,R"]),
+        [("view", (16, 3, 6)), ("@", 1, None), ("view", (4, 4, 3, 5))], ["S(0)", "S(1)"]),
+    "mm: a row-parallel product, its partial sum on model reduced": (
+        ([(8, 8), "S0,S1"], [(8, 4), "R,S0"]), [("@", 1, None)], ["S(0)", "R"]),
+    "view: a split the shard cannot follow (6 on 2 as (3, 2)) gathers it first": (
+        ([(4, 6, 5), "S0,S1"],), [("view", (4, 3, 2, 5))], ["S(0)", "R"]),
+    "pad: the front of an unsplit sequence (mamba2's conv) stays local": (
+        ([(4, 8, 6), "S0,S2"],), [("pad", (0, 0, 3, 0))], ["S(0)", "S(2)"]),
+    "pad: a sequence split on model is gathered first": (
+        ([(4, 8, 6), "S0,S1"],), [("pad", (0, 0, 3, 0))], ["S(0)", "R"]),
+}
+
+
+def test_fixed_placements_on_a_2x2_mesh_match_the_whole_tensors(tmp_path):
+    """``repro_torch.sharding.fixed_placements`` on 4 gloo ranks of a (2,
+    2) mesh, in f64: strided batches from heads on "model", a row-parallel
+    product's partial sum, a view whose shard must be gathered first and
+    constant pads give the placements the rule names and, gathered, the
+    whole tensors' results within 1e-12 of their largest value."""
+    cases = {name: (operands, steps) for name, (operands, steps, _) in FIXED_PLACEMENT_CASES_2X2.items()}
+    found = run_ranks(fixed_placements_rank, 4, tmp_path, cases, (2, 2))
+    for name, (_, _, placements) in FIXED_PLACEMENT_CASES_2X2.items():
         f = found[name]
         assert f["placements"] == placements, (name, f)
         assert f["err"] <= 1e-12 * f["scale"], (name, f)

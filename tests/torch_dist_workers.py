@@ -115,15 +115,18 @@ def _placed(spec: str):
     return [Replicate() if p == "R" else Shard(int(p[1:])) for p in spec.split(",")]
 
 
-def fixed_placements_rank(rank: int, world: int, out_dir: str, cases: dict) -> None:
-    """Each case on a (2, 2, 2) ("pod", "data", "model") mesh inside
-    ``mesh_scope`` (the fixed placements of
+def fixed_placements_rank(rank: int, world: int, out_dir: str, cases: dict,
+                          mesh_shape: tuple = (2, 2, 2)) -> None:
+    """Each case on a ``mesh_shape`` mesh, ("pod", "data", "model") or, with two
+    axes, ("data", "model"), inside ``mesh_scope`` (the fixed placements of
     ``repro_torch.sharding.fixed_placements``), in f64: its operands, made
     from a seed, placed by their spec strings (one entry a mesh axis), then
-    a chain of steps, each ``("view", shape)`` or ``("@", i, shape)``, a
-    product with operand ``i`` (viewed as ``shape`` first where it is not
-    None). Rank 0 saves, a case, the result's placements and its largest
-    difference from the same steps on the whole tensors."""
+    a chain of steps, each ``("view", shape)``, ``("pad", pad)`` (a
+    constant pad) or ``("@", i, shape)``, a product with operand ``i``
+    (viewed as ``shape`` first where it is not None). Rank 0 saves, a case,
+    the result's placements and its largest difference from the same steps
+    on the whole tensors."""
+    import torch.nn.functional as F
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import distribute_tensor
 
@@ -131,7 +134,7 @@ def fixed_placements_rank(rank: int, world: int, out_dir: str, cases: dict) -> N
 
     _init(rank, world, out_dir)
     try:
-        mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("pod", "data", "model")[-len(mesh_shape):])
         g = torch.Generator().manual_seed(0)
         found = {}
         for name, (operands, steps) in cases.items():
@@ -142,6 +145,9 @@ def fixed_placements_rank(rank: int, world: int, out_dir: str, cases: dict) -> N
                 for op, *arg in steps:
                     if op == "view":
                         want, got = want.view(arg[0]), got.view(arg[0])
+                        continue
+                    if op == "pad":
+                        want, got = F.pad(want, arg[0]), F.pad(got, arg[0])
                         continue
                     i, shape = arg
                     w, p = (whole[i], placed[i]) if shape is None else (whole[i].view(shape), placed[i].view(shape))

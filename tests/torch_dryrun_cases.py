@@ -1,13 +1,15 @@
 """The reference's side of the port's dry-run tests: each rank's argument
 bytes of a cell under the JAX package's specs applied to its
 ``jax.eval_shape`` trees (each leaf's shape divided by its axes' sizes,
-times its itemsize), its analytic model, and the cells cut for the CPU."""
+times its itemsize), its analytic model, and the cells cut for the CPU;
+and the FLOPs of a cell's step on one device."""
 
 from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 from jax.sharding import PartitionSpec as P
 
 from repro.launch import perf_model as jperf
@@ -15,8 +17,13 @@ from repro.launch.inputs import input_specs as jax_input_specs
 from repro.models import zoo as jzoo
 from repro.sharding import specs as jspecs
 from repro.train.optimizer import adamw_init as jadamw_init
+from repro_torch.launch.dryrun import cell_step
+from repro_torch.launch.inputs import cache_specs, input_specs
+from repro_torch.launch.step_analysis import analyze_step
+from repro_torch.models.zoo import DistContext, build_model
+from repro_torch.train import adamw_init
 
-__all__ = ["assert_bytes", "assert_traced_cell", "cut"]
+__all__ = ["assert_bytes", "assert_traced_cell", "cut", "one_device_flops"]
 
 
 def _spec_bytes(spec_tree, sds_tree, sizes: dict) -> int:
@@ -72,3 +79,16 @@ def assert_traced_cell(res: dict, jcfg, shape, axes, sizes) -> None:
     """``assert_bytes``, and a trace that counted FLOPs and roofline terms."""
     assert_bytes(res, jcfg, shape, axes, sizes)
     assert res["flops"]["counted_cluster"] > 0 and set(res["roofline"]) >= {"compute_s", "memory_s", "dominant"}
+
+
+def one_device_flops(cfg, shape, groups: int, microbatches: int) -> float:
+    """The cell's step on one device: plain meta tensors, no mesh, with
+    ``groups`` token groups, ``microbatches`` and the dry run's remat."""
+    model = build_model(cfg, DistContext(n_token_groups=groups, remat=True), device="meta", dtype=torch.bfloat16)
+    args = {"batch": input_specs(cfg, shape)}
+    if shape.kind == "train":
+        args["opt_state"] = adamw_init(model)
+    if shape.kind == "decode":
+        args["cache"] = cache_specs(model, shape)
+    step, step_args = cell_step(model, shape, args, microbatches)
+    return analyze_step(step, *step_args)[1].flops

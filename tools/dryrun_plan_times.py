@@ -14,16 +14,21 @@ status (``FAIL:`` and the exception where the trace raised), seconds,
 signatures planned, planning seconds, counted FLOPs, collective bytes by
 kind and argument bytes by kind.
 
-``--dtensor-only`` leaves every operation to DTensor, as before the fixed
-placements of a 3-axis mesh (``repro_torch.sharding.fixed_placements``).
+``--dtensor-only`` leaves every operation to DTensor: ``mesh_scope`` then
+holds no fixed placements (``repro_torch.sharding.fixed_placements``), which
+it holds on every mesh otherwise.
 ``--full`` traces the cells at full size; ``--attribute`` adds each counted
 collective's bytes by kind and by the model line that issued it (the
 forward line of a backward collective, from autograd's anomaly mode).
+``--why`` writes into a failing cell's line the operation that raised, its
+operands' shapes and placements and the model line that issued it (the
+innermost DTensor or fixed-placement operation that raised; a backward
+one's forward line, from anomaly mode).
 
 Usage:
   PYTHONPATH=src python tools/dryrun_plan_times.py --mesh 2,2,2 --arch qwen2-0.5b [--shape train_4k] \\
       [--cap 20] [--dtensor-only]
-  PYTHONPATH=src python tools/dryrun_plan_times.py --mesh 2,2 --all --threshold 1e9 --json cells.json
+  PYTHONPATH=src python tools/dryrun_plan_times.py --mesh 2,2 --all --threshold 1e9 --json cells.json [--why]
   PYTHONPATH=src python tools/dryrun_plan_times.py --mesh 16,16 --full --arch qwen2-0.5b --shape train_4k \\
       --threshold 1e9 --attribute
 """
@@ -31,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 import traceback
@@ -40,8 +46,9 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.placement_types import _StridedShard
+from torch.utils._python_dispatch import TorchDispatchMode
 
-import repro_torch.launch.mesh as mesh_module
+import repro_torch.sharding.fixed_placements as fixed_placements
 from repro_torch.configs import all_arch_ids, cells_for, get_config
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import fake_process_group
@@ -107,6 +114,62 @@ def _model_line() -> str:
     return "?"
 
 
+def _where() -> tuple[str, str]:
+    """("forward" or "backward", the model line that issued the running
+    operation); a backward line needs autograd's anomaly mode."""
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return "forward", _model_line()
+    tb = node.metadata.get("traceback_")
+    lines = "".join(tb if isinstance(tb, list) else [tb or ""]).splitlines()
+    mine = [(line.strip(), lines[i + 1].strip() if i + 1 < len(lines) else "") for i, line in enumerate(lines)
+            if ("repro_torch/models" in line or "repro_torch/train" in line) and "in wsc" not in line]
+    return "backward", (f"{mine[-1][0].split('src/')[-1]}: {mine[-1][1][:60]}" if mine else node.name())
+
+
+def _operands(args) -> list[str]:
+    from torch.utils._pytree import tree_leaves
+
+    return [f"{tuple(t.shape)}{[str(p) for p in t.placements]}" if isinstance(t, DTensor) else f"{tuple(t.shape)}plain"
+            for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+
+
+class FailureNotes(TorchDispatchMode):
+    """Entered before a cell's trace (so below ``mesh_scope``'s fixed
+    placements, above DTensor): on the first (innermost) operation that
+    raises, in DTensor or in the rule, records the operation, its operands
+    and the model line."""
+
+    def __init__(self):
+        from repro_torch.sharding.fixed_placements import FixedPlacements
+
+        super().__init__()
+        self.last: dict | None = None
+        rule, notes = FixedPlacements.__torch_dispatch__, self
+
+        def by_rule(mode, func, types, args=(), kwargs=None):
+            with notes._noting("rule", func, args, kwargs):
+                return rule(mode, func, types, args, kwargs)
+
+        FixedPlacements.__torch_dispatch__ = by_rule
+        torch.autograd.set_detect_anomaly(True, check_nan=False)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        with self._noting("dtensor", func, args, kwargs):
+            return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def _noting(self, who: str, func, args, kwargs):
+        try:
+            yield
+        except Exception as e:
+            if not getattr(e, "_noted", False):
+                e._noted = True
+                self.last = {"op": str(func), "by": who, "operands": _operands((args, kwargs or {})),
+                             "line": " ".join(_where()), "error": str(e).splitlines()[0][:200]}
+            raise
+
+
 class Attribution:
     """Counted collective bytes by (kind, pass, model line), hooked on
     ``step_analysis``'s collective counter."""
@@ -126,24 +189,13 @@ class Attribution:
             out = inner(mode, func, types, args, kwargs)
             for kind, n in mode.stats.collective_bytes.items():
                 if n != before.get(kind, 0.0):
-                    key = (kind, *attribution._where())
+                    key = (kind, *_where())
                     attribution.bytes[key] += n - before.get(kind, 0.0)
                     attribution.count[key] += 1
             return out
 
         counter.__torch_dispatch__ = hooked
         torch.autograd.set_detect_anomaly(True, check_nan=False)
-
-    @staticmethod
-    def _where() -> tuple[str, str]:
-        node = torch._C._current_autograd_node()
-        if node is None:
-            return "forward", _model_line()
-        tb = node.metadata.get("traceback_")
-        lines = "".join(tb if isinstance(tb, list) else [tb or ""]).splitlines()
-        mine = [(line.strip(), lines[i + 1].strip() if i + 1 < len(lines) else "") for i, line in enumerate(lines)
-                if ("repro_torch/models" in line or "repro_torch/train" in line) and "in wsc" not in line]
-        return "backward", (f"{mine[-1][0].split('src/')[-1]}: {mine[-1][1][:60]}" if mine else node.name())
 
     def report(self) -> list[dict]:
         rows = [{"kind": k[0], "pass": k[1], "line": k[2], "gb": round(v / 1e9, 3), "calls": self.count[k]}
@@ -163,13 +215,15 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--cap", type=float, default=None, help="stop costing a signature's candidates after S s")
     ap.add_argument("--json", default=None, help="write every cell's line into this file")
     ap.add_argument("--dtensor-only", action="store_true",
-                    help="leave every operation to DTensor's planner (no fixed placements on a 3-axis mesh)")
+                    help="leave every operation to DTensor's planner (no fixed placements)")
     ap.add_argument("--full", action="store_true", help="the cells at full size (no cut)")
     ap.add_argument("--attribute", action="store_true", help="collective bytes by kind and model line")
+    ap.add_argument("--why", action="store_true", help="a failing cell's operation, operands and model line")
     args = ap.parse_args(argv)
     attribution = Attribution() if args.attribute else None
+    notes = FailureNotes() if args.why else None
     if args.dtensor_only:
-        mesh_module.FIXED_PLACEMENTS_FROM_AXES = 1 << 30
+        fixed_placements.FixedPlacements = lambda mesh: contextlib.nullcontext()
 
     torch.set_num_threads(1)
     shape = tuple(int(n) for n in args.mesh.split(","))
@@ -190,11 +244,14 @@ def main(argv: list[str] | None = None) -> dict:
                 timer.records.clear()
                 t0 = time.perf_counter()
                 try:
-                    res = run_cell(cfg, cell, mesh, verbose=False)
+                    with notes if notes is not None else contextlib.nullcontext():
+                        res = run_cell(cfg, cell, mesh, verbose=False)
                 except Exception as e:  # noqa: BLE001 — report, keep going
                     traceback.print_exc()
                     line = {"arch": arch, "shape": cell.shape_id, "s": round(time.perf_counter() - t0, 2),
                             "status": f"FAIL:{type(e).__name__}: {str(e).splitlines()[0][:160]}"}
+                    if notes is not None:
+                        line["raised"], notes.last = notes.last, None
                     cells[f"{arch}/{cell.shape_id}"] = line
                     print(json.dumps(line), flush=True)
                     continue

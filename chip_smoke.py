@@ -123,6 +123,23 @@ finding per line:
    from its first flipped route on (at most ``LM_ROUTE_FLIPS_MAX``). The
    phase sets its own numerics and passes alone (``--only lm-families``)
    as after the others; it prints an ``lm_families`` JSON line.
+3c. ``[lm-archs]``: the five archs no other phase serves, olmo-1b, yi-9b,
+   granite-20b, mixtral-8x7b and qwen2-vl-72b, at full width through 3b's
+   code (``serve_arch``) at the depths and decode batch of ``LM_ARCHS``,
+   printed on each arch's first line: (a) f32 decode against the f32
+   prefill (no f64 prefill: its weights would not fit), (b, c) the witness
+   (qwen2-vl with M-RoPE positions of three streams and frontend embeds),
+   (d) bf16 prefill at S = 8192 (one timed call where a call takes over
+   2 s) and decode against 32,768 slots. mixtral also serves one request of
+   4,096 + 96 tokens at its witness depth, whose ring of 4,096 slots wraps
+   inside the check. Then the ``long_500k`` cells (``LM_LONG``): mixtral
+   (its window cache, bf16 depth of ``LM_ARCHS``), rwkv6 (state only) and
+   zamba2 (all 524,288 slots at full depth) decode in bf16 at B = 1 from
+   ``pos`` 524,288, timed against ``perf_model``'s ``long_500k`` bound,
+   with peak memory and one step under sync debug mode ``error`` whose
+   logits must be finite; and each arch's f32 step against its f64 step
+   from one seeded cache at a cut depth (``LM_LONG_F32_VS_F64``). It
+   passes alone (``--only lm-archs``) and prints an ``lm_archs`` JSON line.
 4. ``[lm-train]``, the LM training path (``adamw_init``,
    ``make_train_step``, ``save_train_state`` / ``load_train_state``,
    ``SyntheticTokenPipeline``): (a) the gradient witness at each phase 3 /
@@ -194,11 +211,11 @@ finding per line:
    cards ``device_sharded`` runs again with its ranks spread over them;
    ``restack`` and ``fused_sharded`` with 24 tracers a block under the lid
    agree on every tracer's position within 1e-10.
-8. the card line, the ``lm_serve``, ``lm_families``, ``lm_train``,
+8. the card line, the ``lm_serve``, ``lm_families``, ``lm_archs``, ``lm_train``,
    ``lm_dist`` and ``kernels`` JSON lines, the script's wall time and the
    final ``ok`` line.
 
-``python3 chip_smoke.py --only lm,lm-families,lm-train,lm-dist`` runs just the
+``python3 chip_smoke.py --only lm,lm-families,lm-archs,lm-train,lm-dist`` runs just the
 named LM phases, in that order, and ends with their JSON lines and the
 ``ok`` line. The serving phases build no autograd graph.
 ``python3 chip_smoke.py --only cavity`` runs phases 1, 2 to 2c and 6 and
@@ -281,9 +298,11 @@ F64_REL = 1e-9
 LM_CPU_THREADS = min(8, os.cpu_count() or 1)
 # the card's f32 against the card's f64, same weights, the witness's depth:
 # each bound is 4x or more the largest error measured on an H100 (PERF.md,
-# section 6, PR 19)
+# section 6, PR 19; phase 3c's five: 1.339e-05, 1.738e-05, 1.794e-05,
+# 2.391e-05 and 2.775e-05 on an H100 80GB HBM3 at 700 W, PR 27)
 LM_F32_VS_F64 = {"qwen2-0.5b": 3e-5, "granite-moe-1b-a400m": 5e-5, "rwkv6-3b": 1.5e-4, "zamba2-2.7b": 4e-4,
-                 "whisper-small": 4e-5}
+                 "whisper-small": 4e-5, "olmo-1b": 6e-5, "yi-9b": 7e-5, "granite-20b": 8e-5, "mixtral-8x7b": 1e-4,
+                 "qwen2-vl-72b": 1.2e-4}
 # phase 3b: the moe, ssm, hybrid and audio families at full width from one
 # seed. ``cut``: the witness's depth (whisper cuts its encoder alike);
 # decode batch and cache length (rwkv6 carries state only; whisper's cache
@@ -307,6 +326,46 @@ LM_DECODE_VS_F64 = {"rwkv6-3b": 3e-3}
 # near-tie: the request is compared only up to the first such token, and at
 # most this many tokens a family may flip over checks a to c
 LM_ROUTE_FLIPS_MAX = 4
+# phase 3b and 3c's prefill timing: 3 calls after a warmup, or one call
+# (the first its warmup) where the first call took longer than this
+LM_PREFILL_ONE_CALL_S = 2.0
+# phase 3c: the five archs no other phase serves, at full width from one
+# seed. ``layers``: the f32 leg's depth (f32 weights under 56 GB; yi-9b
+# and granite-20b cut to half of what fits, 24 and 13, for the phase's
+# 240 s budget: the leg is launch-bound at about 1.5 ms a layer a step);
+# ``bf16_layers``: the bf16 legs' depth and ``decode_B`` their decode
+# batch against ``decode_T`` slots (bf16 weights plus cache under 64 GB;
+# tests/test_torch_lm_plan.py holds both on the meta device); ``cut``: the
+# witness's depth (its f64 weights on the host 1.9-27.0 GB of the card
+# machine's 101 GiB; mixtral-8x7b and qwen2-vl-72b at 1 layer for the
+# budget: their witness took 20.7 and 27.0 s at 2); no f64 prefill at the f32
+# leg's depth, whose f64 weights would not fit beside the f32 model's
+LM_ARCHS = {
+    "olmo-1b": dict(layers=16, bf16_layers=16, cut=2, decode_B=8, decode_T=32768, prefill_S=8192, f64_prefill=False),
+    "yi-9b": dict(layers=24, bf16_layers=48, cut=2, decode_B=8, decode_T=32768, prefill_S=8192, f64_prefill=False),
+    "granite-20b": dict(layers=13, bf16_layers=52, cut=2, decode_B=16, decode_T=32768, prefill_S=8192,
+                        f64_prefill=False),
+    "mixtral-8x7b": dict(layers=8, bf16_layers=16, cut=1, decode_B=32, decode_T=32768, prefill_S=8192,
+                         f64_prefill=False),
+    "qwen2-vl-72b": dict(layers=12, bf16_layers=24, cut=1, decode_B=4, decode_T=32768, prefill_S=8192,
+                         f64_prefill=False),
+}
+# the sliding-window arch's request longer than its window: window + this
+LM_WRAP_EXTRA = 96
+# phase 3c's long_500k cells: a bf16 decode at B = 1 with pos at 524,288
+# at ``layers`` (full depth where None), then the f32 step against the f64
+# step from one seeded cache at ``cut`` (zamba2: one shared-attention site
+# over all 524,288 slots)
+LM_LONG = {
+    "mixtral-8x7b": dict(layers=LM_ARCHS["mixtral-8x7b"]["bf16_layers"], cut=2),
+    "rwkv6-3b": dict(layers=None, cut=2),
+    "zamba2-2.7b": dict(layers=None, cut=6),
+}
+LM_LONG_DECODE = dict(steps=8, warmup=2)
+# the long cells' f32 step against their f64 step: 4x or more the largest
+# error measured on an H100 80GB HBM3 at 700 W (4.463e-06, 2.968e-06 and
+# 7.773e-06; PERF.md, section 6, PR 27)
+LM_LONG_F32_VS_F64 = {"mixtral-8x7b": 2e-5, "rwkv6-3b": 1.2e-5, "zamba2-2.7b": 4e-5}
 # phase 4: the LM training path. The gradient witness runs at phase 3's
 # depth for qwen2-0.5b and phase 3b's for the others, over 2 x 160 tokens
 # (across rwkv6's 64-token and mamba2's 128-token scan chunks)
@@ -880,7 +939,8 @@ def witness_checks(cfg, batch: dict, seed: int, tag: str) -> dict:
     state = card32.state_dict()
     card64 = build_model(cfg, device=dev, dtype=torch.float64)
     card64.load_state_dict(state)
-    cpu64 = build_model(cfg, device="cpu", dtype=torch.float64)
+    # allocated without zeroing: every parameter is written once, by the load
+    cpu64 = build_model(cfg, device="meta", dtype=torch.float64).to_empty(device="cpu")
     cpu64.load_state_dict(state)
     del state
     B, S = batch["tokens"].shape
@@ -927,31 +987,62 @@ def witness_checks(cfg, batch: dict, seed: int, tag: str) -> dict:
     return res
 
 
+def soft_check(failures: list, tag: str, cond: bool, what: str) -> None:
+    """A check of a phase that runs every arch to its end: a failure is
+    printed and kept, and the phase fails after its last arch."""
+    if not cond:
+        failures.append(what)
+        say(f"{tag} FAILED: {what}")
+
+
 @torch.no_grad()
 def lm_families_phase() -> dict:
-    """Phase 3b: the moe, ssm, hybrid and audio families at full width
-    (``LM_FAMILIES``), weights from ``torch.Generator("cuda")`` seeded
-    ``LM_FAMILY_SEED``, through ``build_model``, ``Model.logits``,
-    ``Model.decode`` and ``make_serve_step``. Per family:
-    (a) f32 on the card, full depth: ``LM_FAMILY_REQUESTS`` served one token
-    at a time through ``serve_step`` from ``pos = 0``, then a second pass
-    of ``Model.decode`` over the same tokens; its logits at every step
-    against ``Model.logits`` in f32 (``LM_CONSISTENCY``) or, for the
-    families of ``LM_DECODE_VS_F64``, against ``Model.logits`` of the same
-    weights in f64 on the card; served tokens equal the teacher-forced
-    argmax except at counted near-ties (top-2 gap under the bound).
-    (b, c) ``witness_checks`` at the family's cut depth over 2 x 160 tokens.
-    (d) bf16 prefill at B = 1 and decode at the family's batch against a
-    full cache (whisper: its 448 positions; rwkv6: state only), timed
-    against the ``repro_torch.launch.perf_model`` bounds, peak memory, a
-    profile of 2 decode steps and one step under sync debug mode ``error``.
-    moe runs a, b and c at capacity factor ``n_experts / top_k``, where no
-    token drops (a prefill of 640 tokens drops at the config's 1.25; a
-    decode step never does), and leaves out each request's positions from
-    its first flipped route on, at most ``LM_ROUTE_FLIPS_MAX`` tokens. The
-    phase sets its numerics (``set_numerics``) and runs alone as well as
-    after the others. Every family runs to its end; a failed check fails
-    the phase after the last."""
+    """Phase 3b: the moe, ssm, hybrid and audio families at full width and
+    depth (``LM_FAMILIES``), each through ``serve_arch``. The phase sets its
+    numerics (``set_numerics``) and runs alone as well as after the others.
+    Every family runs to its end; a failed check fails the phase after the
+    last."""
+    t_phase = time.perf_counter()
+    set_numerics()
+    card = card_line()
+    failures: list[str] = []
+    results = {arch: serve_arch(arch, spec, "[lm-families]", failures, card) for arch, spec in LM_FAMILIES.items()}
+    out = dict(card=card, archs=results, failures=failures, seconds=time.perf_counter() - t_phase)
+    say(f"[lm-families] phase 3b wall time {out['seconds']:.2f} s [{card}]")
+    check(not failures, f"phase 3b: {failures}")
+    return out
+
+
+def serve_arch(arch: str, spec: dict, tag: str, failures: list, card: str) -> dict:
+    """One arch of phases 3b and 3c at full width, weights from
+    ``torch.Generator("cuda")`` seeded ``LM_FAMILY_SEED``, through
+    ``build_model``, ``Model.logits``, ``Model.decode`` and
+    ``make_serve_step``; ``spec`` is its entry of ``LM_FAMILIES`` or
+    ``LM_ARCHS``. (a) f32 on the card at ``spec["layers"]`` (full depth
+    where it names none): ``LM_FAMILY_REQUESTS`` served one token at a time
+    through ``serve_step`` from ``pos = 0``, then a second pass of
+    ``Model.decode`` over the same tokens; its logits at every step against
+    ``Model.logits`` in f32 (``LM_CONSISTENCY``) or, for the families of
+    ``LM_DECODE_VS_F64``, against ``Model.logits`` of the same weights in
+    f64 on the card (run unless ``spec["f64_prefill"]`` is false: then its
+    weights do not fit beside the f32 model's); served tokens equal the
+    teacher-forced argmax except at counted near-ties (top-2 gap under the
+    bound). (b, c) ``witness_checks`` at ``spec["cut"]`` over 2 x 160
+    tokens (M-RoPE archs with (B, 3, S) positions of three different
+    streams, the vision stub's archs with frontend embeds). (d) bf16 at
+    ``spec["bf16_layers"]`` (full depth where it names none): prefill at
+    B = 1 and ``spec["prefill_S"]``, timed over 3 calls after a warmup, or
+    over one call where the first took more than ``LM_PREFILL_ONE_CALL_S``;
+    decode at ``spec["decode_B"]`` against a full cache (whisper: its 448
+    positions; rwkv6: state only), timed against the
+    ``repro_torch.launch.perf_model`` bounds at the depth that ran, peak
+    memory, a profile of 2 decode steps and one step under sync debug mode
+    ``error``. moe runs a, b and c at capacity factor ``n_experts /
+    top_k``, where no token drops (a prefill of 640 tokens drops at the
+    config's 1.25; a decode step never does), and leaves out each request's
+    positions from its first flipped route on, at most
+    ``LM_ROUTE_FLIPS_MAX`` tokens. A failed check is printed and appended
+    to ``failures``; the arch runs to its end."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -960,231 +1051,495 @@ def lm_families_phase() -> dict:
     from repro_torch.models import build_model
     from repro_torch.train import make_serve_step
 
-    t_phase = time.perf_counter()
-    set_numerics()
-    card = card_line()
     dev = torch.device("cuda")
-    failures: list[str] = []
 
     def soft(cond: bool, what: str) -> None:
-        if not cond:
-            failures.append(what)
-            say(f"[lm-families] FAILED: {what}")
+        soft_check(failures, tag, cond, what)
 
-    results = {}
-    for arch, spec in LM_FAMILIES.items():
-        t_arch = time.perf_counter()
-        cfg = get_config(arch)
-        if cfg.family == "moe":
-            cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
-        gen = lambda off=0: torch.Generator(device=dev).manual_seed(LM_FAMILY_SEED + off)  # noqa: E731
+    t_arch = time.perf_counter()
+    cfg = get_config(arch)
+    if spec.get("layers"):
+        cfg = replace(cfg, n_layers=spec["layers"])
+    if cfg.family == "moe":
+        cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    gen = lambda off=0: torch.Generator(device=dev).manual_seed(LM_FAMILY_SEED + off)  # noqa: E731
 
-        def enc_embeds(n: int, g: torch.Generator, dtype=torch.float32):
-            if not cfg.is_encoder_decoder:
-                return {}
-            e = 0.5 * torch.randn((n, cfg.encoder_len, cfg.d_model), generator=g, device=dev)
-            return {"enc_embeds": e.to(dtype)}
+    def enc_embeds(n: int, g: torch.Generator, dtype=torch.float32):
+        if not cfg.is_encoder_decoder:
+            return {}
+        e = 0.5 * torch.randn((n, cfg.encoder_len, cfg.d_model), generator=g, device=dev)
+        return {"enc_embeds": e.to(dtype)}
 
-        # -- a. full depth, f32, decode against prefill ----------------------
-        set_numerics()
-        t0 = time.perf_counter()
-        model = build_model(cfg, device=dev, generator=gen())
-        torch.cuda.synchronize()
-        n_params = sum(p.numel() for p in model.parameters())
-        enc_l = f" + {cfg.encoder_layers} encoder layers over {cfg.encoder_len} frames" if cfg.encoder_layers else ""
-        say(f"[lm-families] {arch} ({cfg.family}): {cfg.n_layers} layers{enc_l}, d_model {cfg.d_model}, vocab "
-            f"{cfg.vocab}; {n_params:,} parameters, drawn in {time.perf_counter() - t0:.2f} s [{card}]")
-        B, P, G = LM_FAMILY_REQUESTS["B"], LM_FAMILY_REQUESTS["prompt"], LM_FAMILY_REQUESTS["generated"]
-        S = P + G
-        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen(1), device=dev)
-        extras = enc_embeds(B, gen(2))
+    # -- a. f32, decode against prefill ---------------------------------------
+    set_numerics()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=gen())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    enc_l = f" + {cfg.encoder_layers} encoder layers over {cfg.encoder_len} frames" if cfg.encoder_layers else ""
+    say(f"{tag} {arch} ({cfg.family}): {cfg.n_layers} layers{enc_l}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}; {n_params:,} parameters, drawn in {time.perf_counter() - t0:.2f} s [{card}]")
+    B, P, G = LM_FAMILY_REQUESTS["B"], LM_FAMILY_REQUESTS["prompt"], LM_FAMILY_REQUESTS["generated"]
+    S = P + G
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen(1), device=dev)
+    extras = enc_embeds(B, gen(2))
 
-        def fresh_cache(m):
-            c = m.init_cache(B, S)
-            if "pos" in c:
-                c["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
-            if extras:
-                m.fill_cross_cache(c, extras["enc_embeds"])
-            return c
+    def fresh_cache(m):
+        c = m.init_cache(B, S)
+        if "pos" in c:
+            c["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+        if extras:
+            m.fill_cross_cache(c, extras["enc_embeds"])
+        return c
 
-        serve_step = make_serve_step(model)
-        cache = fresh_cache(model)
-        fed, served = [], []
-        for t in range(S):
-            tok = prompt[:, t : t + 1] if t < P else served[-1]
-            fed.append(tok)
-            nxt, cache = serve_step(tok, cache)
-            if t >= P - 1:
-                served.append(nxt)
-        seq = torch.cat(fed, dim=1)
-        served = torch.cat(served, dim=1)  # outputs at positions P-1 .. S-1
-        record_routes(model)
-        cache = fresh_cache(model)
-        steps = []
-        for t in range(S):
-            step_logits, cache = model.decode(seq[:, t : t + 1], cache)
-            steps.append(step_logits[:, 0])
-        decoded = torch.stack(steps, dim=1)
-        del steps, cache
-        routes_decode = take_routes(model)
-        full32 = model.logits({"tokens": seq, **extras})
-        routes32 = take_routes(model)
-        record_routes(model, on=False)
-        check(full32.shape == (B, S, cfg.vocab) and bool(torch.isfinite(full32).all()), f"{arch} f32 logits finite")
+    serve_step = make_serve_step(model)
+    cache = fresh_cache(model)
+    fed, served = [], []
+    for t in range(S):
+        tok = prompt[:, t : t + 1] if t < P else served[-1]
+        fed.append(tok)
+        nxt, cache = serve_step(tok, cache)
+        if t >= P - 1:
+            served.append(nxt)
+    seq = torch.cat(fed, dim=1)
+    served = torch.cat(served, dim=1)  # outputs at positions P-1 .. S-1
+    record_routes(model)
+    cache = fresh_cache(model)
+    steps = []
+    for t in range(S):
+        step_logits, cache = model.decode(seq[:, t : t + 1], cache)
+        steps.append(step_logits[:, 0])
+    decoded = torch.stack(steps, dim=1)
+    del steps, cache
+    routes_decode = take_routes(model)
+    full32 = model.logits({"tokens": seq, **extras})
+    routes32 = take_routes(model)
+    record_routes(model, on=False)
+    check(full32.shape == (B, S, cfg.vocab) and bool(torch.isfinite(full32).all()), f"{arch} f32 logits finite")
+    first = first_flips(routes_decode, routes32, B, S)
+    full64 = None
+    if spec.get("f64_prefill", True):
         model64 = build_model(cfg, device=dev, dtype=torch.float64)
         model64.load_state_dict(model.state_dict())
         record_routes(model64)
         full64 = model64.logits({"tokens": seq, **{k: v.double() for k, v in extras.items()}})
         routes64 = take_routes(model64)
         del model64
-        first = torch.minimum(first_flips(routes_decode, routes32, B, S), first_flips(routes_decode, routes64, B, S))
-        held = held_positions(first, S)
-        err32, at32 = masked_max_err(decoded, full32, held)
-        err64, at64 = masked_max_err(decoded, full64, held)
-        last32 = masked_max_err(decoded[:, -1:], full32[:, -1:], held[:, -1:])[0]
-        against_f64 = arch in LM_DECODE_VS_F64
-        bound_a = LM_DECODE_VS_F64[arch] if against_f64 else LM_CONSISTENCY["atol"]
-        ref = full64 if against_f64 else full32
-        err_a = err64 if against_f64 else err32
-        soft(err_a <= bound_a, f"{arch} a. decode logits within {bound_a:g} of the "
-                               f"{'f64' if against_f64 else 'f32'} prefill ({err_a:.3e})")
-        tail = ref[:, P - 1 :]
-        teacher = tail.argmax(dim=-1)
-        top2 = tail.topk(2, dim=-1).values
-        near = (top2[..., 0] - top2[..., 1]) < bound_a
-        kept = held[:, P - 1 :].to(dev)
-        mismatch = (served.long() != teacher) & kept
-        soft(bool((~mismatch | near).all()), f"{arch} a. served tokens equal the teacher-forced argmax except at "
-                                               f"near-ties ({int(mismatch.sum())} differ)")
-        flips_a = int((first < S).sum())
-        a = dict(requests=B, prompt=P, generated=G, reference="f64 prefill" if against_f64 else "f32 prefill",
-                 bound=bound_a, decode_vs_f32_prefill=err32, decode_vs_f32_prefill_at=at32,
-                 decode_vs_f32_prefill_last_step=last32, decode_vs_f64_prefill=err64, decode_vs_f64_prefill_at=at64,
-                 served_tokens=int(served.numel()), mismatches=int(mismatch.sum()),
-                 near_ties=int((near & kept).sum()), route_flips=flips_a,
-                 positions_left_out=int((~held).sum()))
-        cf = f"; capacity factor {cfg.capacity_factor:g}, {flips_a} routes flipped" if cfg.family == "moe" else ""
-        say(f"[lm-families] {arch} a. f32 over {S} steps x {B} requests: decode logits vs Model.logits max |diff| "
-            f"f32 {err32:.3e} at {at32} (last step {last32:.3e}), f64 {err64:.3e} at {at64}; held to the "
-            f"{a['reference']} within {bound_a:g}; served {a['served_tokens']} tokens, {a['mismatches']} off the "
-            f"teacher-forced argmax, {a['near_ties']} near-ties (top-2 gap < {bound_a:g}){cf} [{card}]")
-        del full32, full64, decoded, model
-        torch.cuda.empty_cache()
+        first = torch.minimum(first, first_flips(routes_decode, routes64, B, S))
+    held = held_positions(first, S)
+    err32, at32 = masked_max_err(decoded, full32, held)
+    err64, at64 = masked_max_err(decoded, full64, held) if full64 is not None else (None, None)
+    last32 = masked_max_err(decoded[:, -1:], full32[:, -1:], held[:, -1:])[0]
+    against_f64 = arch in LM_DECODE_VS_F64
+    bound_a = LM_DECODE_VS_F64[arch] if against_f64 else LM_CONSISTENCY["atol"]
+    ref = full64 if against_f64 else full32
+    err_a = err64 if against_f64 else err32
+    soft(err_a <= bound_a, f"{arch} a. decode logits within {bound_a:g} of the "
+                           f"{'f64' if against_f64 else 'f32'} prefill ({err_a:.3e})")
+    tail = ref[:, P - 1 :]
+    teacher = tail.argmax(dim=-1)
+    top2 = tail.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < bound_a
+    kept = held[:, P - 1 :].to(dev)
+    mismatch = (served.long() != teacher) & kept
+    soft(bool((~mismatch | near).all()), f"{arch} a. served tokens equal the teacher-forced argmax except at "
+                                           f"near-ties ({int(mismatch.sum())} differ)")
+    flips_a = int((first < S).sum())
+    a = dict(requests=B, prompt=P, generated=G, reference="f64 prefill" if against_f64 else "f32 prefill",
+             bound=bound_a, decode_vs_f32_prefill=err32, decode_vs_f32_prefill_at=at32,
+             decode_vs_f32_prefill_last_step=last32, decode_vs_f64_prefill=err64, decode_vs_f64_prefill_at=at64,
+             served_tokens=int(served.numel()), mismatches=int(mismatch.sum()),
+             near_ties=int((near & kept).sum()), route_flips=flips_a,
+             positions_left_out=int((~held).sum()))
+    cf = f"; capacity factor {cfg.capacity_factor:g}, {flips_a} routes flipped" if cfg.family == "moe" else ""
+    f64 = (f"f64 {err64:.3e} at {at64}" if full64 is not None
+           else "f64 prefill not run (its weights do not fit beside the f32 model's)")
+    say(f"{tag} {arch} a. f32 over {S} steps x {B} requests: decode logits vs Model.logits max |diff| "
+        f"f32 {err32:.3e} at {at32} (last step {last32:.3e}), {f64}; held to the "
+        f"{a['reference']} within {bound_a:g}; served {a['served_tokens']} tokens, {a['mismatches']} off the "
+        f"teacher-forced argmax, {a['near_ties']} near-ties (top-2 gap < {bound_a:g}){cf} [{card}]")
+    # serve_step holds the model: both go, or the f32 weights stay on the card
+    del full32, full64, decoded, model, serve_step
+    torch.cuda.empty_cache()
+    legs = dict(a=time.perf_counter() - t_arch)
 
-        # -- b, c. the float64 witness at a cut depth --------------------------
-        cut = replace(cfg, n_layers=spec["cut"], encoder_layers=spec["cut"] if cfg.encoder_layers else 0)
-        g = torch.Generator().manual_seed(LM_FAMILY_SEED + 3)
-        wbatch = {"tokens": torch.randint(0, cfg.vocab, (2, 160), generator=g)}
-        if cfg.is_encoder_decoder:
-            wbatch["enc_embeds"] = 0.5 * torch.randn((2, cfg.encoder_len, cfg.d_model), generator=g)
-        w = witness_checks(cut, wbatch, LM_FAMILY_SEED, f"{arch} b/c")
-        soft(w["card_vs_cpu_f64"] <= w["f64_bound"], f"{arch} b. card f64 within {w['f64_bound']:.3e} of the "
-                                                       f"CPU's f64 ({w['card_vs_cpu_f64']:.3e} at {w['card_vs_cpu_f64_at']})")
-        soft(w["card_f32_vs_f64"] <= w["f32_bound"], f"{arch} c. card f32 within {w['f32_bound']:g} of the card's "
-                                                       f"f64 ({w['card_f32_vs_f64']:.3e})")
-        soft(a["route_flips"] + w["route_flips"] <= LM_ROUTE_FLIPS_MAX,
-             f"{arch}: at most {LM_ROUTE_FLIPS_MAX} routes flip ({a['route_flips'] + w['route_flips']})")
-        enc_c = f" + {cut.encoder_layers} encoder layers" if cut.encoder_layers else ""
-        say(f"[lm-families] {arch} b. {cut.n_layers} layers{enc_c} at full width over 2x160 tokens, float64: card "
-            f"against CPU logits max |diff| {w['card_vs_cpu_f64']:.3e} at {w['card_vs_cpu_f64_at']} (bound "
-            f"{F64_REL:g} x max|logits| {w['max_abs_logit']:.3f} = {w['f64_bound']:.3e}; CPU {w['cpu_threads']} "
-            f"threads, {w['cpu64_seconds']:.2f} s) [{card}]")
-        say(f"[lm-families] {arch} c. the card's f32 against its f64, same weights: max |diff| "
-            f"{w['card_f32_vs_f64']:.3e} at {w['card_f32_vs_f64_at']} (bound {w['f32_bound']:g}); "
-            f"{w['route_flips']} routes flipped, {w['positions_left_out']} positions left out [{card}]")
+    # -- b, c. the float64 witness at a cut depth ------------------------------
+    cut = replace(cfg, n_layers=spec["cut"], encoder_layers=spec["cut"] if cfg.encoder_layers else 0)
+    g = torch.Generator().manual_seed(LM_FAMILY_SEED + 3)
+    wbatch = {"tokens": torch.randint(0, cfg.vocab, (2, 160), generator=g)}
+    if cfg.is_encoder_decoder:
+        wbatch["enc_embeds"] = 0.5 * torch.randn((2, cfg.encoder_len, cfg.d_model), generator=g)
+    vision = ""
+    if cfg.m_rope:
+        # text, then a 4 x 16 patch grid at one temporal position, then text
+        # again from the grid's end: three different position streams
+        wbatch["positions"] = mrope_positions(2, 160)
+        vision = " with M-RoPE positions (2, 3, 160)"
+    if cfg.frontend == "vision-stub":
+        wbatch["frontend_embeds"] = 0.02 * torch.randn((2, 160, cfg.d_model), generator=g)
+        vision += " and frontend embeds"
+    w = witness_checks(cut, wbatch, LM_FAMILY_SEED, f"{arch} b/c")
+    soft(w["card_vs_cpu_f64"] <= w["f64_bound"], f"{arch} b. card f64 within {w['f64_bound']:.3e} of the "
+                                                   f"CPU's f64 ({w['card_vs_cpu_f64']:.3e} at {w['card_vs_cpu_f64_at']})")
+    soft(w["card_f32_vs_f64"] <= w["f32_bound"], f"{arch} c. card f32 within {w['f32_bound']:g} of the card's "
+                                                   f"f64 ({w['card_f32_vs_f64']:.3e})")
+    soft(a["route_flips"] + w["route_flips"] <= LM_ROUTE_FLIPS_MAX,
+         f"{arch}: at most {LM_ROUTE_FLIPS_MAX} routes flip ({a['route_flips'] + w['route_flips']})")
+    enc_c = f" + {cut.encoder_layers} encoder layers" if cut.encoder_layers else ""
+    say(f"{tag} {arch} b. {cut.n_layers} layers{enc_c} at full width over 2x160 tokens{vision}, float64: card "
+        f"against CPU logits max |diff| {w['card_vs_cpu_f64']:.3e} at {w['card_vs_cpu_f64_at']} (bound "
+        f"{F64_REL:g} x max|logits| {w['max_abs_logit']:.3f} = {w['f64_bound']:.3e}; CPU {w['cpu_threads']} "
+        f"threads, {w['cpu64_seconds']:.2f} s) [{card}]")
+    say(f"{tag} {arch} c. the card's f32 against its f64, same weights: max |diff| "
+        f"{w['card_f32_vs_f64']:.3e} at {w['card_f32_vs_f64_at']} (bound {w['f32_bound']:g}); "
+        f"{w['route_flips']} routes flipped, {w['positions_left_out']} positions left out [{card}]")
 
-        # -- d. bf16 timing -------------------------------------------------
-        set_numerics()
-        cfg16 = get_config(arch)  # the config's own capacity factor
-        model16 = build_model(cfg16, device=dev, dtype=torch.bfloat16, generator=gen(4))
-        Sp = spec["prefill_S"]
-        pbatch = {"tokens": torch.randint(0, cfg.vocab, (1, Sp), generator=gen(5), device=dev),
-                  **enc_embeds(1, gen(6), torch.bfloat16)}
-        logits = model16.logits(pbatch)
-        check(logits.shape == (1, Sp, cfg.vocab) and bool(torch.isfinite(logits).all()), f"{arch} bf16 prefill finite")
-        del logits
-        torch.cuda.synchronize()
-        mem0 = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        prefill_ms = time_ms(lambda: model16.logits(pbatch), iters=3, warmup=1)
-        shape = ShapeConfig("prefill", Sp, 1, "prefill")
-        flops, nbytes = model_flops(cfg16, shape), hbm_bytes_estimate(cfg16, shape)
-        t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        c = dict(B=1, S=Sp, frames=cfg.encoder_len if cfg.is_encoder_decoder else None, ms=prefill_ms,
-                 tokens_per_s=Sp / prefill_ms * 1e3, peak_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9,
-                 model_flops=flops, hbm_bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                 bound_by="operations" if t_ops >= t_bytes else "bytes")
-        del pbatch
-        frames = f" (+{cfg.encoder_len} frames)" if cfg.is_encoder_decoder else ""
-        say(f"[lm-families] {arch} d. bf16 prefill B=1 S={Sp}{frames}: {prefill_ms:.3f} ms ({c['tokens_per_s']:.1f} "
-            f"tokens/s), peak {c['peak_gb']:.3f} GB above the weights; bound {c['bound_ms']:.3f} ms by "
-            f"{c['bound_by']} ({flops / 1e12:.3f} TFLOP at 989 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s) [{card}]")
+    legs["b_c"] = time.perf_counter() - t_arch - sum(legs.values())
 
-        Bd, T = spec["decode_B"], spec["decode_T"]
-        torch.cuda.synchronize()
-        mem0 = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        cache = model16.init_cache(Bd, T or 1, torch.bfloat16)  # pos = cache_len: every step reads every slot
-        if cfg.is_encoder_decoder:
-            model16.fill_cross_cache(cache, enc_embeds(Bd, gen(7), torch.bfloat16)["enc_embeds"])
-        state_bytes = 0
-        for v in cache.values():
-            for leaf in (v.values() if isinstance(v, dict) else [v]):
-                state_bytes += leaf.numel() * leaf.element_size()
-        serve16 = make_serve_step(model16)
-        tok = torch.randint(0, cfg.vocab, (Bd, 1), generator=gen(8), device=dev).to(torch.int32)
-        for _ in range(LM_FAMILY_DECODE["warmup"]):
+    # -- d. bf16 timing -----------------------------------------------------
+    set_numerics()
+    cfg16 = get_config(arch)  # the config's own capacity factor
+    if spec.get("bf16_layers"):
+        cfg16 = replace(cfg16, n_layers=spec["bf16_layers"])
+    model16 = build_model(cfg16, device=dev, dtype=torch.bfloat16, generator=gen(4))
+    Sp = spec["prefill_S"]
+    pbatch = {"tokens": torch.randint(0, cfg.vocab, (1, Sp), generator=gen(5), device=dev),
+              **enc_embeds(1, gen(6), torch.bfloat16)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model16.logits(pbatch)
+    check(logits.shape == (1, Sp, cfg.vocab) and bool(torch.isfinite(logits).all()), f"{arch} bf16 prefill finite")
+    first_call_s = time.perf_counter() - t0
+    del logits
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # a call over LM_PREFILL_ONE_CALL_S is timed once, the first call its warmup
+    calls = 1 if first_call_s > LM_PREFILL_ONE_CALL_S else 3
+    prefill_ms = time_ms(lambda: model16.logits(pbatch), iters=calls, warmup=1 if calls > 1 else 0)
+    shape = ShapeConfig("prefill", Sp, 1, "prefill")
+    flops, nbytes = model_flops(cfg16, shape), hbm_bytes_estimate(cfg16, shape)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    c = dict(B=1, S=Sp, frames=cfg.encoder_len if cfg.is_encoder_decoder else None, ms=prefill_ms,
+             tokens_per_s=Sp / prefill_ms * 1e3, peak_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9,
+             model_flops=flops, hbm_bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes", timed_calls=calls)
+    del pbatch
+    frames = f" (+{cfg.encoder_len} frames)" if cfg.is_encoder_decoder else ""
+    once = f", one timed call (the first took {first_call_s:.2f} s)" if calls == 1 else ""
+    say(f"{tag} {arch} d. bf16 prefill B=1 S={Sp}{frames}: {prefill_ms:.3f} ms ({c['tokens_per_s']:.1f} "
+        f"tokens/s{once}), peak {c['peak_gb']:.3f} GB above the weights; bound {c['bound_ms']:.3f} ms by "
+        f"{c['bound_by']} ({flops / 1e12:.3f} TFLOP at 989 TFLOP/s, {nbytes / 1e9:.3f} GB at 3.35 TB/s) [{card}]")
+
+    Bd, T = spec["decode_B"], spec["decode_T"]
+    torch.cuda.synchronize()
+    legs["d_prefill"] = time.perf_counter() - t_arch - sum(legs.values())
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model16.init_cache(Bd, T or 1, torch.bfloat16)  # pos = cache_len: every step reads every slot
+    if cfg.is_encoder_decoder:
+        model16.fill_cross_cache(cache, enc_embeds(Bd, gen(7), torch.bfloat16)["enc_embeds"])
+    state_bytes = tree_bytes(cache)
+    serve16 = make_serve_step(model16)
+    tok = torch.randint(0, cfg.vocab, (Bd, 1), generator=gen(8), device=dev).to(torch.int32)
+    for _ in range(LM_FAMILY_DECODE["warmup"]):
+        tok, cache = serve16(tok, cache)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok, cache = serve16(tok, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tok, cache, step_ms = timed_steps(serve16, tok, cache, LM_FAMILY_DECODE["steps"])
+    check(tok.shape == (Bd, 1) and bool(((tok >= 0) & (tok < cfg.vocab)).all()), f"{arch} decode tokens in range")
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+
+    def two_steps():
+        nonlocal tok, cache
+        for _ in range(2):
             tok, cache = serve16(tok, cache)
         torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            tok, cache = serve16(tok, cache)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(LM_FAMILY_DECODE["steps"]):
-            tok, cache = serve16(tok, cache)
-        end.record()
-        end.synchronize()
-        step_ms = start.elapsed_time(end) / LM_FAMILY_DECODE["steps"]
-        check(tok.shape == (Bd, 1) and bool(((tok >= 0) & (tok < cfg.vocab)).all()), f"{arch} decode tokens in range")
-        peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
 
-        def two_steps():
-            nonlocal tok, cache
-            for _ in range(2):
-                tok, cache = serve16(tok, cache)
-            torch.cuda.synchronize()
-
-        rows, busy_ms, wall_ms = device_profile(two_steps)
-        # a state-only cache (rwkv6) is read and written whole each step:
-        # perf_model's decode bytes read the cache once and write 1/T of it
-        shape = ShapeConfig("decode", T or 1, Bd, "decode")
-        nbytes = hbm_bytes_estimate(cfg16, shape)
-        d = dict(B=Bd, T=T, steps=LM_FAMILY_DECODE["steps"], ms_per_step=step_ms, tokens_per_s=Bd / step_ms * 1e3,
-                 peak_gb=peak_gb, state_gb=state_bytes / 1e9, hbm_bytes=nbytes,
-                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", model_flops=model_flops(cfg16, shape),
-                 profile_busy_ms=busy_ms, profile_wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms,
-                 launches_2_steps=sum(r[2] for r in rows), sync_free=True,
-                 top_ops=[[name[:120], ms, count] for name, ms, count in rows[:6]])
-        against = f"against T={T}" if T else "state only"
-        say(f"[lm-families] {arch} d. bf16 decode B={Bd} {against} ({d['state_gb']:.3f} GB of cache and state): "
-            f"{step_ms:.3f} ms a step ({d['tokens_per_s']:.1f} tokens/s) over {d['steps']} steps, peak "
-            f"{peak_gb:.3f} GB above the weights; bound {d['bound_ms']:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s); "
-            f"2 steps: device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall, idle {d['idle_share']:.1%}, "
-            f"{d['launches_2_steps']} device operations; one step ran under sync debug mode 'error' [{card}]")
-        for name, ms, count in rows[:6]:
-            say(f"[lm-families]   {ms:9.3f} ms {count:6d}x {name[:110]}")
-        del model16, cache
-        torch.cuda.empty_cache()
-        results[arch] = dict(family=cfg.family, source=cfg.source, params=n_params, consistency_f32=a,
-                             witness=w, prefill_bf16=c, decode_bf16=d, seconds=time.perf_counter() - t_arch)
-        say(f"[lm-families] {arch} wall time {results[arch]['seconds']:.2f} s [{card}]")
-    out = dict(card=card, archs=results, failures=failures, seconds=time.perf_counter() - t_phase)
-    say(f"[lm-families] phase 3b wall time {out['seconds']:.2f} s [{card}]")
-    check(not failures, f"phase 3b: {failures}")
+    legs["d_decode"] = time.perf_counter() - t_arch - sum(legs.values())
+    rows, busy_ms, wall_ms = device_profile(two_steps)
+    legs["d_profile"] = time.perf_counter() - t_arch - sum(legs.values())
+    # a state-only cache (rwkv6) is read and written whole each step:
+    # perf_model's decode bytes read the cache once and write 1/T of it
+    shape = ShapeConfig("decode", T or 1, Bd, "decode")
+    nbytes = hbm_bytes_estimate(cfg16, shape)
+    d = dict(B=Bd, T=T, steps=LM_FAMILY_DECODE["steps"], ms_per_step=step_ms, tokens_per_s=Bd / step_ms * 1e3,
+             peak_gb=peak_gb, state_gb=state_bytes / 1e9, hbm_bytes=nbytes,
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", model_flops=model_flops(cfg16, shape),
+             profile_busy_ms=busy_ms, profile_wall_ms=wall_ms, idle_share=1.0 - busy_ms / wall_ms,
+             launches_2_steps=sum(r[2] for r in rows), sync_free=True,
+             top_ops=[[name[:120], ms, count] for name, ms, count in rows[:6]])
+    against = f"against T={T}" if T else "state only"
+    say(f"{tag} {arch} d. bf16 decode B={Bd} {against} ({d['state_gb']:.3f} GB of cache and state): "
+        f"{step_ms:.3f} ms a step ({d['tokens_per_s']:.1f} tokens/s) over {d['steps']} steps, peak "
+        f"{peak_gb:.3f} GB above the weights; bound {d['bound_ms']:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s); "
+        f"2 steps: device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall, idle {d['idle_share']:.1%}, "
+        f"{d['launches_2_steps']} device operations; one step ran under sync debug mode 'error' [{card}]")
+    for name, ms, count in rows[:6]:
+        say(f"{tag}   {ms:9.3f} ms {count:6d}x {name[:110]}")
+    del model16, cache, serve16
+    torch.cuda.empty_cache()
+    legs["d_end"] = time.perf_counter() - t_arch - sum(legs.values())
+    out = dict(family=cfg.family, source=cfg.source, params=n_params, consistency_f32=a, witness=w,
+               prefill_bf16=c, decode_bf16=d, leg_seconds=legs, seconds=time.perf_counter() - t_arch)
+    say(f"{tag} {arch} wall time {out['seconds']:.2f} s [{card}]")
     return out
+
+
+def timed_steps(serve, tok: torch.Tensor, cache: dict, steps: int):
+    """``steps`` greedy serve steps, each fed the last one's token: (token,
+    cache, mean device ms a step by CUDA events around all of them)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        tok, cache = serve(tok, cache)
+    end.record()
+    end.synchronize()
+    return tok, cache, start.elapsed_time(end) / steps
+
+
+def tree_bytes(cache: dict) -> int:
+    """The bytes of every tensor of a cache (nested dicts of tensors)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(cache))
+
+
+def mrope_positions(B: int, S: int) -> torch.Tensor:
+    """(B, 3, S) M-RoPE position ids of a prompt with an image: text up to
+    S/4, a 4 x 16 patch grid at one temporal position (height and width
+    streams its rows and columns), then text from the grid's largest
+    position on, as qwen2-vl numbers them."""
+    t0, rows, cols = S // 4, 4, 16
+    n = rows * cols
+    pos = torch.arange(S).repeat(3, 1)
+    grid = torch.arange(n)
+    pos[0, t0 : t0 + n] = t0
+    pos[1, t0 : t0 + n] = t0 + grid // cols
+    pos[2, t0 : t0 + n] = t0 + grid % cols
+    pos[:, t0 + n :] = torch.arange(S - t0 - n) + t0 + cols
+    return pos[None].expand(B, 3, S).contiguous()
+
+
+@torch.no_grad()
+def lm_archs_phase() -> dict:
+    """Phase 3c: the five architectures no earlier phase serves (olmo-1b,
+    yi-9b, granite-20b, mixtral-8x7b, qwen2-vl-72b) at full width through
+    ``serve_arch``, each at the depths and decode batch of its
+    ``LM_ARCHS`` entry; the sliding-window arch with one request longer
+    than its window (``window_wrap_check``); then the ``long_500k`` cells
+    (``long_cell``). The phase sets its numerics and runs alone as well as
+    after the others. Every arch and cell runs to its end; a failed check
+    fails the phase after the last."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    set_numerics()
+    card = card_line()
+    gc.collect()  # reference cycles of earlier phases' models: this phase fills the card
+    torch.cuda.empty_cache()
+    say(f"[lm-archs] {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated on the card at the phase's start "
+        f"[{card}]")
+    failures: list[str] = []
+    results = {}
+    for arch, spec in LM_ARCHS.items():
+        cfg = get_config(arch)
+        say(f"[lm-archs] {arch}: full width, f32 leg at {spec['layers']} of {cfg.n_layers} layers, bf16 legs at "
+            f"{spec['bf16_layers']}, witness at {spec['cut']}; decode B={spec['decode_B']} against "
+            f"T={spec['decode_T']}, prefill B=1 S={spec['prefill_S']} [{card}]")
+        results[arch] = serve_arch(arch, spec, "[lm-archs]", failures, card)
+        say(f"[lm-archs] {arch} seconds by leg: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                              results[arch]["leg_seconds"].items()))
+        results[arch]["plan"] = dict(spec, full_layers=cfg.n_layers)
+        if cfg.sliding_window:
+            results[arch]["window_wrap"] = window_wrap_check(arch, spec["cut"], failures, card)
+    long = {arch: long_cell(arch, spec, failures, card) for arch, spec in LM_LONG.items()}
+    out = dict(card=card, archs=results, long_500k=long, failures=failures, seconds=time.perf_counter() - t_phase)
+    say(f"[lm-archs] phase 3c wall time {out['seconds']:.2f} s [{card}]")
+    check(not failures, f"phase 3c: {failures}")
+    return out
+
+
+def window_wrap_check(arch: str, layers: int, failures: list, card: str) -> dict:
+    """Phase 3c's request longer than the sliding window, in f32 at
+    ``layers`` and full width (capacity factor ``n_experts / top_k``): B = 1,
+    ``window + LM_WRAP_EXTRA`` tokens through ``Model.decode`` one at a time
+    from ``pos = 0`` into a cache of ``window`` slots (the ring wraps), each
+    step's logits against ``Model.logits`` over the same tokens within
+    ``LM_CONSISTENCY``'s bound, and each step's argmax against the
+    teacher-forced one except at near-ties, up to the first flipped route."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    tag = "[lm-archs]"
+    t0 = time.perf_counter()
+    cfg = replace(get_config(arch), n_layers=layers)
+    if cfg.family == "moe":
+        cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    W = cfg.sliding_window
+    S = W + LM_WRAP_EXTRA
+    gen = lambda off: torch.Generator(device=dev).manual_seed(LM_FAMILY_SEED + off)  # noqa: E731
+    model = build_model(cfg, device=dev, generator=gen(0))
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen(9), device=dev)
+    record_routes(model)
+    full = model.logits({"tokens": tokens})
+    routes_full = take_routes(model)
+    cache = model.init_cache(1, S)
+    slots = cache["k"].shape[2]
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
+    errs, argmax = [], []
+    for t in range(S):
+        step, cache = model.decode(tokens[:, t : t + 1], cache)
+        errs.append((step[0, 0].double() - full[0, t].double()).abs().max())
+        argmax.append(step[0, 0].argmax())
+    routes_dec = take_routes(model)
+    record_routes(model, on=False)
+    errs, argmax = torch.stack(errs).cpu(), torch.stack(argmax)
+    first = int(first_flips(routes_dec, routes_full, 1, S)[0])
+    bound = LM_CONSISTENCY["atol"]
+    err = float(errs[:first].max()) if first else math.nan
+    top2 = full[0].topk(2, dim=-1).values
+    near = ((top2[:, 0] - top2[:, 1]) < bound)[:first]
+    mismatch = (argmax != full[0].argmax(dim=-1))[:first]
+    pos = int(cache["pos"])
+    soft_check(failures, tag, slots == W and pos == S > W and first > W,
+               f"{arch} wrap: the ring of {slots} slots wrapped (pos {pos} of {S}) and the steps held reach past it "
+               f"(the first {first})")
+    soft_check(failures, tag, err <= bound, f"{arch} wrap: decode logits within {bound:g} of the prefill ({err:.3e})")
+    soft_check(failures, tag, bool((~mismatch | near).all()),
+               f"{arch} wrap: step argmax equals the teacher-forced argmax except at near-ties "
+               f"({int(mismatch.sum())} differ)")
+    out = dict(layers=layers, window=W, tokens=S, slots=slots, max_err=err, max_err_at=int(errs[:first].argmax()) if first else None,
+               max_err_past_window=float(errs[W:first].max()) if first > W else None, bound=bound,
+               mismatches=int(mismatch.sum()), near_ties=int(near.sum()), route_flips=int(first < S),
+               positions_left_out=S - first, seconds=time.perf_counter() - t0)
+    past = f"{out['max_err_past_window']:.3e}" if first > W else "none held"
+    say(f"{tag} {arch} a'. f32 at {layers} layers, one request of {S} tokens into a ring of {slots} slots (wrapped "
+        f"{S / slots:.2f} times): decode logits vs Model.logits max |diff| {err:.3e} at step {out['max_err_at']}, "
+        f"past the window {past} (bound {bound:g}); {out['mismatches']} step argmaxes off the teacher-forced one, "
+        f"{out['near_ties']} near-ties; {out['positions_left_out']} positions left out after a flipped route; "
+        f"{out['seconds']:.2f} s [{card}]")
+    del model, full, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_cell(arch: str, spec: dict, failures: list, card: str) -> dict:
+    """A ``long_500k`` cell of phase 3c (``SHAPES["long_500k"]``: B = 1, a
+    cache of 524,288 positions): (d) a bf16 decode at ``spec["layers"]``
+    (full depth where it names none) and full width, with ``pos`` at
+    524,288 (mixtral's cache is its window's 4,096 slots, rwkv6 carries its
+    state only), ``LM_LONG_DECODE`` steps timed by CUDA events against
+    ``perf_model``'s bound at the depth that ran, peak memory, and one step
+    under sync debug mode ``error`` whose logits must be finite; (e) at
+    ``spec["cut"]``, the card's f32 decode step against its f64 step (the
+    same weights) from one seeded cache at the same position, within
+    ``LM_LONG_F32_VS_F64[arch]``."""
+    from dataclasses import replace
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.perf_model import hbm_bytes_estimate, model_flops
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_step
+
+    dev = torch.device("cuda")
+    tag = "[lm-archs]"
+    t_cell = time.perf_counter()
+    shape = SHAPES["long_500k"]
+    B, T = shape.global_batch, shape.seq_len
+    full = get_config(arch)
+    cfg = replace(full, n_layers=spec["layers"]) if spec.get("layers") else full
+    gen = lambda off: torch.Generator(device=dev).manual_seed(LM_FAMILY_SEED + off)  # noqa: E731
+
+    def at_position(cache: dict) -> dict:
+        if "pos" in cache:
+            cache["pos"] = torch.full((), T, dtype=torch.int32, device=dev)
+        return cache
+
+    # -- d. bf16 decode at pos = 524,288 -------------------------------------
+    set_numerics()
+    torch.cuda.synchronize()
+    model16 = build_model(cfg, device=dev, dtype=torch.bfloat16, generator=gen(10))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cache = at_position(model16.init_cache(B, T, torch.bfloat16))
+    state_bytes = tree_bytes(cache)
+    serve16 = make_serve_step(model16)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen(11), device=dev).to(torch.int32)
+    for _ in range(LM_LONG_DECODE["warmup"]):
+        tok, cache = serve16(tok, cache)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model16.decode(tok, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    soft_check(failures, tag, logits.shape == (B, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+               f"{arch} long_500k: finite logits")
+    tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    tok, cache, step_ms = timed_steps(serve16, tok, cache, LM_LONG_DECODE["steps"])
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    peak_total_gb = torch.cuda.max_memory_allocated() / 1e9
+    pos = int(cache["pos"]) if "pos" in cache else None
+    nbytes = hbm_bytes_estimate(cfg, shape)
+    d = dict(layers=cfg.n_layers, full_layers=full.n_layers, B=B, T=T, pos_end=pos,
+             slots=cache["k"].shape[2] if "k" in cache else None, steps=LM_LONG_DECODE["steps"], ms_per_step=step_ms,
+             peak_gb=peak_gb, peak_total_gb=peak_total_gb, state_gb=state_bytes / 1e9, hbm_bytes=nbytes,
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", model_flops=model_flops(cfg, shape),
+             sync_free=True)
+    del model16, serve16, cache, logits
+    torch.cuda.empty_cache()
+    held = (f"{d['slots']:,} slots, pos {T:,} to {pos:,}" if d["slots"] else "state only")
+    say(f"{tag} {arch} long_500k d. bf16 decode B={B} at {cfg.n_layers} of {full.n_layers} layers ({held}; "
+        f"{d['state_gb']:.3f} GB of cache and state): {step_ms:.3f} ms a step over {d['steps']} steps, peak "
+        f"{peak_gb:.3f} GB above the weights ({peak_total_gb:.3f} GB in all); bound {d['bound_ms']:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB at 3.35 TB/s); one step ran under sync debug mode 'error', logits finite [{card}]")
+
+    # -- e. f32 against f64 from one seeded cache, cut depth -----------------
+    cut = replace(full, n_layers=spec["cut"])
+    m32 = build_model(cut, device=dev, generator=gen(12))
+    m64 = build_model(cut, device=dev, dtype=torch.float64)
+    m64.load_state_dict(m32.state_dict())
+    c32 = at_position(m32.init_cache(B, T, torch.float32))
+    where = f"at pos {T:,}" if "pos" in c32 else "from its state"
+    g = gen(13)
+    for leaf in tree_leaves(c32):
+        if leaf.is_floating_point():
+            leaf.normal_(0.0, 0.5, generator=g)
+    c64 = tree_map_tensors(lambda x: x.double() if x.is_floating_point() else x.clone(), c32)
+    tok = torch.randint(0, cut.vocab, (B, 1), generator=gen(14), device=dev).to(torch.int32)
+    l32 = m32.decode(tok, c32)[0]
+    del c32
+    l64 = m64.decode(tok, c64)[0]
+    del c64
+    err, scale = max_err(l32, l64), float(l64.abs().max())
+    bound = LM_LONG_F32_VS_F64[arch]
+    soft_check(failures, tag, err <= bound and bool(torch.isfinite(l64).all()),
+               f"{arch} long_500k e. f32 step within {bound:g} of the f64 step ({err:.3e})")
+    e = dict(layers=cut.n_layers, f32_vs_f64=err, bound=bound, max_abs_logit=scale)
+    say(f"{tag} {arch} long_500k e. f32 decode step {where} at {cut.n_layers} layers against its f64 step, "
+        f"one seeded cache: logits max |diff| {err:.3e} (bound {bound:g}; max|logits| {scale:.3f}) [{card}]")
+    del m32, m64, l32, l64
+    torch.cuda.empty_cache()
+    out = dict(decode_bf16=d, f32_vs_f64=e, seconds=time.perf_counter() - t_cell)
+    say(f"{tag} {arch} long_500k wall time {out['seconds']:.2f} s [{card}]")
+    return out
+
+
+def tree_leaves(tree: dict) -> list:
+    """The tensors of nested dicts of tensors."""
+    return [x for v in tree.values() for x in (tree_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def tree_map_tensors(fn, tree: dict) -> dict:
+    """Nested dicts of tensors with ``fn`` applied to each tensor."""
+    return {k: tree_map_tensors(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def grad_leaf_err(got: dict, want: dict) -> tuple[float, str]:
@@ -2656,6 +3011,8 @@ def main(lm: bool = True) -> int:
         lm_lines.append({"lm_serve": lm_serving_phase()})
         # -- 3b. the moe, ssm, hybrid and audio families at full width -----------
         lm_lines.append({"lm_families": lm_families_phase()})
+        # -- 3c. the five archs no other phase serves, and long_500k ------------
+        lm_lines.append({"lm_archs": lm_archs_phase()})
         # -- 4. the LM training path at full width --------------------------------
         lm_lines.append({"lm_train": lm_train_phase()})
         # -- 5. the LM distribution layer on a one-rank NCCL mesh -----------------
@@ -3504,14 +3861,15 @@ def ok_line() -> None:
 
 
 def only(phases: list[str]) -> int:
-    """``--only lm,lm-families,lm-train,lm-dist``: just the named LM phases, in the order
+    """``--only lm,lm-families,lm-archs,lm-train,lm-dist``: just the named LM phases, in the order
     given, each with its JSON line, then the ok line (no kernel runs, so no
     ``kernels`` line)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     runs = {"lm": ("lm_serve", lm_serving_phase), "lm-families": ("lm_families", lm_families_phase),
-            "lm-train": ("lm_train", lm_train_phase), "lm-dist": ("lm_dist", lm_dist_phase)}
+            "lm-archs": ("lm_archs", lm_archs_phase), "lm-train": ("lm_train", lm_train_phase),
+            "lm-dist": ("lm_dist", lm_dist_phase)}
     check(phases and set(phases) <= set(runs), f"--only takes a comma list of {sorted(runs)}")
     lines = [{runs[p][0]: runs[p][1]()} for p in phases]
     say("card:", card_line())
@@ -3526,5 +3884,6 @@ T_START = time.perf_counter()
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         sys.exit(main(lm=False) if sys.argv[2] == "cavity" else only(sys.argv[2].split(",")))
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--only cavity | --only lm,lm-families,lm-train,lm-dist]")
+    check(len(sys.argv) == 1,
+          "usage: python3 chip_smoke.py [--only cavity | --only lm,lm-families,lm-archs,lm-train,lm-dist]")
     sys.exit(main())

@@ -14,7 +14,8 @@ to ``x.dtype``). The traps each of these tests catches:
   ``F.gelu``'s erf: they differ by up to about 1e-3.
 * Rotary angles are f32 products of f32 positions and f32-rounded inverse
   frequencies: float64 angles at position 32k with theta = 1e6 move
-  cos/sin by about 4e-4, far above the 1e-6 held here.
+  cos/sin by about 4e-4, far above the 1e-6 held here; past 524,288
+  (``long_500k``) the two packages' f32 cos/sin still agree to 6e-8.
 * Decode ages are a floor modulo, and the window / fill masks and the
   legacy roll layout (``slot=None``) are the reference's.
 """
@@ -72,24 +73,31 @@ def test_norms_match_reference(kind):
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
-def test_rope_and_mrope_match_reference_up_to_32k():
+@pytest.mark.parametrize("end", [32768, 524289], ids=["32k", "long_500k"])
+def test_rope_and_mrope_match_reference_up_to_32k(end):
+    """Positions below ``end``: 32,768, and past ``long_500k``'s 524,288 (the
+    largest position a long decode starts from), the corners included; rope
+    at head_dim 64 and 128, M-RoPE at (8, 12, 12) over 64 and at qwen2-vl's
+    (16, 24, 24) over its head_dim 128, all at theta 1e6."""
     rng = np.random.default_rng(1)
-    pos = rng.integers(0, 32768, (2, 16))
-    pos[0, :4] = [0, 1, 32766, 32767]
-    want_c, want_s = jlayers.rope_freqs(_j(pos), 64, 1e6)
-    got_c, got_s = tlayers.rope_freqs(_t(pos), 64, 1e6)
-    assert got_c.dtype == torch.float32 and got_c.shape == (2, 16, 32)
-    np.testing.assert_allclose(_np(got_c), _np(want_c), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(_np(got_s), _np(want_s), rtol=0, atol=1e-6)
-    # the trap: float64 angles are visibly off at these positions
-    inv = 1.0 / (1e6 ** (np.arange(0, 64, 2) / 64))
-    assert np.abs(np.cos(pos[..., None] * inv) - _np(want_c)).max() > 1e-4
+    pos = rng.integers(0, end, (2, 16))
+    pos[0, :4] = [0, 1, end - 2, end - 1]
+    for hd in (64, 128):
+        want_c, want_s = jlayers.rope_freqs(_j(pos), hd, 1e6)
+        got_c, got_s = tlayers.rope_freqs(_t(pos), hd, 1e6)
+        assert got_c.dtype == torch.float32 and got_c.shape == (2, 16, hd // 2)
+        np.testing.assert_allclose(_np(got_c), _np(want_c), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(_np(got_s), _np(want_s), rtol=0, atol=1e-6)
+        # the trap: float64 angles are visibly off at these positions
+        inv = 1.0 / (1e6 ** (np.arange(0, hd, 2) / hd))
+        assert np.abs(np.cos(pos[..., None] * inv) - _np(want_c)).max() > 1e-4
 
     pos3 = np.stack([pos, pos // 2, pos // 3], axis=1)  # (B, 3, S)
-    want_c, want_s = jlayers.mrope_freqs(_j(pos3), 64, 1e6, (8, 12, 12))
-    got_c, got_s = tlayers.mrope_freqs(_t(pos3), 64, 1e6, (8, 12, 12))
-    np.testing.assert_allclose(_np(got_c), _np(want_c), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(_np(got_s), _np(want_s), rtol=0, atol=1e-6)
+    for hd, sections in ((64, (8, 12, 12)), (128, (16, 24, 24))):
+        want_c, want_s = jlayers.mrope_freqs(_j(pos3), hd, 1e6, sections)
+        got_c, got_s = tlayers.mrope_freqs(_t(pos3), hd, 1e6, sections)
+        np.testing.assert_allclose(_np(got_c), _np(want_c), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(_np(got_s), _np(want_s), rtol=0, atol=1e-6)
 
     x = rng.standard_normal((2, 16, 4, 64)).astype(np.float32)
     cos, sin = tlayers.rope_freqs(_t(pos), 64, 1e6)

@@ -90,6 +90,29 @@ finding per line:
    interquartile ranges separate (else the ratio is unresolved).
    (e) ``examples/trace_fused_sharded_torch.py``'s ``main`` on the card
    into a temporary file: a valid trace. Prints the phase's wall time.
+2d. the cavity at the card's scale, run after phase 6 (which reads phase
+   2's state) with phase 2's simulations freed; alone: ``--only
+   cavity-scale [--roots R]``. ``fused`` on the full cavity's configuration
+   with ``SCALE_ROOTS``^3 roots (12^3: {L0: 1,584, L1: 576, L2: 4,608} =
+   6,768 blocks after the second AMR event, level 2's pdf stack 3.44e9
+   elements, past 2^31), 11 coarse steps with ``adapt()`` after steps 4 and
+   8; launch counts zeroed just before and read just after. Prints the
+   bytes allocated at its start; after each event the blocks per level and
+   per rank, the pipeline's stage seconds, p2p bytes and messages, the
+   seconds of the driver's work around it (flush, adopt, masks, ghosts) and
+   the next program's build; peak device memory (allocated, reserved, the
+   least free) and its account a block (pdf stacks, masks, halo maps, the
+   rest); the host's peak RSS; steady coarse steps/s and MLUPS over steps
+   10-11; the device's idle share over 2 more steady steps; mass drift; the
+   phase's wall time against ``SCALE_BUDGET_S``. It must run on the card,
+   run 2 events, step three levels in the steady window with level 2's
+   stack at 2^31 elements or more, drift at most 1e-5 and move no pdf
+   between host and device in the steady window. Then, on the steady
+   state: the halo route over the whole level-2 stack against
+   ``lbm_halo_fill`` then the stencil, bitwise (in parts of the stack where
+   their copies do not fit beside the route's output), and the stencil
+   over the whole stack, its last 64 blocks against the plain version on
+   those blocks alone; each timed against its bound.
 3. ``[lm]``, the LM scaffold's serving path at full width: qwen2-0.5b
    (24 layers, d_model 896, GQA 14/2, vocab 151,936, tied embeddings) from
    one seeded generator, through ``build_model``, ``Model.logits``,
@@ -212,15 +235,18 @@ finding per line:
    ``restack`` and ``fused_sharded`` with 24 tracers a block under the lid
    agree on every tracer's position within 1e-10.
 8. the card line, the ``lm_serve``, ``lm_families``, ``lm_archs``, ``lm_train``,
-   ``lm_dist`` and ``kernels`` JSON lines, the script's wall time and the
-   final ``ok`` line.
+   ``lm_dist`` and ``kernels`` JSON lines (phase 2d's launches a path of
+   their own, ``cavity_scale``, and its level-2 times under ``scale``), the
+   script's wall time and the final ``ok`` line.
 
 ``python3 chip_smoke.py --only lm,lm-families,lm-archs,lm-train,lm-dist`` runs just the
 named LM phases, in that order, and ends with their JSON lines and the
 ``ok`` line. The serving phases build no autograd graph.
-``python3 chip_smoke.py --only cavity`` runs phases 1, 2 to 2c and 6 and
+``python3 chip_smoke.py --only cavity`` runs phases 1, 2 to 2c, 6 and 2d and
 ends with the card line, the ``kernels`` line and the ``ok`` line (no LM
-phase, no phase 7).
+phase, no phase 7). ``python3 chip_smoke.py --only cavity-scale`` runs phase
+1's build and phase 2d, then its ``cavity_scale`` JSON line and the ``ok``
+line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -261,6 +287,23 @@ FULL_CAVITY = dict(
     collision="trt",
     **PHYSICS,
 )
+# phase 2d, the cavity at the card's scale: the full cavity's physics and
+# blocks on SCALE_ROOTS^3 roots (R^3 roots grow R^3 - R^2 level-0, 4 R^2
+# level-1 and 32 R^2 level-2 blocks under the lid: 6,768 at R = 12), 11
+# coarse steps with adapt() after steps 4 and 8; steps 10 and 11 are the
+# steady window
+SCALE_ROOTS = 12
+SCALE_STEPS = 11
+SCALE_EVENTS = (4, 8)
+SCALE_BUDGET_S = 180.0
+# the plan's memory: the card's bytes (torch.cuda.mem_get_info's total on an
+# H100 80GB HBM3), the share the phase's peak may take, the peak's bytes a
+# block and what earlier phases leave allocated (both measured on the card,
+# PERF.md section 6)
+SCALE_CARD_BYTES = 85.0e9
+SCALE_MEMORY_SHARE = 0.9
+SCALE_BYTES_PER_BLOCK = 6.545e6
+SCALE_RESIDENT_BYTES = 17.0e9
 CROSS_CHECK = dict(cells_per_block=(32, 32, 32), root_grid=(2, 2, 2), max_level=1, nranks=4, **PHYSICS)
 # device_sharded's ranks share one card, so that the script needs one card
 SHARED_CARD = ("cuda:0",) * 4
@@ -332,7 +375,9 @@ LM_PREFILL_ONE_CALL_S = 2.0
 # phase 3c: the five archs no other phase serves, at full width from one
 # seed. ``layers``: the f32 leg's depth (f32 weights under 56 GB; yi-9b
 # and granite-20b cut to half of what fits, 24 and 13, for the phase's
-# 240 s budget: the leg is launch-bound at about 1.5 ms a layer a step);
+# 240 s budget: the leg is launch-bound at about 1.5 ms a layer a step;
+# every arch's leg halved again, to 8, 12, 6, 4 and 6 layers, to make room
+# for phase 2d in the script's time, PERF.md section 6);
 # ``bf16_layers``: the bf16 legs' depth and ``decode_B`` their decode
 # batch against ``decode_T`` slots (bf16 weights plus cache under 64 GB;
 # tests/test_torch_lm_plan.py holds both on the meta device); ``cut``: the
@@ -341,13 +386,13 @@ LM_PREFILL_ONE_CALL_S = 2.0
 # budget: their witness took 20.7 and 27.0 s at 2); no f64 prefill at the f32
 # leg's depth, whose f64 weights would not fit beside the f32 model's
 LM_ARCHS = {
-    "olmo-1b": dict(layers=16, bf16_layers=16, cut=2, decode_B=8, decode_T=32768, prefill_S=8192, f64_prefill=False),
-    "yi-9b": dict(layers=24, bf16_layers=48, cut=2, decode_B=8, decode_T=32768, prefill_S=8192, f64_prefill=False),
-    "granite-20b": dict(layers=13, bf16_layers=52, cut=2, decode_B=16, decode_T=32768, prefill_S=8192,
+    "olmo-1b": dict(layers=8, bf16_layers=16, cut=2, decode_B=8, decode_T=32768, prefill_S=8192, f64_prefill=False),
+    "yi-9b": dict(layers=12, bf16_layers=48, cut=2, decode_B=8, decode_T=32768, prefill_S=8192, f64_prefill=False),
+    "granite-20b": dict(layers=6, bf16_layers=52, cut=2, decode_B=16, decode_T=32768, prefill_S=8192,
                         f64_prefill=False),
-    "mixtral-8x7b": dict(layers=8, bf16_layers=16, cut=1, decode_B=32, decode_T=32768, prefill_S=8192,
+    "mixtral-8x7b": dict(layers=4, bf16_layers=16, cut=1, decode_B=32, decode_T=32768, prefill_S=8192,
                          f64_prefill=False),
-    "qwen2-vl-72b": dict(layers=12, bf16_layers=24, cut=1, decode_B=4, decode_T=32768, prefill_S=8192,
+    "qwen2-vl-72b": dict(layers=6, bf16_layers=24, cut=1, decode_B=4, decode_T=32768, prefill_S=8192,
                          f64_prefill=False),
 }
 # the sliding-window arch's request longer than its window: window + this
@@ -2136,10 +2181,337 @@ def lm_dist_cells() -> dict:
     return d
 
 
+def launch_counts() -> dict:
+    """Every wrapper's launch counts, by route."""
+    from repro_torch.kernels.lbm_collide.lbm_collide import lbm_halo_fill, lbm_stream_collide, lbm_stream_collide_halo
+
+    out = {fn.__name__: fn.launches for fn in (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)}
+    out["lbm_stream_collide[slots]"] = lbm_stream_collide.slot_launches
+    out["lbm_stream_collide[members]"] = lbm_stream_collide.member_launches
+    out["lbm_stream_collide[halo]"] = lbm_stream_collide.halo_launches
+    out["lbm_stream_collide[halo+slots]"] = lbm_stream_collide.halo_slot_launches
+    out["lbm_stream_collide[halo+members]"] = lbm_stream_collide.halo_member_launches
+    out.update({f"lbm_halo_fill[{k}]": n for k, n in lbm_halo_fill.kind_launches.items()})
+    out["lbm_halo_fill[members]"] = sum(n for k, n in lbm_halo_fill.kind_launches.items() if k.endswith("+members"))
+    return out
+
+
+def scale_cavity(roots: int) -> dict:
+    """The full cavity's configuration on ``roots``^3 roots."""
+    return dict(FULL_CAVITY, root_grid=(roots,) * 3)
+
+
+def lid_layer_blocks(roots: int) -> dict:
+    """Blocks per level the lid grows on ``roots``^3 roots after two AMR
+    events: the top layer of roots refines, and the layer of level-1 blocks
+    under the lid refines again."""
+    return {0: roots**3 - roots**2, 1: 4 * roots**2, 2: 32 * roots**2}
+
+
+class RssSampler:
+    """The process's peak resident set over a window, sampled every
+    ``period`` seconds from ``/proc/self/statm`` on a thread of its own
+    (``ru_maxrss`` holds the peak since the process began)."""
+
+    def __init__(self, period: float = 0.05) -> None:
+        import threading
+
+        self.peak = 0
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(period,), daemon=True)
+
+    def rss(self) -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * self._page
+
+    def _run(self, period: float) -> None:
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.rss())
+            self._stop.wait(period)
+
+    def __enter__(self) -> "RssSampler":
+        self.peak = self.rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+
+
+def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
+    """Phase 2d: ``AMRLBM.run``'s steps in ``fused`` mode on the full
+    cavity's configuration with ``roots``^3 roots, the kernels held to their
+    plain versions on the level-2 stack it grows (past 2^31 elements at R =
+    12). Returns the phase's summary, its launches and its kernel rows."""
+    from repro_torch.kernels.lbm_collide.lbm_collide import (
+        lbm_halo_fill,
+        lbm_stream_collide,
+        reset_launches,
+    )
+    from repro_torch.kernels.lbm_collide.ref import stream_collide_ref
+    from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
+    from repro_torch.lbm.lattice import omega_for_level
+
+    tag = "[cavity-scale]"
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    free0, total = torch.cuda.mem_get_info()
+    say(f"{tag} starts with {mem0 / 1e9:.3f} GB allocated and {torch.cuda.memory_reserved() / 1e9:.3f} GB reserved "
+        f"on the card, {free0 / 1e9:.3f} GB free of {total / 1e9:.3f} GB")
+    cfg = LidDrivenCavityConfig(stepping_mode="fused", kernel_backend="cuda", **scale_cavity(roots))
+    say(f"{tag} config:", json.dumps({k: v for k, v in vars(cfg).items() if k != "obstacle_fn"}))
+
+    def per_level(sim) -> dict:
+        return dict(sorted(Counter(b.level for b in sim.forest.all_blocks()).items()))
+
+    def per_rank(sim) -> dict:
+        per = {}
+        for b in sim.forest.all_blocks():
+            per.setdefault(b.owner, Counter())[b.level] += 1
+        return {r: dict(sorted(c.items())) for r, c in sorted(per.items())}
+
+    def transfers(sim) -> tuple[int, int]:
+        res = sim.arena.device()
+        return res.h2d_transfers, res.d2h_transfers
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    free_min = [free0]
+
+    def sample_free() -> None:
+        free_min[0] = min(free_min[0], torch.cuda.mem_get_info()[0])
+
+    with RssSampler() as rss:
+        t_main = time.perf_counter()
+        sim = AMRLBM(cfg)
+        check(sim.device.type == "cuda", "the scale run is on the card")
+        init_s = time.perf_counter() - t_main
+        t0 = time.perf_counter()
+        mass0 = sim.total_mass()
+        mass_s = time.perf_counter() - t0
+        say(f"{tag} {sim.forest.num_blocks()} blocks at the start, set up in {init_s:.2f} s "
+            f"(first mass {mass_s:.2f} s)")
+        # the pieces of adapt() beside its pipeline's stages, timed by
+        # wrapping the methods it calls on this simulation
+        pieces: Counter = Counter()
+
+        def timed(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    pieces[name] += time.perf_counter() - t
+            return run
+
+        sim.materialize_host = timed("flush", sim.materialize_host)
+        sim.refresh_masks = timed("masks", sim.refresh_masks)
+        sim.engine.adopt = timed("adopt", sim.engine.adopt)
+        sim.engine.exchange_ghosts = timed("ghosts", sim.engine.exchange_ghosts)
+        step_s, events, levels_at, moved = [], [], [], []
+        for i in range(SCALE_STEPS):
+            levels_at.append(per_level(sim))
+            moved.append(transfers(sim))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.advance(1)
+            step_s.append(time.perf_counter() - t0)
+            sample_free()
+            if i + 1 in SCALE_EVENTS:
+                pieces.clear()
+                t0 = time.perf_counter()
+                report = sim.adapt()
+                event_s = time.perf_counter() - t0
+                sample_free()
+                # the next step's program, built here so that its seconds
+                # stand apart (the build:fused_superstep span)
+                t0 = time.perf_counter()
+                sim.engine._fused_program()
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                sample_free()
+                ev = dict(
+                    after_step=i + 1, executed=report.executed, seconds=event_s, build_s=build_s,
+                    stages={k: dict(seconds=v.seconds, p2p_bytes=v.p2p_bytes, p2p_messages=v.p2p_messages)
+                            for k, v in report.stages.items()},
+                    pieces=dict(pieces), blocks=per_level(sim), ranks=per_rank(sim),
+                )
+                events.append(ev)
+                say(f"{tag} AMR event after step {i + 1}: {event_s:.2f} s; blocks per level "
+                    f"{json.dumps(ev['blocks'])}, per rank {json.dumps(ev['ranks'])}")
+                say(f"{tag}   stages (s, p2p bytes, messages): " + json.dumps(
+                    {k: [round(v['seconds'], 3), v['p2p_bytes'], v['p2p_messages']] for k, v in ev["stages"].items()}))
+                say(f"{tag}   around the pipeline (s): " + json.dumps({k: round(v, 3) for k, v in pieces.items()})
+                    + f"; the next step's program build {build_s:.2f} s")
+        moved.append(transfers(sim))
+        launches = launch_counts()
+        steps_run = sim.coarse_step
+        torch.cuda.synchronize()
+        peak_alloc = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+        steady = range(SCALE_STEPS - 2, SCALE_STEPS)  # steps 10 and 11
+        steady_s = sum(step_s[i] for i in steady)
+        forest_steady = levels_at[steady.start]
+        cells = int(np.prod(cfg.cells_per_block))
+        updates = sum(n * cells * 2**l for l, n in forest_steady.items())
+        rate = len(steady) / steady_s
+        t0 = time.perf_counter()
+        mass1 = sim.total_mass()
+        mass_s += time.perf_counter() - t0
+        main_s = time.perf_counter() - t_main
+    drift = abs(mass1 - mass0) / mass0
+
+    # the device's share of 2 more steady coarse steps
+    rows, busy_ms, wall_ms = device_profile(lambda: sim.advance(2))
+    say(f"{tag} profile of 2 steady coarse steps: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall, "
+        f"idle share {1 - busy_ms / wall_ms:.1%}")
+    for name, ms, count in rows[:6]:
+        say(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<5d} {name[:110]}")
+
+    # the account of the peak: pdf stacks, masks (the residency's and the
+    # halo steps'), the halo maps (8 bytes a cell), the rest
+    levels = sim.arena.levels()
+    lmax = levels[-1]
+    res = sim.arena.device()
+    bufs = [res.fetch(l, "pdf") for l in levels]
+    masks = [res.fetch(l, "mask") for l in levels]
+    fn = sim.engine._fused_program()[0]
+    nblocks = sum(b.shape[0] for b in bufs)
+    pdf_bytes = sum(b.numel() * b.element_size() for b in bufs)
+    mask_bytes = sum(m.numel() * m.element_size() for m in masks)
+    map_bytes = fn.map_bytes
+    rest = peak_alloc - mem0 - pdf_bytes - mask_bytes - map_bytes
+    account = dict(pdf=pdf_bytes, masks=mask_bytes, maps=map_bytes, rest=rest)
+    i2 = levels.index(lmax)
+    f2, m2 = bufs[i2], masks[i2]
+    stack2 = f2.numel()
+    say(f"{tag} blocks per level during steps 9-11: {json.dumps(forest_steady)}; level {lmax}'s pdf stack "
+        f"{tuple(f2.shape)} holds {stack2:,} elements ({stack2 / 2**31:.2f} x 2^31)")
+    say(f"{tag} peak device memory {peak_alloc / 1e9:.3f} GB allocated ({(peak_alloc - mem0) / 1e9:.3f} GB above the "
+        f"start), {peak_reserved / 1e9:.3f} GB reserved, {free_min[0] / 1e9:.3f} GB free at the least "
+        f"(mem_get_info), of {total / 1e9:.3f} GB; {(peak_alloc - mem0) / nblocks / 1e6:.3f} MB a block: "
+        + ", ".join(f"{k} {v / nblocks / 1e6:.3f}" for k, v in account.items()))
+    say(f"{tag} host peak RSS {rss.peak / 1e9:.3f} GB (sampled every 50 ms) of "
+        f"{os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES') / 1e9:.3f} GB")
+    say(f"{tag} coarse step wall times (s):", json.dumps([round(t, 4) for t in step_s]))
+    say(f"{tag} steady state (steps 10-11): {rate:.3f} coarse steps/s, {updates * rate / 1e6:.1f} MLUPS "
+        f"({updates} interior cell updates per coarse step)")
+    t_a, t_b = moved[steady.start], moved[steady.stop]
+    say(f"{tag} steady-state h2d/d2h transfers over steps 10-11: {t_b[0] - t_a[0]}/{t_b[1] - t_a[1]}")
+    say(f"{tag} mass: {mass0:.6f} -> {mass1:.6f}, relative drift {drift:.3e} (limit 1e-5; the two sums {mass_s:.2f} s)")
+    say(f"{tag} kernel launches: {json.dumps({k: n for k, n in launches.items() if n})}")
+    check(steps_run == SCALE_STEPS and sim.amr_cycles == len(SCALE_EVENTS) and all(e["executed"] for e in events),
+          f"{SCALE_STEPS} coarse steps and {len(SCALE_EVENTS)} AMR events ran: {steps_run}, {sim.amr_cycles}")
+    check(len(forest_steady) == 3, f"three levels step in the steady window: {forest_steady}")
+    check(stack2 >= 2**31 or roots < SCALE_ROOTS, f"level {lmax}'s stack holds 2^31 elements or more: {stack2}")
+    check(drift <= 1e-5, f"mass drift within 1e-5 relative: {drift:.3e}")
+    check(t_a == t_b, "zero host<->device pdf transfers in the steady window")
+    check(launches["lbm_stream_collide[halo]"] > 0 and launches["lbm_halo_fill"] == 0,
+          "the halo route launched and no separate fill on the scale path")
+
+    # (a) the halo route over the whole level-2 stack against the fill then
+    # the stencil, bitwise; the fill then stencil in parts of the stack
+    # where two more copies do not fit beside the route's output
+    kw = dict(omega=omega_for_level(cfg.omega, lmax), lattice=sim.spec.lattice, u_wall=cfg.u_lid,
+              collision=cfg.collision)
+    check(len(fn.maps[lmax]) == 1 and fn.maps[lmax][0].mask is m2,
+          f"level {lmax} has one halo map in every pattern, built from the residency's mask")
+    hmap = fn.maps[lmax][0]  # the program's own
+    tables = hmap.tables
+    ghost_rows = sum(t.dst_slot.numel() for t in tables)
+    srcs = tuple(bufs)
+    B2 = f2.shape[0]
+    block_bytes = f2[0].numel() * f2.element_size()
+    out_h = torch.empty_like(f2)
+    route = lambda: lbm_stream_collide(f2, m2, halo=hmap, sources=srcs, out=out_h, **kw)  # noqa: E731
+    route()
+    torch.cuda.synchronize()
+    # the parts' two buffers, sized to what the driver has free once the
+    # allocator's cache is returned (its cached blocks may be fragments)
+    torch.cuda.empty_cache()
+    part = min(B2, int((torch.cuda.mem_get_info()[0] - 4e9) // (2 * block_bytes)))
+    check(part >= 64, f"room for the fill then the stencil on 64 blocks or more: {part}")
+    work = torch.empty((part, *f2.shape[1:]), dtype=f2.dtype, device=f2.device)
+    got = torch.empty_like(work)
+    ds_all = [t.dst_slot.long() for t in tables]
+    worst = 0.0
+    for b0 in range(0, B2, part):
+        b1 = min(B2, b0 + part)
+        w = work[: b1 - b0]
+        w.copy_(f2[b0:b1])
+        for t, ds in zip(tables, ds_all):
+            sel = torch.nonzero((ds >= b0) & (ds < b1)).squeeze(1)
+            if sel.numel():
+                lbm_halo_fill(w, bufs[t.src], t.kind, (t.dst_slot[sel] - b0).contiguous(), t.dst_cell[sel],
+                              t.src_slot[sel], t.src_cell[sel])
+        lbm_stream_collide(w, m2[b0:b1], out=got[: b1 - b0], **kw)
+        worst = max(worst, max_err(out_h[b0:b1], got[: b1 - b0]))
+    del work, got, w
+    check(worst == 0.0, f"the halo route over level {lmax}'s {B2} blocks equals the fill then the stencil bitwise")
+    halo_ms = time_ms(route, iters=5, warmup=1)
+    cells2 = int(np.prod(f2.shape[2:]))
+    tr = fill_traffic(tables, cells2)
+    row_bytes = sim.spec.lattice.Q * f2.element_size()
+    extra = (tr["src_other"] - tr["rows"]) * row_bytes + tr["index_bytes"]
+    halo_bound_ms, halo_by = stencil_bound_ms(f2, m2, cfg.collision, extra_bytes=extra)
+    say(f"{tag} lbm_stream_collide[halo] level {lmax} B={B2} ({ghost_rows} ghost rows): bitwise the fill then "
+        f"the stencil ({'whole' if part == B2 else f'in parts of {part} blocks'}); kernel {halo_ms:.4f} ms, "
+        f"bound {halo_bound_ms:.4f} ms ({halo_by}), {halo_bound_ms / halo_ms:.1%} of bound")
+    del hmap, tables, ds_all
+
+    # (b) the stencil over the whole level-2 stack; its last 64 blocks, past
+    # 2^31 elements, against the plain version on those blocks alone
+    lbm_stream_collide(f2, m2, out=out_h, **kw)
+    tail = slice(B2 - 64, B2)
+    want = stream_collide_ref(f2[tail], m2[tail], **kw)
+    torch.cuda.synchronize()
+    tail_err = max_err(out_h[tail], want)
+    torch.testing.assert_close(out_h[tail], want, **TOL[torch.float32])
+    del want
+    check(f2[tail].storage_offset() + f2[tail].numel() > 2**31 or roots < SCALE_ROOTS,
+          "the compared tail lies past 2^31 elements")
+    sten_ms = time_ms(lambda: lbm_stream_collide(f2, m2, out=out_h, **kw), iters=5, warmup=1)
+    sten_bound_ms, sten_by = stencil_bound_ms(f2, m2, cfg.collision)
+    tail_ms = time_ms(lambda: lbm_stream_collide(f2[tail], m2[tail], **kw), iters=20)
+    tail_plain_ms = time_ms(lambda: stream_collide_ref(f2[tail], m2[tail], **kw), iters=3, warmup=1)
+    tail_bound_ms, tail_by = stencil_bound_ms(f2[tail], m2[tail], cfg.collision)
+    say(f"{tag} lbm_stream_collide level {lmax} B={B2}: {sten_ms:.4f} ms, bound {sten_bound_ms:.4f} ms ({sten_by}), "
+        f"{sten_bound_ms / sten_ms:.1%} of bound; its last 64 blocks (elements from "
+        f"{f2[tail].storage_offset():,} on) against the plain version: max |err| {tail_err:.3e}; on those blocks "
+        f"alone kernel {tail_ms:.4f} ms, plain {tail_plain_ms:.4f} ms, bound {tail_bound_ms:.4f} ms ({tail_by})")
+    del out_h, bufs, masks, srcs, f2, m2, fn, res, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    say(f"{tag} main path {main_s:.2f} s, phase wall time {phase_s:.2f} s (budget {SCALE_BUDGET_S:.0f} s)")
+    check(phase_s <= SCALE_BUDGET_S, f"phase 2d within its budget: {phase_s:.2f} s")
+    return dict(
+        roots=roots, blocks=forest_steady, events=events, step_s=step_s, rate=rate,
+        mlups=updates * rate / 1e6, updates=updates, busy_ms=busy_ms, wall_ms=wall_ms,
+        idle=1 - busy_ms / wall_ms, start_allocated=mem0, peak_allocated=peak_alloc, peak_reserved=peak_reserved,
+        free_least=free_min[0], card_bytes=total, per_block=(peak_alloc - mem0) / nblocks, account=account,
+        host_peak_rss=rss.peak, drift=drift, main_s=main_s, phase_s=phase_s, level2_elements=stack2,
+        launches=launches,
+        halo=dict(shape=f"level {lmax} B={B2}", ms=halo_ms, bound_ms=halo_bound_ms, bound_by=halo_by,
+                  max_abs_err_fill_then_stencil=worst, parts=part),
+        stencil=dict(shape=f"level {lmax} B={B2}", ms=sten_ms, bound_ms=sten_bound_ms, bound_by=sten_by,
+                     tail_max_abs_err=tail_err, tail_ms=tail_ms, tail_plain_ms=tail_plain_ms,
+                     tail_bound_ms=tail_bound_ms, tail_bound_by=tail_by),
+    )
+
+
 def main(lm: bool = True) -> int:
     """The whole script; ``lm=False`` (``--only cavity``) runs phases 1, 2 to
-    2c and 6 and prints the kernels line, without the LM phases 3 to 5 and
-    the cross-check of phase 7."""
+    2c, 6 and 2d and prints the kernels line, without the LM phases 3 to 5
+    and the cross-check of phase 7."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2187,20 +2559,11 @@ def main(lm: bool = True) -> int:
     from repro_torch.lbm.forests import refined_forest
     from repro_torch.lbm.halo import compile_ghost_plan, lower_halo_fill
     from repro_torch.lbm.lattice import D3Q19, D3Q27, omega_for_level
+    from repro_torch.lbm.plans import compile_forest_plan, pattern_plans
     from repro_torch.particles import ParticlesConfig, all_particles
     from repro_torch.serving import Ensemble, JobSpec, SimulationService, resize_ranks, topology_key
     from repro_torch.state import export_state, load_state
 
-    def launch_counts() -> dict:
-        out = {fn.__name__: fn.launches for fn in (lbm_stream_collide, lbm_halo_fill, lbm_stream_collide_halo)}
-        out["lbm_stream_collide[slots]"] = lbm_stream_collide.slot_launches
-        out["lbm_stream_collide[members]"] = lbm_stream_collide.member_launches
-        out["lbm_stream_collide[halo]"] = lbm_stream_collide.halo_launches
-        out["lbm_stream_collide[halo+slots]"] = lbm_stream_collide.halo_slot_launches
-        out["lbm_stream_collide[halo+members]"] = lbm_stream_collide.halo_member_launches
-        out.update({f"lbm_halo_fill[{k}]": n for k, n in lbm_halo_fill.kind_launches.items()})
-        out["lbm_halo_fill[members]"] = sum(n for k, n in lbm_halo_fill.kind_launches.items() if k.endswith("+members"))
-        return out
     card = card_line()
     say("card:", card)
     say(
@@ -2433,6 +2796,7 @@ def main(lm: bool = True) -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng._fused_fn = None
+    eng._forest_plan = None
     eng._fused_program()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -2443,8 +2807,8 @@ def main(lm: bool = True) -> int:
     nblocks = [sim.arena.num_blocks(l) for l in levels]
     cells = int(np.prod(sim.arena.buffer(lmax, "pdf").shape[2:]))
     t0 = time.perf_counter()
-    plans = [compile_ghost_plan(sim.forest, sim.fields, slots, fields=("pdf",),
-                                levels={l for l in levels if l >= lmax - p}) for p in range(lmax + 1)]
+    cut = pattern_plans(compile_forest_plan(sim.forest, sim.fields, slots, levels), levels)
+    plans = [cut[p] for p in range(lmax + 1)]
     plans_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pattern_fills = [lower_halo_fill(pl) for pl in plans]
@@ -2466,7 +2830,7 @@ def main(lm: bool = True) -> int:
                 distinct.append((l, f))
     n_fills = sum(len(fl) for fl in pattern_fills)
     say(f"[fused] superstep rebuild: {build_s:.3f} s. Its pieces, timed alone: ghost plans of "
-        f"{len(plans)} patterns {plans_s:.3f} s, merged fills {lower_s:.3f} s, disjointness checks "
+        f"{len(plans)} patterns (one compile of the whole forest) {plans_s:.3f} s, merged fills {lower_s:.3f} s, disjointness checks "
         f"{disjoint_s:.3f} s, fill tables of all {n_fills} (pattern, level) fills {tables_s:.3f} s "
         f"(the build makes tables for the {len(distinct)} distinct ones)")
 
@@ -3685,13 +4049,20 @@ def main(lm: bool = True) -> int:
     say(f"phase 6 peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB allocated on the card "
         f"({(torch.cuda.max_memory_allocated() - mem6) / 1e9:.3f} GB above its start)")
 
+    # -- 2d. the cavity at the card's scale, once phase 6 has read phase 2's state
+    r_s_blocks = f_r.shape[0]
+    del sim, res, eng, fs, fs_res, fs_progs, bufs, masks, f_fine, m_fine, srcs, hmap2, out_h, f_r, m_r, dst0
+    del fill_then_stencil_l, route_l, hm_l, tables, masks_s, local_t, msg_t, hm_local, msg_segs
+    scale = cavity_scale_phase()
+
     # -- 7. cross-check at a smaller depth ----------------------------------------
     if lm:
         cross_check_phase(forest_of)
 
     # -- 8. the LM and kernels lines and the result -------------------------------
     by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
-               "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches}
+               "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches,
+               "cavity_scale": scale["launches"]}
 
     def path_launches(key):
         return {path: counts[key] for path, counts in by_path.items()}
@@ -3702,7 +4073,7 @@ def main(lm: bool = True) -> int:
              max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound_ms, bound_by=k1_by, library_ms=None,
              registers=main_stencil["registers"], spills=main_stencil["local_bytes"],
-             occupancy=main_stencil["occupancy"], shape="B=64 34^3 D3Q19 TRT f32"),
+             occupancy=main_stencil["occupancy"], shape="B=64 34^3 D3Q19 TRT f32", scale=scale["stencil"]),
         # the halo kernel's work on the main path: one launch of the
         # stencil's halo route a filled level, each ghost value read from
         # its source (fused; the ensemble's below)
@@ -3713,7 +4084,8 @@ def main(lm: bool = True) -> int:
              bound_by=k2_by, library_ms=None, registers=halo_stencils["trt+halo"]["registers"],
              spills=halo_stencils["trt+halo"]["local_bytes"], occupancy=halo_stencils["trt+halo"]["occupancy"],
              per_level_ms={str(l): r for l, r in per_level.items()},
-             fill_then_stencil_ms=k2_ms, shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32"),
+             fill_then_stencil_ms=k2_ms, shape=f"level {lmax} B={B2}, {rows2} ghost rows, D3Q19 TRT f32",
+             scale=scale["halo"]),
         dict(name="lbm_stream_collide[halo+members]", route="cuda", source=KERNEL_SOURCE,
              replaces=KERNEL2_REPLACES, launches=serving_launches["lbm_stream_collide[halo+members]"],
              launches_by_path=path_launches("lbm_stream_collide[halo+members]"), max_abs_err=kmh_err,
@@ -3738,7 +4110,7 @@ def main(lm: bool = True) -> int:
              registers=halo_stencils["trt+slots+halo+payloads"]["registers"],
              spills=halo_stencils["trt+slots+halo+payloads"]["local_bytes"],
              occupancy=halo_stencils["trt+slots+halo+payloads"]["occupancy"], rank_level=rank_rows,
-             shape=f"rank {r_s} level {lmax}: boundary half, {slots_np.size} of {f_r.shape[0]} blocks, "
+             shape=f"rank {r_s} level {lmax}: boundary half, {slots_np.size} of {r_s_blocks} blocks, "
                    f"D3Q19 TRT f32"),
         # the stencil over a slot list (interior and boundary halves of
         # levels without rows)
@@ -3747,7 +4119,7 @@ def main(lm: bool = True) -> int:
              launches_by_path=path_launches("lbm_stream_collide[slots]"), max_abs_err=ks_err,
              max_abs_err_whole_stack=ks_bitwise, ms=ks_ms, plain_ms=ks_plain_ms, bound_ms=ks_bound_ms,
              bound_by=ks_by, library_ms=None,
-             shape=f"rank {r_s} level {lmax}: {slots_np.size} of {f_r.shape[0]} blocks, D3Q19 TRT f32"),
+             shape=f"rank {r_s} level {lmax}: {slots_np.size} of {r_s_blocks} blocks, D3Q19 TRT f32"),
         # the member routes of both kernels on the serving path: one launch
         # for all members of an ensemble
         dict(name="lbm_stream_collide[members]", route="cuda", source=KERNEL_SOURCE, replaces=KERNEL1_REPLACES,
@@ -3879,11 +4251,37 @@ def only(phases: list[str]) -> int:
     return 0
 
 
+def cavity_scale_only(roots: int) -> int:
+    """``--only cavity-scale [--roots R]``: phase 1's build, then phase 2d
+    alone (on R^3 roots, ``SCALE_ROOTS`` unless given), its ``cavity_scale``
+    JSON line and the ok line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    set_numerics()
+    from repro_torch.kernels.lbm_collide import build as kbuild
+
+    say("card:", card_line())
+    t0 = time.perf_counter()
+    lib_paths, _log = kbuild.build()
+    say(f"build: {', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.2f} s")
+    scale = cavity_scale_phase(roots)
+    say("card:", card_line())
+    print(json.dumps({"cavity_scale": scale}))
+    ok_line()
+    return 0
+
+
+USAGE = ("usage: python3 chip_smoke.py [--only cavity | --only cavity-scale [--roots R] | "
+         "--only lm,lm-families,lm-archs,lm-train,lm-dist]")
 T_START = time.perf_counter()
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--only":
-        sys.exit(main(lm=False) if sys.argv[2] == "cavity" else only(sys.argv[2].split(",")))
-    check(len(sys.argv) == 1,
-          "usage: python3 chip_smoke.py [--only cavity | --only lm,lm-families,lm-archs,lm-train,lm-dist]")
+    args = sys.argv[1:]
+    if args[:2] == ["--only", "cavity-scale"]:
+        check(len(args) == 2 or (len(args) == 4 and args[2] == "--roots"), USAGE)
+        sys.exit(cavity_scale_only(int(args[3]) if len(args) == 4 else SCALE_ROOTS))
+    if len(args) == 2 and args[0] == "--only":
+        sys.exit(main(lm=False) if args[1] == "cavity" else only(args[1].split(",")))
+    check(not args, USAGE)
     sys.exit(main())

@@ -498,6 +498,7 @@ class DeviceResidency:
         key = (level, name)
         arr = self._dev.get(key)
         if arr is None:
+            assert key not in self._dev_newer, f"{key} was taken and its successor not stored"
             host = self.arena.buffer(level, name)
             assert host is not None, f"no arena buffer for L{level} {name!r}"
             # copy=True: on a CPU device the mirror must not alias the host
@@ -537,6 +538,20 @@ class DeviceResidency:
         )
         self._dev[key] = value
         self._dev_newer.add(key)
+
+    def take(self, level: int, name: str):
+        """Hand the device buffer for (level, field) to a caller that
+        consumes it, such as a superstep that frees each input once its
+        successor exists.
+
+        Returns :meth:`fetch`'s buffer and forgets it, leaving the pair
+        marked device-newer: the caller must :meth:`store` its successor
+        before the pair is fetched, flushed or adopted again.
+        """
+        arr = self.fetch(level, name)
+        del self._dev[(level, name)]
+        self._dev_newer.add((level, name))
+        return arr
 
     def drop(self, name: str | None = None, level: int | None = None) -> None:
         """Forget device copies (after a host-side write made them stale).

@@ -85,6 +85,7 @@ __all__ = [
     "halo_map",
     "HaloStep",
     "apply_compiled_ghost_plan",
+    "run_compiled_ghost_plan",
     "make_fused_superstep",
     "make_ensemble_superstep",
     "substep_patterns",
@@ -382,13 +383,15 @@ class HaloStep:
     ``out``. Given the pre-step tuple alone, a step with message rows
     reads its local rows only (a rank's interior half, whose blocks name
     no payload row). ``local_rows`` and ``message_rows`` count the rows of
-    each kind, ``map_bytes`` the ``cuda`` backend's map (8 bytes a cell)."""
+    each kind, ``map_bytes`` the ``cuda`` backend's map (8 bytes a cell),
+    ``map`` that map (None on ``ref``)."""
 
     fill: Callable[[tuple], object]
     step: Callable[..., torch.Tensor]
     local_rows: int = 0
     message_rows: int = 0
     map_bytes: int = 0
+    map: HaloMap | None = None
 
 
 def make_halo_stream_collide(
@@ -456,7 +459,7 @@ def make_halo_stream_collide(
             return lbm_stream_collide(f, mask_t, halo=halo, sources=sources, slots=slots, out=out, **kw)
 
         return HaloStep(lambda sources: sources, step, local_rows, message_rows,
-                        hmap.cells.numel() * hmap.cells.element_size())
+                        hmap.cells.numel() * hmap.cells.element_size(), hmap)
 
     if isinstance(mask, np.ndarray):
         pm = {k: torch.as_tensor(v, device=device) for k, v in precompute_stream_masks(mask, lattice).items()}
@@ -567,11 +570,18 @@ def apply_compiled_ghost_plan(plan, bufs: dict[int, np.ndarray | torch.Tensor]) 
         "apply_compiled_ghost_plan executes one field's buffers; compile "
         "multi-field exchanges as one plan per field"
     )
+    copies = {l: torch.as_tensor(b).clone() for l, b in bufs.items()}
+    run_compiled_ghost_plan(plan, copies)
+    return copies
+
+
+def run_compiled_ghost_plan(plan, bufs: dict[int, torch.Tensor]) -> None:
+    """Run one compiled single-field ghost exchange in place on per-level
+    buffers (level -> (B, *lead, X, Y, Z) tensor, all on one device; a host
+    arena's buffers through ``torch.from_numpy`` views)."""
     levels = sorted(bufs)
     index = {l: i for i, l in enumerate(levels)}
-    copies = [torch.as_tensor(bufs[l]).clone() for l in levels]
-    out = _run_plan_ops(_device_plan_ops(plan, index, copies[0].device), copies)
-    return dict(zip(levels, out))
+    _run_plan_ops(_device_plan_ops(plan, index, bufs[levels[0]].device), [bufs[l] for l in levels])
 
 
 def substep_patterns(lmax: int) -> list[int]:
@@ -606,6 +616,10 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
 
     The superstep consumes its input tuple: callers rebind the result
     (``pdfs = superstep(pdfs)``) and never read the arrays they passed in.
+    Given a list, it empties the list before the first substep, so a caller
+    that hands its stacks over that way (and keeps no other reference, as
+    :class:`~..lbm.engines.FusedEngine` does) holds each level's pre-step
+    and stepped stacks at once, never a third copy.
 
     Args:
         levels: refinement levels in use (the buffer tuple's order is the
@@ -624,7 +638,8 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
         Its ``fill_segments`` attribute counts the fill segments a coarse
         step runs (the ``ref`` backend's gathers), ``halo_steps`` the
         (substep, level) steps with a fill (the ``cuda`` backend's halo
-        launches; it launches no fill).
+        launches; it launches no fill), ``maps`` the halo maps of each
+        level's distinct merged fills and ``map_bytes`` their bytes.
     """
     levels = tuple(sorted(levels))
     index = {l: i for i, l in enumerate(levels)}
@@ -669,13 +684,17 @@ def make_fused_superstep(*, levels, plans, steppers, masks, halo_stepper_factory
     pattern = substep_patterns(lmax)
 
     def superstep(pdfs):
-        pdfs = tuple(pdfs)
+        state = tuple(pdfs)
+        if isinstance(pdfs, list):  # handed over: the caller keeps no reference
+            pdfs.clear()
         for p in pattern:
-            pdfs = branches[p](pdfs)
-        return pdfs
+            state = branches[p](state)
+        return state
 
     superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
     superstep.halo_steps = sum(branches[p].halo_steps for p in pattern)
+    superstep.maps = {l: [h.map for _f, h in steps] for l, steps in built.items()}
+    superstep.map_bytes = sum(h.map_bytes for steps in built.values() for _f, h in steps)
     return superstep
 
 

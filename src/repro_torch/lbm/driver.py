@@ -50,12 +50,12 @@ from ..core import (
     AMRPipeline,
     Comm,
     DeviceComm,
-    DiffusionBalancer,
     ForestGeometry,
     SFCBalancer,
     make_uniform_forest,
     recompute_weights,
 )
+from ..balancing import IndexedDiffusionBalancer
 from ..core.forest import Block, BlockForest
 from ..core.pipeline import StageStats
 from ..kernels.lbm_collide.ops import BACKENDS
@@ -121,9 +121,9 @@ def _make_balancer(name: str):
     if name == "hilbert":
         return SFCBalancer(order="hilbert", per_level=True)
     if name == "diffusion-push":
-        return DiffusionBalancer(mode="push", flow_iterations=15, max_main_iterations=20)
+        return IndexedDiffusionBalancer(mode="push", flow_iterations=15, max_main_iterations=20)
     if name == "diffusion-pushpull":
-        return DiffusionBalancer(mode="pushpull", flow_iterations=5, max_main_iterations=20)
+        return IndexedDiffusionBalancer(mode="pushpull", flow_iterations=5, max_main_iterations=20)
     raise ValueError(name)
 
 
@@ -182,6 +182,7 @@ class AMRLBM:
         # the data plane: storage, steppers, plan/mask caches, the superstep
         # and the per-mode advance loop all live on the engine
         self.engine = make_engine(self)
+        self._pdf0 = None
         for blk in self.forest.all_blocks():
             self._init_block(blk)
         if cfg.particles is not None:
@@ -214,38 +215,45 @@ class AMRLBM:
 
     # -- block initialization & masks ----------------------------------------
     def _init_block(self, blk: Block) -> None:
-        rho = torch.ones(self.spec.mask_shape, dtype=torch.float32)
-        u = torch.zeros((3, *self.spec.mask_shape), dtype=torch.float32)
-        blk.data["pdf"] = equilibrium(rho, u, self.spec.lattice).numpy()
+        if self._pdf0 is None:  # the fluid at rest, the same in every block
+            rho = torch.ones(self.spec.mask_shape, dtype=torch.float32)
+            u = torch.zeros((3, *self.spec.mask_shape), dtype=torch.float32)
+            self._pdf0 = equilibrium(rho, u, self.spec.lattice).numpy()
+        blk.data["pdf"] = self._pdf0.copy()
         blk.data["mask"] = self.fields.alloc("mask")
 
-    def _cell_centers(self, blk: Block) -> np.ndarray:
-        """World coordinates of all (ghosted) cell centers, shape (X,Y,Z,3)."""
+    def _cell_axes(self, blk: Block) -> list[np.ndarray]:
+        """World coordinates of the (ghosted) cell centers along each axis."""
         lo, hi = block_world_box(self.geom, blk.bid)
         n = np.asarray(self.spec.cells, dtype=np.float64)
         h = (hi - lo) / n
         g = self.spec.ghost
-        axes = [lo[d] + (np.arange(-g, n[d] + g) + 0.5) * h[d] for d in range(3)]
-        return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+        return [lo[d] + (np.arange(-g, n[d] + g) + 0.5) * h[d] for d in range(3)]
+
+    def _cell_centers(self, blk: Block) -> np.ndarray:
+        """World coordinates of all (ghosted) cell centers, shape (X,Y,Z,3)."""
+        return np.stack(np.meshgrid(*self._cell_axes(blk), indexing="ij"), axis=-1)
 
     def refresh_masks(self) -> None:
         """Re-derive cell types from the analytic geometry (domain walls, the
         moving lid at the top z face, optional obstacles). Writes in place so
-        arena views stay bound; the engine's device mask state is invalidated."""
+        arena views stay bound; the engine's device mask state is invalidated.
+        The walls and the lid test each axis's centers once and broadcast
+        (the same comparisons as on the full grid of centers, which only an
+        obstacle function needs)."""
         top = float(self.geom.root_grid[2])
         for blk in self.forest.all_blocks():
-            xyz = self._cell_centers(blk)
-            mask = np.zeros(xyz.shape[:-1], dtype=np.int32)
+            x, y, z = self._cell_axes(blk)
+            mask = np.zeros((x.size, y.size, z.size), dtype=np.int32)
             outside = (
-                (xyz[..., 0] < 0.0)
-                | (xyz[..., 0] > self.geom.root_grid[0])
-                | (xyz[..., 1] < 0.0)
-                | (xyz[..., 1] > self.geom.root_grid[1])
-                | (xyz[..., 2] < 0.0)
+                ((x < 0.0) | (x > self.geom.root_grid[0]))[:, None, None]
+                | ((y < 0.0) | (y > self.geom.root_grid[1]))[None, :, None]
+                | (z < 0.0)[None, None, :]
             )
-            mask[outside] = CellType.WALL
-            mask[xyz[..., 2] > top] = CellType.LID
+            mask[np.broadcast_to(outside, mask.shape)] = CellType.WALL
+            mask[:, :, z > top] = CellType.LID
             if self.cfg.obstacle_fn is not None:
+                xyz = self._cell_centers(blk)
                 obst = self.cfg.obstacle_fn(xyz.reshape(-1, 3)).reshape(mask.shape)
                 mask[obst & (mask == 0)] = CellType.WALL
             blk.data["mask"][...] = mask

@@ -58,13 +58,13 @@ from ..kernels.lbm_collide.ops import (
     make_rank_absorb_split,
     make_rank_emit,
     make_stream_collide,
+    run_compiled_ghost_plan,
     shared_halo_steps,
     substep_patterns,
 )
 from ..telemetry import get_tracer
 from .grid import CellType
 from .halo import (
-    compile_ghost_plan,
     compile_rank_halo_plan,
     fill_ghost_layers,
     fill_ghost_layers_sharded,
@@ -73,6 +73,7 @@ from .halo import (
     verify_padded_plan,
 )
 from .lattice import omega_for_level
+from .plans import compile_forest_plan, pattern_plans
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from ..core.forest import Block, BlockForest
@@ -330,6 +331,35 @@ class FusedEngine(ArenaEngine):
         # (slot map, ghost plan of each activity pattern) the superstep was
         # built from, for the protocol verifier
         self.held_plans: tuple | None = None
+        # (arena version, the whole forest's compiled ghost plan): the host
+        # fill after an AMR event and the next superstep's patterns share it
+        self._forest_plan: tuple | None = None
+
+    def _whole_plan(self):
+        """The compiled pdf ghost plan of every level in use, cached until
+        the arena's next adoption."""
+        version = self.arena.version
+        if self._forest_plan is None or self._forest_plan[0] != version:
+            levels = sorted(self.sim.forest.levels_in_use())
+            slots = {l: self.arena.slots(l) for l in levels}
+            self._forest_plan = (version, compile_forest_plan(self.sim.forest, self.sim.fields, slots, levels))
+        return self._forest_plan[1]
+
+    def exchange_ghosts(self, active: set[int] | None = None) -> None:
+        """The whole forest's host fill (after an AMR event, before
+        tracers) through the compiled plan the next superstep's patterns
+        are cut from, run in place on the arena's host stacks: bitwise the
+        host plan's fill (``test_compiled_plan_matches_host_exchange_bitwise``)
+        at one plan compile an event instead of two."""
+        if active is not None:
+            super().exchange_ghosts(active)
+            return
+        self.sync_caches()
+        with _TR.stage("halo", cat="stage") as sp:
+            run_compiled_ghost_plan(self._whole_plan(), {
+                l: torch.from_numpy(self.arena.buffer(l, "pdf")) for l in self.sim.forest.levels_in_use()
+            })
+        self.sim.data_stats["halo"].add(StageStats(seconds=sp.seconds))
 
     def masks_refreshed(self) -> None:
         super().masks_refreshed()
@@ -356,27 +386,21 @@ class FusedEngine(ArenaEngine):
         if self._fused_fn is not None and self._fused_key == key:
             return self._fused_fn, levels
         with _TR.span("build:fused_superstep", cat="compile", version=self.arena.version):
-            lmax = levels[-1]
             slots = {l: self.arena.slots(l) for l in levels}
-            plans = {
-                p: compile_ghost_plan(
-                    forest,
-                    self.sim.fields,
-                    slots,
-                    fields=("pdf",),
-                    levels={l for l in levels if l >= lmax - p},
-                )
-                for p in range(lmax + 1)
-            }
+            plans = pattern_plans(self._whole_plan(), levels)
             res = self.arena.device()
-            # repro: host-ok(host mask copy at program build, once per arena version)
-            masks_host = {l: np.array(self.arena.buffer(l, "mask")) for l in levels}
+            masks = {l: res.fetch(l, "mask") for l in levels}
+            if self.cfg.kernel_backend == "ref":
+                # repro: host-ok(host mask copy at program build, once per arena version)
+                masks_halo = {l: np.array(self.arena.buffer(l, "mask")) for l in levels}
+            else:  # the route reads the residency's masks: no second copy on the device
+                masks_halo = masks
             self._fused_fn = make_fused_superstep(
                 levels=levels,
                 plans=plans,
                 steppers={l: self._fused_stepper(l) for l in levels},
-                masks={l: res.fetch(l, "mask") for l in levels},
-                halo_stepper_factory=self._halo_stepper_factory(masks_host),
+                masks=masks,
+                halo_stepper_factory=self._halo_stepper_factory(masks_halo),
             )
             self.held_plans = (slots, plans)
         self._fused_key = key
@@ -386,15 +410,18 @@ class FusedEngine(ArenaEngine):
         """Run whole coarse steps on the device, zero host transfers in
         steady state (uploads only after AMR events / mask refreshes;
         downloads only when diagnostics or the control plane materialize
-        host views). The superstep consumes its input tuple, so the fresh
-        outputs are stored back into the residency immediately."""
+        host views). The superstep consumes its input, so the fresh outputs
+        are stored back into the residency when the steps end."""
         fn, levels = self._fused_program()
         res = self.arena.device()
-        pdfs = tuple(res.fetch(l, "pdf") for l in levels)
+        # the residency hands its stacks over in a list, which the superstep
+        # empties: a level's pre-step stack is freed once its successor
+        # exists, so a coarse step holds two copies of the state, not three
+        pdfs = [res.take(l, "pdf") for l in levels]
         nsub = 1 << levels[-1]
         with _TR.stage("fused", cat="stage", coarse_steps=coarse_steps) as sp:
             for _ in range(coarse_steps):
-                pdfs = fn(pdfs)
+                pdfs = list(fn(pdfs))
             # repro: host-ok(timing fence: StageStats seconds must not hide queued device work)
             synchronize(self.device)
             for l, arr in zip(levels, pdfs):

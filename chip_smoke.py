@@ -96,23 +96,40 @@ finding per line:
    with ``SCALE_ROOTS``^3 roots (12^3: {L0: 1,584, L1: 576, L2: 4,608} =
    6,768 blocks after the second AMR event, level 2's pdf stack 3.44e9
    elements, past 2^31), 11 coarse steps with ``adapt()`` after steps 4 and
-   8; launch counts zeroed just before and read just after. Prints the
-   bytes allocated at its start; after each event the blocks per level and
-   per rank, the pipeline's stage seconds, p2p bytes and messages, the
-   seconds of the driver's work around it (flush, adopt, masks, ghosts) and
-   the next program's build; peak device memory (allocated, reserved, the
-   least free) and its account a block (pdf stacks, masks, halo maps, the
-   rest); the host's peak RSS; steady coarse steps/s and MLUPS over steps
-   10-11; the device's idle share over 2 more steady steps; mass drift; the
-   phase's wall time against ``SCALE_BUDGET_S``. It must run on the card,
-   run 2 events, step three levels in the steady window with level 2's
-   stack at 2^31 elements or more, drift at most 1e-5 and move no pdf
-   between host and device in the steady window. Then, on the steady
+   8 (``scale_schedule``); launch counts zeroed just before and read just
+   after. Prints the bytes allocated at its start; after each event the
+   blocks per level and per rank, the pipeline's stage seconds, p2p bytes
+   and messages, the seconds of the driver's work around it (flush, adopt,
+   masks, ghosts) and of the next program's build, piece by piece; peak
+   device memory (allocated, reserved, the least free) and its account a
+   block (pdf stacks, masks, halo maps, the rest); the host's peak RSS;
+   steady coarse steps/s and MLUPS over steps 10-11; the device's idle
+   share over 2 more steady steps; mass drift; the phase's wall time
+   against ``SCALE_BUDGET_S``. It must run on the card, run 2 events, step
+   three levels in the steady window with level 2's stack at 2^31 elements
+   or more, drift at most 1e-5, move no pdf between host and device in the
+   steady window and peak within ``SCALE_MEMORY_SHARE`` of the card. After
+   step 11 it keeps the forest after each event and a digest of every
+   block's interior bits (``sim_digests``, on the card) for 2e. Then, on the steady
    state: the halo route over the whole level-2 stack against
    ``lbm_halo_fill`` then the stencil, bitwise (in parts of the stack where
    their copies do not fit beside the route's output), and the stencil
    over the whole stack, its last 64 blocks against the plain version on
    those blocks alone; each timed against its bound.
+2e. the same run in ``device_sharded`` (4 ranks on ``cuda:0``), after 2d
+   with 2d's simulation freed; alone, in both rank-sharded modes or those
+   named: ``--only cavity-scale-sharded [--roots R] [--modes
+   device_sharded,fused_sharded]`` (phase 1's build, 2d, then 2e in each
+   mode). 2d's run-and-print part (``scale_main_path``) and its checks, then:
+   the forest after each event and every block's digest at step 11 must
+   equal 2d's; the padded count per level and the pad's share of the
+   stencil work, ``device_held_bytes_per_rank``, ``DeviceComm`` bytes,
+   messages, rounds and pad bytes a substep, the peak's account a block
+   (real pdfs, pad pdfs, masks, halo maps, payload buffers, the rest). Then
+   on the steady state the rank with most level-2 slots runs its level-2
+   rank route over its padded full-length slot list with its payload
+   segments: bitwise its local and ``values`` fills then the stencil,
+   timed against its bound. Within ``SCALE_SHARDED_BUDGET_S``.
 3. ``[lm]``, the LM scaffold's serving path at full width: qwen2-0.5b
    (24 layers, d_model 896, GQA 14/2, vocab 151,936, tied embeddings) from
    one seeded generator, through ``build_model``, ``Model.logits``,
@@ -131,8 +148,9 @@ finding per line:
    debug mode ``error``. TF32 stays off for f32 matmuls and cuDNN.
 3b. ``[lm-families]``: granite-moe-1b-a400m, rwkv6-3b, zamba2-2.7b and
    whisper-small at full width from one seed, each through the same entry
-   points: (a) f32 at full depth, 4 requests of 96 prompt and 64 greedy
-   tokens, decode logits against ``Model.logits`` at every step (in f32
+   points: (a) f32 at half depth (``LM_FAMILIES``' ``layers``), 4
+   requests of 96 prompt and 64 greedy tokens, decode logits against
+   ``Model.logits`` at every step (in f32
    at 2e-3; rwkv6 against the f64 prefill on the card at
    ``LM_DECODE_VS_F64``), served tokens against the teacher-forced argmax;
    (b, c) the float64 witness at a cut depth (2 layers, zamba2 6 with one
@@ -236,17 +254,20 @@ finding per line:
    agree on every tracer's position within 1e-10.
 8. the card line, the ``lm_serve``, ``lm_families``, ``lm_archs``, ``lm_train``,
    ``lm_dist`` and ``kernels`` JSON lines (phase 2d's launches a path of
-   their own, ``cavity_scale``, and its level-2 times under ``scale``), the
+   their own, ``cavity_scale``, and its level-2 times under ``scale``;
+   phase 2e's ``cavity_scale_sharded``, and its rank route under the
+   ``halo+slots`` row's ``scale``), the
    script's wall time and the final ``ok`` line.
 
 ``python3 chip_smoke.py --only lm,lm-families,lm-archs,lm-train,lm-dist`` runs just the
 named LM phases, in that order, and ends with their JSON lines and the
 ``ok`` line. The serving phases build no autograd graph.
-``python3 chip_smoke.py --only cavity`` runs phases 1, 2 to 2c, 6 and 2d and
+``python3 chip_smoke.py --only cavity`` runs phases 1, 2 to 2c, 6, 2d and 2e and
 ends with the card line, the ``kernels`` line and the ``ok`` line (no LM
 phase, no phase 7). ``python3 chip_smoke.py --only cavity-scale`` runs phase
 1's build and phase 2d, then its ``cavity_scale`` JSON line and the ``ok``
-line.
+line; ``--only cavity-scale-sharded`` phase 1's build, 2d and 2e, then a
+``cavity_scale`` and ``cavity_scale_sharded`` JSON line and the ``ok`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -296,6 +317,13 @@ SCALE_ROOTS = 12
 SCALE_STEPS = 11
 SCALE_EVENTS = (4, 8)
 SCALE_BUDGET_S = 180.0
+# phase 2e, the same run in the rank-sharded modes (4 ranks on the one
+# card), held to phase 2d's fused run by block digests (DIGEST_BLOCKS blocks
+# a pass on the card); the whole script runs device_sharded, ``--only
+# cavity-scale-sharded`` both modes unless ``--modes`` names them
+SCALE_SHARDED_BUDGET_S = 200.0
+SCALE_SHARDED_MODES = ("device_sharded", "fused_sharded")
+DIGEST_BLOCKS = 64
 # the plan's memory: the card's bytes (torch.cuda.mem_get_info's total on an
 # H100 80GB HBM3), the share the phase's peak may take, the peak's bytes a
 # block and what earlier phases leave allocated (both measured on the card,
@@ -347,15 +375,19 @@ LM_F32_VS_F64 = {"qwen2-0.5b": 3e-5, "granite-moe-1b-a400m": 5e-5, "rwkv6-3b": 1
                  "whisper-small": 4e-5, "olmo-1b": 6e-5, "yi-9b": 7e-5, "granite-20b": 8e-5, "mixtral-8x7b": 1e-4,
                  "qwen2-vl-72b": 1.2e-4}
 # phase 3b: the moe, ssm, hybrid and audio families at full width from one
-# seed. ``cut``: the witness's depth (whisper cuts its encoder alike);
-# decode batch and cache length (rwkv6 carries state only; whisper's cache
-# stops at its 448 positions); prefill length (whisper: 448 tokens over
-# 1500 frames)
+# seed. ``layers``: the f32 leg's depth, half of each config's (zamba2: 24,
+# a multiple of its 6-layer attention period) to make room for phase 2e in
+# the script's time (the leg is launch-bound: 63.33 s of the phase's 124.97
+# s at full depth on an H100 80GB HBM3 at 700 W, PERF.md section 6);
+# ``cut``: the witness's depth (whisper cuts its encoder alike); decode
+# batch and cache length (rwkv6 carries state only; whisper's cache stops
+# at its 448 positions); prefill length (whisper: 448 tokens over 1500
+# frames); the bf16 legs run at full depth
 LM_FAMILIES = {
-    "granite-moe-1b-a400m": dict(cut=2, decode_B=8, decode_T=32768, prefill_S=8192),
-    "rwkv6-3b": dict(cut=2, decode_B=32, decode_T=None, prefill_S=8192),
-    "zamba2-2.7b": dict(cut=6, decode_B=4, decode_T=32768, prefill_S=8192),
-    "whisper-small": dict(cut=2, decode_B=32, decode_T=448, prefill_S=448),
+    "granite-moe-1b-a400m": dict(layers=12, cut=2, decode_B=8, decode_T=32768, prefill_S=8192),
+    "rwkv6-3b": dict(layers=16, cut=2, decode_B=32, decode_T=None, prefill_S=8192),
+    "zamba2-2.7b": dict(layers=24, cut=6, decode_B=4, decode_T=32768, prefill_S=8192),
+    "whisper-small": dict(layers=6, cut=2, decode_B=32, decode_T=448, prefill_S=448),
 }
 LM_FAMILY_SEED = 0
 LM_FAMILY_REQUESTS = dict(B=4, prompt=96, generated=64)
@@ -1042,8 +1074,9 @@ def soft_check(failures: list, tag: str, cond: bool, what: str) -> None:
 
 @torch.no_grad()
 def lm_families_phase() -> dict:
-    """Phase 3b: the moe, ssm, hybrid and audio families at full width and
-    depth (``LM_FAMILIES``), each through ``serve_arch``. The phase sets its
+    """Phase 3b: the moe, ssm, hybrid and audio families at full width
+    (``LM_FAMILIES``: the f32 leg at half depth, the bf16 legs at full
+    depth), each through ``serve_arch``. The phase sets its
     numerics (``set_numerics``) and runs alone as well as after the others.
     Every family runs to its end; a failed check fails the phase after the
     last."""
@@ -2241,22 +2274,161 @@ class RssSampler:
         self.peak = max(self.peak, self.rss())
 
 
-def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
-    """Phase 2d: ``AMRLBM.run``'s steps in ``fused`` mode on the full
-    cavity's configuration with ``roots``^3 roots, the kernels held to their
-    plain versions on the level-2 stack it grows (past 2^31 elements at R =
-    12). Returns the phase's summary, its launches and its kernel rows."""
-    from repro_torch.kernels.lbm_collide.lbm_collide import (
-        lbm_halo_fill,
-        lbm_stream_collide,
-        reset_launches,
-    )
-    from repro_torch.kernels.lbm_collide.ref import stream_collide_ref
-    from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
-    from repro_torch.lbm.lattice import omega_for_level
+def forest_of(sim) -> set:
+    """The forest as (bid, level, owner) tuples."""
+    return {(b.bid, b.level, b.owner) for b in sim.forest.all_blocks()}
 
-    tag = "[cavity-scale]"
-    t_phase = time.perf_counter()
+
+def blocks_per_level(sim) -> dict:
+    return dict(sorted(Counter(b.level for b in sim.forest.all_blocks()).items()))
+
+
+def blocks_per_rank(sim) -> dict:
+    per = {}
+    for b in sim.forest.all_blocks():
+        per.setdefault(b.owner, Counter())[b.level] += 1
+    return {r: dict(sorted(c.items())) for r, c in sorted(per.items())}
+
+
+def transfers_of(sim) -> tuple[int, int]:
+    """Host<->device pdf copies so far, summed over the engine's residencies."""
+    res = sim.engine.residencies()
+    return sum(r.h2d_transfers for r in res), sum(r.d2h_transfers for r in res)
+
+
+def digest_weights(n: int, device) -> torch.Tensor:
+    """Fixed odd int64 weights, one a position of a block's interior."""
+    k = torch.arange(n, dtype=torch.int64, device=device)
+    return (k * 2654435761 + 40503) % (1 << 31) * 2 + 1
+
+
+def stack_digests(stack: torch.Tensor, count: int, ghost: int) -> list[int]:
+    """One digest a block of ``stack[:count]`` (B, Q, X, Y, Z), from the bit
+    patterns of its interior values (``ghost`` cells cut from each side):
+    their int32 (int64 for 8-byte values) bits times fixed odd position
+    weights, summed in int64. The sum wraps, so it is exact modulo 2^64 and
+    the same in any order; one bit changed in one cell moves that block's
+    digest by an odd weight and no other block's. Computed on the stack's
+    device, ``DIGEST_BLOCKS`` blocks at a time; slots from ``count`` on (a
+    padded stack's pad slots) are not read."""
+    g = slice(ghost, -ghost)
+    inner = stack[:count, ..., g, g, g]
+    n = inner[0].numel() if count else 0
+    bits = torch.int32 if stack.element_size() == 4 else torch.int64
+    w = digest_weights(n, stack.device)
+    out = [(inner[b0:b0 + DIGEST_BLOCKS].contiguous().view(bits).reshape(-1, n).to(torch.int64) * w).sum(dim=1)
+           for b0 in range(0, count, DIGEST_BLOCKS)]
+    return torch.cat(out).tolist() if out else []
+
+
+def sim_digests(sim) -> dict[int, int]:
+    """Every block's interior digest (:func:`stack_digests`), bid -> digest,
+    read from the stacks the device modes step: ``fused``'s residency, each
+    rank's residency in ``fused_sharded``, each rank's padded stacks in
+    ``device_sharded`` (slot ``s`` of rank ``r`` at level ``l`` is the block
+    its arena maps to ``s``; pad slots are skipped)."""
+    eng = sim.engine
+    if eng.mode == "fused":
+        sources = [(eng.arena.device().fetch(l, "pdf"), eng.arena.slots(l)) for l in eng.arena.levels()]
+    elif eng.mode == "fused_sharded":
+        sources = [(a.device().fetch(l, "pdf"), a.slots(l)) for a in eng.arenas.per_rank for l in a.levels()]
+    elif eng.mode == "device_sharded":
+        eng._programs()  # current stacks on the rank devices
+        sources = [(t, eng.arenas.per_rank[r].slots(l) if l in eng.arenas.per_rank[r].levels() else {})
+                   for r, stacks in eng._dev_pdfs.items() for l, t in zip(eng._dev_levels, stacks)]
+    else:
+        raise ValueError(f"no device stacks to digest in {eng.mode} mode")
+    out = {}
+    for stack, slots in sources:
+        digests = stack_digests(stack, len(slots), sim.cfg.ghost)
+        for bid, slot in slots.items():
+            out[bid] = digests[slot]
+    return out
+
+
+def scale_schedule(sim, step=None, event=None) -> list[set]:
+    """Phase 2d's schedule, which phase 2e repeats: ``SCALE_STEPS`` coarse
+    steps, an AMR event after each step of ``SCALE_EVENTS``. ``step(i)``
+    runs coarse step ``i`` (``sim.advance(1)`` unless given) and
+    ``event(after)`` the event after step ``after`` (``sim.adapt()``).
+    Returns the forest after each event (:func:`forest_of`)."""
+    forests = []
+    for i in range(SCALE_STEPS):
+        if step is None:
+            sim.advance(1)
+        else:
+            step(i)
+        if i + 1 in SCALE_EVENTS:
+            if event is None:
+                sim.adapt()
+            else:
+                event(i + 1)
+            forests.append(forest_of(sim))
+    return forests
+
+
+class timed_calls:
+    """Wraps each ``obj.name`` of ``targets`` ((obj, name, label) triples;
+    absent names are left out) so that its seconds, device work included,
+    add to ``pieces[label]`` while the context is open; restores them on
+    exit."""
+
+    def __init__(self, targets, pieces: Counter) -> None:
+        self.targets = [(obj, name, label) for obj, name, label in targets if hasattr(obj, name)]
+        self.pieces = pieces
+        self.saved = []
+
+    def __enter__(self) -> "timed_calls":
+        for obj, name, label in self.targets:
+            fn = getattr(obj, name)
+            self.saved.append((obj, name, fn, name in vars(obj)))
+
+            def run(*a, _fn=fn, _label=label, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.pieces[_label] += time.perf_counter() - t
+
+            setattr(obj, name, run)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for obj, name, fn, own in reversed(self.saved):
+            if own:
+                setattr(obj, name, fn)
+            else:  # an instance's method: its class's again
+                delattr(obj, name)
+
+
+def scale_main_path(mode: str, roots: int, tag: str, **over) -> tuple:
+    """The run-and-print part that phases 2d and 2e share: ``AMRLBM`` in
+    ``mode`` on the full cavity's configuration with ``roots``^3 roots
+    (``over`` adds to it), through :func:`scale_schedule`, launch counts
+    zeroed just before and read just after. Prints the bytes allocated at
+    its start; after each event the blocks per level and per rank, the
+    pipeline's stage seconds with p2p bytes and messages, the seconds of
+    the driver's work around it (flush, adopt, masks, ghosts, and within
+    them the host fill and its plan compile) and of the next program's
+    build, piece by piece (rank-plan compiles, pattern cuts,
+    ``verify_padded_plan``, ``schedule_ppermute_rounds``, halo maps,
+    ``neighbour_order`` / ``face_neighbours``, the padded upload); peak
+    device memory (allocated, reserved, least free); the host's peak RSS;
+    steady coarse steps/s and MLUPS over steps 10-11 (real blocks); the
+    idle share over 2 more steady steps with the leading device operations;
+    drift. Each block's interior digest (:func:`sim_digests`) is taken after
+    step 11, before the profile's steps. Checks that it ran on the card
+    with its steps and events, three levels in the steady window, drift
+    within 1e-5, 0/0 steady pdf transfers, halo-route launches and no
+    ``lbm_halo_fill`` launch, a peak within ``SCALE_MEMORY_SHARE`` of the
+    card. Returns (the simulation, the run's numbers)."""
+    from repro_torch.kernels.lbm_collide import ops
+    from repro_torch.kernels.lbm_collide.lbm_collide import reset_launches
+    from repro_torch.lbm import engines
+    from repro_torch.lbm.driver import AMRLBM, LidDrivenCavityConfig
+
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2264,21 +2436,12 @@ def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
     free0, total = torch.cuda.mem_get_info()
     say(f"{tag} starts with {mem0 / 1e9:.3f} GB allocated and {torch.cuda.memory_reserved() / 1e9:.3f} GB reserved "
         f"on the card, {free0 / 1e9:.3f} GB free of {total / 1e9:.3f} GB")
-    cfg = LidDrivenCavityConfig(stepping_mode="fused", kernel_backend="cuda", **scale_cavity(roots))
+    cfg = LidDrivenCavityConfig(stepping_mode=mode, kernel_backend="cuda", **scale_cavity(roots), **over)
     say(f"{tag} config:", json.dumps({k: v for k, v in vars(cfg).items() if k != "obstacle_fn"}))
 
-    def per_level(sim) -> dict:
-        return dict(sorted(Counter(b.level for b in sim.forest.all_blocks()).items()))
-
-    def per_rank(sim) -> dict:
-        per = {}
-        for b in sim.forest.all_blocks():
-            per.setdefault(b.owner, Counter())[b.level] += 1
-        return {r: dict(sorted(c.items())) for r, c in sorted(per.items())}
-
-    def transfers(sim) -> tuple[int, int]:
-        res = sim.arena.device()
-        return res.h2d_transfers, res.d2h_transfers
+    def comm_now(sim) -> dict:
+        return {**sim.comm.stats.summary(), "pad": getattr(sim.comm, "ppermute_pad_bytes", 0),
+                "rounds": getattr(sim.comm, "ppermute_rounds", 0)}
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2290,68 +2453,76 @@ def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
     with RssSampler() as rss:
         t_main = time.perf_counter()
         sim = AMRLBM(cfg)
-        check(sim.device.type == "cuda", "the scale run is on the card")
+        check(sim.device.type == "cuda", f"{tag} the scale run is on the card")
         init_s = time.perf_counter() - t_main
         t0 = time.perf_counter()
         mass0 = sim.total_mass()
         mass_s = time.perf_counter() - t0
         say(f"{tag} {sim.forest.num_blocks()} blocks at the start, set up in {init_s:.2f} s "
             f"(first mass {mass_s:.2f} s)")
-        # the pieces of adapt() beside its pipeline's stages, timed by
-        # wrapping the methods it calls on this simulation
+        eng = sim.engine
+        build = eng._fused_program if mode == "fused" else eng._programs
+        # the pieces of adapt() beside its pipeline's stages and of the
+        # next program's build, timed by wrapping what they call
         pieces: Counter = Counter()
+        calls = [(sim, "materialize_host", "flush"), (sim, "refresh_masks", "masks"), (eng, "adopt", "adopt"),
+                 (eng, "exchange_ghosts", "ghosts"),
+                 (engines, "fill_ghost_layers_sharded", "ghosts: copied region-list fill"),
+                 (engines, "run_rank_plan_on_host", "ghosts: compiled-plan fill"),
+                 (engines, "compile_forest_plan", "plan compile"),
+                 (engines, "compile_rank_halo_plan", "rank plan compiles"),
+                 (engines, "compile_rank_forest_plan", "rank plan compiles"),
+                 (engines, "rank_pattern_plans", "pattern cuts"),
+                 (engines, "verify_padded_plan", "verify_padded_plan"),
+                 (engines, "schedule_ppermute_rounds", "schedule_ppermute_rounds"),
+                 (ops, "halo_map", "halo maps"), (ops, "neighbour_order", "neighbour_order"),
+                 (ops, "face_neighbours", "face_neighbours"), (eng, "_ensure_device", "padded upload")]
+        step_s, events, levels_at, moved, comm_at = [], [], [], [], []
 
-        def timed(name, fn):
-            def run(*a, **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                try:
-                    return fn(*a, **k)
-                finally:
-                    torch.cuda.synchronize()
-                    pieces[name] += time.perf_counter() - t
-            return run
-
-        sim.materialize_host = timed("flush", sim.materialize_host)
-        sim.refresh_masks = timed("masks", sim.refresh_masks)
-        sim.engine.adopt = timed("adopt", sim.engine.adopt)
-        sim.engine.exchange_ghosts = timed("ghosts", sim.engine.exchange_ghosts)
-        step_s, events, levels_at, moved = [], [], [], []
-        for i in range(SCALE_STEPS):
-            levels_at.append(per_level(sim))
-            moved.append(transfers(sim))
+        def step(i: int) -> None:
+            levels_at.append(blocks_per_level(sim))
+            moved.append(transfers_of(sim))
+            comm_at.append(comm_now(sim))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sim.advance(1)
             step_s.append(time.perf_counter() - t0)
             sample_free()
-            if i + 1 in SCALE_EVENTS:
-                pieces.clear()
-                t0 = time.perf_counter()
-                report = sim.adapt()
-                event_s = time.perf_counter() - t0
-                sample_free()
-                # the next step's program, built here so that its seconds
-                # stand apart (the build:fused_superstep span)
-                t0 = time.perf_counter()
-                sim.engine._fused_program()
-                torch.cuda.synchronize()
-                build_s = time.perf_counter() - t0
-                sample_free()
-                ev = dict(
-                    after_step=i + 1, executed=report.executed, seconds=event_s, build_s=build_s,
-                    stages={k: dict(seconds=v.seconds, p2p_bytes=v.p2p_bytes, p2p_messages=v.p2p_messages)
-                            for k, v in report.stages.items()},
-                    pieces=dict(pieces), blocks=per_level(sim), ranks=per_rank(sim),
-                )
-                events.append(ev)
-                say(f"{tag} AMR event after step {i + 1}: {event_s:.2f} s; blocks per level "
-                    f"{json.dumps(ev['blocks'])}, per rank {json.dumps(ev['ranks'])}")
-                say(f"{tag}   stages (s, p2p bytes, messages): " + json.dumps(
-                    {k: [round(v['seconds'], 3), v['p2p_bytes'], v['p2p_messages']] for k, v in ev["stages"].items()}))
-                say(f"{tag}   around the pipeline (s): " + json.dumps({k: round(v, 3) for k, v in pieces.items()})
-                    + f"; the next step's program build {build_s:.2f} s")
-        moved.append(transfers(sim))
+
+        def event(after: int) -> None:
+            pieces.clear()
+            t0 = time.perf_counter()
+            report = sim.adapt()
+            event_s = time.perf_counter() - t0
+            sample_free()
+            around = dict(pieces)
+            pieces.clear()
+            # the next step's program, built here so that its seconds stand
+            # apart (the build:* span)
+            t0 = time.perf_counter()
+            build()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            sample_free()
+            ev = dict(
+                after_step=after, executed=report.executed, seconds=event_s, build_s=build_s,
+                stages={k: dict(seconds=v.seconds, p2p_bytes=v.p2p_bytes, p2p_messages=v.p2p_messages)
+                        for k, v in report.stages.items()},
+                pieces=around, build_pieces=dict(pieces), blocks=blocks_per_level(sim), ranks=blocks_per_rank(sim),
+            )
+            events.append(ev)
+            say(f"{tag} AMR event after step {after}: {event_s:.2f} s; blocks per level "
+                f"{json.dumps(ev['blocks'])}, per rank {json.dumps(ev['ranks'])}")
+            say(f"{tag}   stages (s, p2p bytes, messages): " + json.dumps(
+                {k: [round(v['seconds'], 3), v['p2p_bytes'], v['p2p_messages']] for k, v in ev["stages"].items()}))
+            say(f"{tag}   around the pipeline (s): " + json.dumps({k: round(v, 3) for k, v in around.items()})
+                + f"; the next step's program build {build_s:.2f} s: "
+                + json.dumps({k: round(v, 3) for k, v in ev["build_pieces"].items()}))
+
+        with timed_calls(calls, pieces):
+            forests = scale_schedule(sim, step, event)
+        moved.append(transfers_of(sim))
+        comm_at.append(comm_now(sim))
         launches = launch_counts()
         steps_run = sim.coarse_step
         torch.cuda.synchronize()
@@ -2364,6 +2535,9 @@ def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
         updates = sum(n * cells * 2**l for l, n in forest_steady.items())
         rate = len(steady) / steady_s
         t0 = time.perf_counter()
+        digests = sim_digests(sim)
+        digest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         mass1 = sim.total_mass()
         mass_s += time.perf_counter() - t0
         main_s = time.perf_counter() - t_main
@@ -2372,9 +2546,64 @@ def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
     # the device's share of 2 more steady coarse steps
     rows, busy_ms, wall_ms = device_profile(lambda: sim.advance(2))
     say(f"{tag} profile of 2 steady coarse steps: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall, "
-        f"idle share {1 - busy_ms / wall_ms:.1%}")
+        f"idle share {1 - busy_ms / wall_ms:.1%}, {sum(r[2] for r in rows)} device operations")
     for name, ms, count in rows[:6]:
         say(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<5d} {name[:110]}")
+    t_a, t_b = moved[steady.start], moved[steady.stop]
+    c_a, c_b = comm_at[steady.start], comm_at[steady.stop]
+    nsub = len(steady) * 2 ** max(forest_steady)
+    comm = {k: (c_b[k] - c_a[k]) / nsub for k in ("p2p_bytes", "p2p_messages", "pad", "rounds")}
+    say(f"{tag} blocks per level during steps 9-11: {json.dumps(forest_steady)}")
+    say(f"{tag} peak device memory {peak_alloc / 1e9:.3f} GB allocated ({peak_alloc / total:.1%} of the card; "
+        f"{(peak_alloc - mem0) / 1e9:.3f} GB above the start), {peak_reserved / 1e9:.3f} GB reserved, "
+        f"{free_min[0] / 1e9:.3f} GB free at the least (mem_get_info), of {total / 1e9:.3f} GB")
+    say(f"{tag} host peak RSS {rss.peak / 1e9:.3f} GB (sampled every 50 ms) of "
+        f"{os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES') / 1e9:.3f} GB")
+    say(f"{tag} coarse step wall times (s):", json.dumps([round(t, 4) for t in step_s]))
+    say(f"{tag} steady state (steps 10-11): {rate:.3f} coarse steps/s, {updates * rate / 1e6:.1f} MLUPS "
+        f"({updates} interior cell updates per coarse step, real blocks only)")
+    say(f"{tag} steady-state h2d/d2h transfers over steps 10-11: {t_b[0] - t_a[0]}/{t_b[1] - t_a[1]}; "
+        f"{type(sim.comm).__name__} per substep {comm['p2p_bytes']:.0f} p2p bytes, {comm['p2p_messages']:.1f} "
+        f"messages, {comm['rounds']:.1f} ppermute rounds, {comm['pad']:.0f} pad bytes")
+    say(f"{tag} mass: {mass0:.6f} -> {mass1:.6f}, relative drift {drift:.3e} (limit 1e-5; the two sums "
+        f"{mass_s:.2f} s); {len(digests)} block digests in {digest_s:.2f} s")
+    say(f"{tag} kernel launches: {json.dumps({k: n for k, n in launches.items() if n})}")
+    check(steps_run == SCALE_STEPS and sim.amr_cycles == len(SCALE_EVENTS) and all(e["executed"] for e in events),
+          f"{tag} {SCALE_STEPS} coarse steps and {len(SCALE_EVENTS)} AMR events ran: {steps_run}, {sim.amr_cycles}")
+    check(len(forest_steady) == 3, f"{tag} three levels step in the steady window: {forest_steady}")
+    check(drift <= 1e-5, f"{tag} mass drift within 1e-5 relative: {drift:.3e}")
+    check(t_a == t_b, f"{tag} zero host<->device pdf transfers in the steady window")
+    check(launches["lbm_stream_collide[halo]"] > 0 and launches["lbm_halo_fill"] == 0,
+          f"{tag} the halo route launched and no separate fill on the scale path")
+    check(peak_alloc <= SCALE_MEMORY_SHARE * total,
+          f"{tag} peak {peak_alloc / 1e9:.3f} GB within {SCALE_MEMORY_SHARE:.0%} of the card's {total / 1e9:.3f} GB")
+    run = dict(
+        roots=roots, blocks=forest_steady, events=events, step_s=step_s, rate=rate, mlups=updates * rate / 1e6,
+        updates=updates, busy_ms=busy_ms, wall_ms=wall_ms, idle=1 - busy_ms / wall_ms,
+        leading_ops=[dict(name=n[:160], ms=ms, count=c) for n, ms, c in rows[:6]], start_allocated=mem0,
+        peak_allocated=peak_alloc, peak_reserved=peak_reserved, free_least=free_min[0], card_bytes=total,
+        host_peak_rss=rss.peak, drift=drift, main_s=main_s, launches=launches, comm_per_substep=comm,
+        digest_s=digest_s,
+    )
+    return sim, run, dict(roots=roots, forests=forests, digests=digests)
+
+
+def cavity_scale_phase(roots: int = SCALE_ROOTS) -> tuple[dict, dict]:
+    """Phase 2d: ``AMRLBM``'s steps in ``fused`` mode on the full cavity's
+    configuration with ``roots``^3 roots (:func:`scale_main_path`), the
+    kernels held to their plain versions on the level-2 stack it grows
+    (past 2^31 elements at R = 12). Returns the phase's summary, with its
+    launches and kernel rows, and what phase 2e holds its runs to: the
+    forest after each event and every block's digest after step 11."""
+    from repro_torch.kernels.lbm_collide.lbm_collide import lbm_halo_fill, lbm_stream_collide
+    from repro_torch.kernels.lbm_collide.ref import stream_collide_ref
+    from repro_torch.lbm.lattice import omega_for_level
+
+    tag = "[cavity-scale]"
+    t_phase = time.perf_counter()
+    sim, run, reference = scale_main_path("fused", roots, tag)
+    cfg = sim.cfg
+    mem0, peak_alloc = run["start_allocated"], run["peak_allocated"]
 
     # the account of the peak: pdf stacks, masks (the residency's and the
     # halo steps'), the halo maps (8 bytes a cell), the rest
@@ -2393,29 +2622,10 @@ def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
     i2 = levels.index(lmax)
     f2, m2 = bufs[i2], masks[i2]
     stack2 = f2.numel()
-    say(f"{tag} blocks per level during steps 9-11: {json.dumps(forest_steady)}; level {lmax}'s pdf stack "
-        f"{tuple(f2.shape)} holds {stack2:,} elements ({stack2 / 2**31:.2f} x 2^31)")
-    say(f"{tag} peak device memory {peak_alloc / 1e9:.3f} GB allocated ({(peak_alloc - mem0) / 1e9:.3f} GB above the "
-        f"start), {peak_reserved / 1e9:.3f} GB reserved, {free_min[0] / 1e9:.3f} GB free at the least "
-        f"(mem_get_info), of {total / 1e9:.3f} GB; {(peak_alloc - mem0) / nblocks / 1e6:.3f} MB a block: "
+    say(f"{tag} level {lmax}'s pdf stack {tuple(f2.shape)} holds {stack2:,} elements ({stack2 / 2**31:.2f} x 2^31); "
+        f"{(peak_alloc - mem0) / nblocks / 1e6:.3f} MB a block at the peak: "
         + ", ".join(f"{k} {v / nblocks / 1e6:.3f}" for k, v in account.items()))
-    say(f"{tag} host peak RSS {rss.peak / 1e9:.3f} GB (sampled every 50 ms) of "
-        f"{os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES') / 1e9:.3f} GB")
-    say(f"{tag} coarse step wall times (s):", json.dumps([round(t, 4) for t in step_s]))
-    say(f"{tag} steady state (steps 10-11): {rate:.3f} coarse steps/s, {updates * rate / 1e6:.1f} MLUPS "
-        f"({updates} interior cell updates per coarse step)")
-    t_a, t_b = moved[steady.start], moved[steady.stop]
-    say(f"{tag} steady-state h2d/d2h transfers over steps 10-11: {t_b[0] - t_a[0]}/{t_b[1] - t_a[1]}")
-    say(f"{tag} mass: {mass0:.6f} -> {mass1:.6f}, relative drift {drift:.3e} (limit 1e-5; the two sums {mass_s:.2f} s)")
-    say(f"{tag} kernel launches: {json.dumps({k: n for k, n in launches.items() if n})}")
-    check(steps_run == SCALE_STEPS and sim.amr_cycles == len(SCALE_EVENTS) and all(e["executed"] for e in events),
-          f"{SCALE_STEPS} coarse steps and {len(SCALE_EVENTS)} AMR events ran: {steps_run}, {sim.amr_cycles}")
-    check(len(forest_steady) == 3, f"three levels step in the steady window: {forest_steady}")
     check(stack2 >= 2**31 or roots < SCALE_ROOTS, f"level {lmax}'s stack holds 2^31 elements or more: {stack2}")
-    check(drift <= 1e-5, f"mass drift within 1e-5 relative: {drift:.3e}")
-    check(t_a == t_b, "zero host<->device pdf transfers in the steady window")
-    check(launches["lbm_stream_collide[halo]"] > 0 and launches["lbm_halo_fill"] == 0,
-          "the halo route launched and no separate fill on the scale path")
 
     # (a) the halo route over the whole level-2 stack against the fill then
     # the stencil, bitwise; the fill then stencil in parts of the stack
@@ -2491,26 +2701,172 @@ def cavity_scale_phase(roots: int = SCALE_ROOTS) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
-    say(f"{tag} main path {main_s:.2f} s, phase wall time {phase_s:.2f} s (budget {SCALE_BUDGET_S:.0f} s)")
+    say(f"{tag} main path {run['main_s']:.2f} s, phase wall time {phase_s:.2f} s (budget {SCALE_BUDGET_S:.0f} s)")
     check(phase_s <= SCALE_BUDGET_S, f"phase 2d within its budget: {phase_s:.2f} s")
-    return dict(
-        roots=roots, blocks=forest_steady, events=events, step_s=step_s, rate=rate,
-        mlups=updates * rate / 1e6, updates=updates, busy_ms=busy_ms, wall_ms=wall_ms,
-        idle=1 - busy_ms / wall_ms, start_allocated=mem0, peak_allocated=peak_alloc, peak_reserved=peak_reserved,
-        free_least=free_min[0], card_bytes=total, per_block=(peak_alloc - mem0) / nblocks, account=account,
-        host_peak_rss=rss.peak, drift=drift, main_s=main_s, phase_s=phase_s, level2_elements=stack2,
-        launches=launches,
+    summary = dict(
+        run, per_block=(peak_alloc - mem0) / nblocks, account=account, phase_s=phase_s, level2_elements=stack2,
         halo=dict(shape=f"level {lmax} B={B2}", ms=halo_ms, bound_ms=halo_bound_ms, bound_by=halo_by,
                   max_abs_err_fill_then_stencil=worst, parts=part),
         stencil=dict(shape=f"level {lmax} B={B2}", ms=sten_ms, bound_ms=sten_bound_ms, bound_by=sten_by,
                      tail_max_abs_err=tail_err, tail_ms=tail_ms, tail_plain_ms=tail_plain_ms,
                      tail_bound_ms=tail_bound_ms, tail_bound_by=tail_by),
     )
+    return summary, reference
+
+
+def cavity_scale_sharded_phase(mode: str, reference: dict) -> dict:
+    """Phase 2e: phase 2d's run (:func:`scale_main_path`, on
+    ``reference["roots"]``^3 roots) in a rank-sharded mode, 4 ranks on the
+    one card (``device_sharded`` with ``rank_devices=SHARED_CARD``, or
+    ``fused_sharded``), held to phase 2d's ``fused`` run: the forest after
+    each event and every block's interior digest after step 11 equal. Prints
+    beside 2d's numbers the padded count per level and the pad's share of
+    the stencil work, the bytes each rank's device holds, the peak's
+    account a block (real pdfs, pad pdfs, masks, halo maps, payload
+    buffers, the rest); in ``device_sharded`` then the rank with most
+    level-2 slots runs its level-2 rank route over its padded full-length
+    slot list with its payload segments, bitwise the same work as fills
+    then the stencil, timed against its bound. Returns the phase's summary."""
+    from repro_torch.kernels.lbm_collide.lbm_collide import lbm_halo_fill, lbm_stream_collide
+    from repro_torch.lbm.halo import schedule_ppermute_rounds
+    from repro_torch.lbm.lattice import omega_for_level
+
+    tag = f"[cavity-scale-sharded {mode}]"
+    t_phase = time.perf_counter()
+    over = dict(rank_devices=SHARED_CARD) if mode == "device_sharded" else {}
+    sim, run, mine = scale_main_path(mode, reference["roots"], tag, **over)
+    eng, cfg = sim.engine, sim.cfg
+    nranks = cfg.nranks
+    check(mine["forests"] == reference["forests"],
+          f"{tag} the forest after each of {len(mine['forests'])} AMR events equals phase 2d's")
+    want = reference["digests"]
+    differ = sorted(bid for bid in want if mine["digests"].get(bid) != want[bid])
+    check(set(mine["digests"]) == set(want) and not differ,
+          f"{tag} every block's interior digest at step {SCALE_STEPS} equals phase 2d's: {len(differ)} differ "
+          f"of {len(want)}")
+    say(f"{tag} forest equal to phase 2d's after each of {len(mine['forests'])} AMR events; all {len(want)} "
+        f"block digests at step {SCALE_STEPS} equal to phase 2d's fused run")
+
+    lattice = sim.spec.lattice
+    ghosted = int(np.prod([n + 2 * cfg.ghost for n in cfg.cells_per_block]))
+    row_bytes = lattice.Q * np.dtype(sim.fields.fields["pdf"].dtype).itemsize
+    block_bytes = ghosted * row_bytes
+    real = blocks_per_level(sim)
+    nreal = sum(real.values())
+    levels = tuple(sorted(real))
+    lmax = levels[-1]
+    out = dict(run, mode=mode, nranks=nranks)
+    if mode == "device_sharded":
+        progs = eng._programs()
+        counts = progs.counts
+        padded = sum(counts[l] * nranks for l in levels)
+        padded_work = sum(counts[l] * nranks * 2**l for l in levels)
+        real_work = sum(real[l] * 2**l for l in levels)
+        held = eng.device_held_bytes_per_rank()
+        maps = {id(h): h for h in progs.fn.halo_step_objects()}
+        masks_b = sum(t.numel() * t.element_size() for r in eng._dev_masks for t in eng._dev_masks[r])
+        # a branch's payloads live at once: each round's emitted (padded)
+        # payload and its copy on the receiver's device
+        pay_b = max(sum(2 * rnd.num_cells * len(rnd.messages) for rnd in schedule_ppermute_rounds(progs.messages[p]))
+                    for p in progs.messages) * row_bytes
+        account = dict(real_pdfs=nreal * block_bytes, pad_pdfs=(padded - nreal) * block_bytes, masks=masks_b,
+                       maps=sum(h.map_bytes for h in maps.values()), payloads=pay_b)
+        say(f"{tag} padded stacks {json.dumps(counts)} a rank against real blocks per level {json.dumps(real)}: "
+            f"{padded} padded blocks for {nreal} real, the stencils step {padded_work} block-substeps a coarse step "
+            f"for {real_work} real ones (the pad {1 - real_work / padded_work:.1%} of the stencil work)")
+        say(f"{tag} device_held_bytes_per_rank {held} ({held / 1e9:.3f} GB on each of {nranks} ranks)")
+        out.update(padded=counts, padded_blocks=padded, pad_share=1 - real_work / padded_work,
+                   device_held_bytes_per_rank=held)
+    else:
+        progs = eng._programs()
+        padded = nreal
+        maps = {id(h): h for f in progs.factories.values() for h in f.steps()}
+        rank_masks = [a.device().fetch(l, "mask") for a in eng.arenas.per_rank for l in a.levels()]
+        masks_b = sum(m.numel() * m.element_size() for m in rank_masks)
+        pay_b = max(sum(m.num_cells for m in plan.messages) for plan in progs.plans.values()) * row_bytes
+        account = dict(real_pdfs=nreal * block_bytes, pad_pdfs=0, masks=masks_b,
+                       maps=sum(h.map_bytes for h in maps.values()), payloads=pay_b)
+    above = run["peak_allocated"] - run["start_allocated"]
+    account["rest"] = above - sum(account.values())
+    say(f"{tag} peak {above / 1e9:.3f} GB above the start: {above / nreal / 1e6:.3f} MB a real block, "
+        f"{above / padded / 1e6:.3f} MB a padded block: "
+        + ", ".join(f"{k} {v / nreal / 1e6:.3f}" for k, v in account.items()) + " MB a real block")
+    out.update(account=account, per_block=above / nreal, per_padded_block=above / padded)
+
+    if mode == "device_sharded":
+        # the rank route at scale: the rank with most level-2 slots, its
+        # level-2 route over its padded full-length slot list in neighbour
+        # order with its payload segments (pattern 0's, every level active),
+        # against the same work as fills then the stencil, bitwise
+        p_all = progs.pattern[0]
+        branch = progs.fn.branches[p_all]
+        r_s = max(range(nranks), key=lambda r: len(eng.arenas.per_rank[r].slots(lmax)))
+        absorb = branch.absorbs[r_s]
+        i2 = progs.levels.index(lmax)
+        hstep = absorb.halo[lmax]
+        hmap = hstep.map
+        pdfs = eng._dev_pdfs
+        emitted = {m.key: emit(pdfs[m.src_rank])[0] for rnd in branch.sends for m, emit in rnd
+                   if m.dst_rank == r_s}
+        payloads = tuple(emitted[m.key] for m in branch.inbound[r_s])
+        srcs = (*pdfs[r_s], *payloads)
+        f_r, m_r = pdfs[r_s][i2], eng._dev_masks[r_s][i2]
+        order = absorb.slot_lists[lmax]
+        order_t = torch.as_tensor(order, device=f_r.device)
+        kw = dict(omega=omega_for_level(cfg.omega, lmax), lattice=lattice, u_wall=cfg.u_lid, collision=cfg.collision)
+        local_t = tuple(t for t in hmap.tables if t.kind != "values")
+        msg_t = tuple(t for t in hmap.tables if t.kind == "values")
+        msg_vals = [srcs[t.src].index_select(0, t.src_cell.long()) for t in msg_t]
+        out_route, out_fill, work = torch.empty_like(f_r), torch.empty_like(f_r), f_r.clone()
+
+        def route():
+            return hstep.step(f_r, srcs, slots=order_t, out=out_route)
+
+        def fills_then_stencil():
+            for t in local_t:
+                lbm_halo_fill(work, srcs[t.src], t.kind, t.dst_slot, t.dst_cell, t.src_slot, t.src_cell)
+            for t, vals in zip(msg_t, msg_vals):
+                lbm_halo_fill(work, vals, "values", t.dst_slot, t.dst_cell)
+            return lbm_stream_collide(work, m_r, out=out_fill, **kw)
+
+        route()
+        fills_then_stencil()
+        torch.cuda.synchronize()
+        bitwise = max_err(out_route, out_fill)
+        check(bitwise == 0.0, f"{tag} rank {r_s} level {lmax}: the rank route over its padded full-length slot list "
+                              f"equals the fills then the stencil bitwise ({bitwise})")
+        med = median_ms({"route": route, "fills then stencil": fills_then_stencil}, n=10)
+        listed = np.arange(f_r.shape[0])
+        tr_r = route_traffic(local_t, msg_t, listed, i2, ghosted)
+        extra = (tr_r["src_outside"] + tr_r["payload_rows"] - tr_r["rows"]) * row_bytes + tr_r["index_bytes"]
+        bound_ms, by = stencil_bound_ms(f_r, m_r, cfg.collision, extra_bytes=extra)
+        nreal_r = len(eng.arenas.per_rank[r_s].slots(lmax))
+        say(f"{tag} lbm_stream_collide[halo+slots] rank {r_s} level {lmax} at scale ({f_r.shape[0]} padded slots, "
+            f"{nreal_r} real; {tr_r['rows']} ghost rows, {tr_r['payload_rows']} of them from {len(msg_t)} payloads, "
+            f"{len(local_t)} local segments): max |err| {bitwise:.1e} against the fills then the stencil; medians of "
+            f"10 single calls in turn (quartiles): "
+            + ", ".join(f"{k} {m:.4f} ms ({q1:.4f}-{q3:.4f})" for k, (m, q1, q3) in med.items())
+            + f"; bound {bound_ms:.4f} ms ({by}), {bound_ms / med['route'][0]:.1%} of bound")
+        out["rank_route"] = dict(
+            shape=f"rank {r_s} level {lmax}: {f_r.shape[0]} padded slots ({nreal_r} real), D3Q19 TRT f32",
+            ms=med["route"][0], fill_then_stencil_ms=med["fills then stencil"][0],
+            quartiles={k: v[1:] for k, v in med.items()}, bound_ms=bound_ms, bound_by=by,
+            max_abs_err_fill_then_stencil=bitwise, **tr_r)
+        del out_route, out_fill, work, msg_vals, payloads, emitted, srcs, f_r, m_r, hmap, hstep, absorb, branch, pdfs
+    del progs, eng, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    say(f"{tag} main path {run['main_s']:.2f} s, phase wall time {phase_s:.2f} s "
+        f"(budget {SCALE_SHARDED_BUDGET_S:.0f} s)")
+    check(phase_s <= SCALE_SHARDED_BUDGET_S, f"phase 2e ({mode}) within its budget: {phase_s:.2f} s")
+    out["phase_s"] = phase_s
+    return out
 
 
 def main(lm: bool = True) -> int:
     """The whole script; ``lm=False`` (``--only cavity``) runs phases 1, 2 to
-    2c, 6 and 2d and prints the kernels line, without the LM phases 3 to 5
+    2c, 6, 2d and 2e and prints the kernels line, without the LM phases 3 to 5
     and the cross-check of phase 7."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2604,22 +2960,6 @@ def main(lm: bool = True) -> int:
                                "trt+halo+members")}
 
     # -- 2. main paths: the full cavity, fused, arena and fused_sharded -----------
-    def blocks_per_level(sim) -> dict:
-        return dict(sorted(Counter(b.level for b in sim.forest.all_blocks()).items()))
-
-    def blocks_per_rank(sim) -> dict:
-        per = {}
-        for b in sim.forest.all_blocks():
-            per.setdefault(b.owner, Counter())[b.level] += 1
-        return {r: dict(sorted(c.items())) for r, c in sorted(per.items())}
-
-    def forest_of(sim) -> set:
-        return {(b.bid, b.level, b.owner) for b in sim.forest.all_blocks()}
-
-    def transfers_of(sim) -> tuple[int, int]:
-        res_ = sim.engine.residencies()
-        return sum(r.h2d_transfers for r in res_), sum(r.d2h_transfers for r in res_)
-
     def drive_cavity(mode: str, protocol: list | None = None, **over):
         """``AMRLBM(cfg).run(12, amr_interval=4)``, unrolled so each coarse
         step and AMR event is timed; launch counts zeroed just before and
@@ -4053,16 +4393,19 @@ def main(lm: bool = True) -> int:
     r_s_blocks = f_r.shape[0]
     del sim, res, eng, fs, fs_res, fs_progs, bufs, masks, f_fine, m_fine, srcs, hmap2, out_h, f_r, m_r, dst0
     del fill_then_stencil_l, route_l, hm_l, tables, masks_s, local_t, msg_t, hm_local, msg_segs
-    scale = cavity_scale_phase()
+    scale, scale_reference = cavity_scale_phase()
+    # -- 2e. the same run on device_sharded's 4 ranks, held to 2d's --------------
+    scale_sharded = cavity_scale_sharded_phase("device_sharded", scale_reference)
+    del scale_reference
 
     # -- 7. cross-check at a smaller depth ----------------------------------------
     if lm:
-        cross_check_phase(forest_of)
+        cross_check_phase()
 
     # -- 8. the LM and kernels lines and the result -------------------------------
     by_path = {"fused": fused_launches, "arena": arena_launches, "fused_sharded": fs_launches,
                "device_sharded": ds_launches, "serving": serving_launches, "analysis": analysis_launches,
-               "cavity_scale": scale["launches"]}
+               "cavity_scale": scale["launches"], "cavity_scale_sharded": scale_sharded["launches"]}
 
     def path_launches(key):
         return {path: counts[key] for path, counts in by_path.items()}
@@ -4110,6 +4453,7 @@ def main(lm: bool = True) -> int:
              registers=halo_stencils["trt+slots+halo+payloads"]["registers"],
              spills=halo_stencils["trt+slots+halo+payloads"]["local_bytes"],
              occupancy=halo_stencils["trt+slots+halo+payloads"]["occupancy"], rank_level=rank_rows,
+             scale=scale_sharded["rank_route"],
              shape=f"rank {r_s} level {lmax}: boundary half, {slots_np.size} of {r_s_blocks} blocks, "
                    f"D3Q19 TRT f32"),
         # the stencil over a slot list (interior and boundary halves of
@@ -4138,7 +4482,7 @@ def main(lm: bool = True) -> int:
     return 0
 
 
-def cross_check_phase(forest_of) -> None:
+def cross_check_phase() -> None:
     """Phase 7: every mode on the kernels and the plain versions at the
     cross-check's depth, and the tracers of restack against fused_sharded."""
     from repro_torch.lbm.criteria import macroscopic
@@ -4265,19 +4609,49 @@ def cavity_scale_only(roots: int) -> int:
     t0 = time.perf_counter()
     lib_paths, _log = kbuild.build()
     say(f"build: {', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.2f} s")
-    scale = cavity_scale_phase(roots)
+    scale, _reference = cavity_scale_phase(roots)
     say("card:", card_line())
     print(json.dumps({"cavity_scale": scale}))
     ok_line()
     return 0
 
 
+def cavity_scale_sharded_only(roots: int, modes: list[str]) -> int:
+    """``--only cavity-scale-sharded [--roots R] [--modes a,b]``: phase 1's
+    build, phase 2d (for its forests and digests), then phase 2e in each
+    named mode (``SCALE_SHARDED_MODES`` unless given); their JSON line and
+    the ok line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    check(modes and set(modes) <= set(SCALE_SHARDED_MODES), f"--modes takes a comma list of {SCALE_SHARDED_MODES}")
+    set_numerics()
+    from repro_torch.kernels.lbm_collide import build as kbuild
+
+    say("card:", card_line())
+    t0 = time.perf_counter()
+    lib_paths, _log = kbuild.build()
+    say(f"build: {', '.join(p.name for p in lib_paths)} in {time.perf_counter() - t0:.2f} s")
+    scale, reference = cavity_scale_phase(roots)
+    sharded = {mode: cavity_scale_sharded_phase(mode, reference) for mode in modes}
+    say("card:", card_line())
+    print(json.dumps({"cavity_scale": scale, "cavity_scale_sharded": sharded}))
+    ok_line()
+    return 0
+
+
 USAGE = ("usage: python3 chip_smoke.py [--only cavity | --only cavity-scale [--roots R] | "
+         "--only cavity-scale-sharded [--roots R] [--modes device_sharded,fused_sharded] | "
          "--only lm,lm-families,lm-archs,lm-train,lm-dist]")
 T_START = time.perf_counter()
 
 if __name__ == "__main__":
     args = sys.argv[1:]
+    if args[:2] == ["--only", "cavity-scale-sharded"]:
+        opts = dict(zip(args[2::2], args[3::2]))
+        check(len(args) % 2 == 0 and set(opts) <= {"--roots", "--modes"}, USAGE)
+        sys.exit(cavity_scale_sharded_only(int(opts.get("--roots", SCALE_ROOTS)),
+                                           opts.get("--modes", ",".join(SCALE_SHARDED_MODES)).split(",")))
     if args[:2] == ["--only", "cavity-scale"]:
         check(len(args) == 2 or (len(args) == 4 and args[2] == "--roots"), USAGE)
         sys.exit(cavity_scale_only(int(args[3]) if len(args) == 4 else SCALE_ROOTS))

@@ -1382,10 +1382,18 @@ def make_device_superstep(
 
     Returns:
         ``superstep(pdfs: dict[rank, tuple]) -> dict[rank, tuple]`` advancing
-        one coarse step; it consumes its input tuples. Its ``fill_segments``,
-        ``halo_steps`` and ``payload_copies`` attributes count the fill and
-        halo-route launches (on ``cuda``) and the message copies of a coarse
-        step, and ``halo_step_objects()`` lists the distinct halo steps.
+        one coarse step. It consumes its input: it empties the dict it is
+        handed before the first substep, so a caller that keeps no other
+        reference (as :class:`~..lbm.engines.DeviceShardedEngine` does)
+        holds each rank's pre-step and stepped stacks at once, never a
+        third copy. Its ``fill_segments``, ``halo_steps`` and
+        ``payload_copies`` attributes count the fill and halo-route launches
+        (on ``cuda``) and the message copies of a coarse step,
+        ``halo_step_objects()`` lists the distinct halo steps, and
+        ``branches[p]`` is pattern ``p``'s substep, with its ``absorbs``
+        (rank -> :func:`make_rank_absorb`'s program), ``sends`` (per round,
+        each (message, emit)) and ``inbound`` (rank -> its messages in the
+        order its absorb takes the payloads).
     """
     _check_backend(backend)
     levels = tuple(sorted(levels))
@@ -1429,19 +1437,22 @@ def make_device_superstep(
         branch.fill_segments = sum(a.fill_segments for a in absorbs.values())
         branch.halo_steps = sum(a.halo_steps for a in absorbs.values())
         branch.payload_copies = sum(len(rnd) for rnd in sends)
+        branch.absorbs, branch.sends, branch.inbound = absorbs, sends, inbound
         return branch
 
     branches = [make_branch(p) for p in range(lmax + 1)]
     pattern = substep_patterns(lmax)
 
     def superstep(pdfs):
-        pdfs = dict(pdfs)
+        state = dict(pdfs)
+        pdfs.clear()  # handed over: the caller keeps no reference
         for p in pattern:
-            pdfs = branches[p](pdfs)
-        return pdfs
+            state = branches[p](state)
+        return state
 
     superstep.fill_segments = sum(branches[p].fill_segments for p in pattern)
     superstep.halo_steps = sum(branches[p].halo_steps for p in pattern)
     superstep.payload_copies = sum(branches[p].payload_copies for p in pattern)
     superstep.halo_step_objects = lambda: [h for f in factories.values() for h in f.steps()]
+    superstep.branches = branches
     return superstep

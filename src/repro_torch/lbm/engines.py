@@ -65,7 +65,6 @@ from ..kernels.lbm_collide.ops import (
 from ..telemetry import get_tracer
 from .grid import CellType
 from .halo import (
-    compile_rank_halo_plan,
     fill_ghost_layers,
     fill_ghost_layers_sharded,
     padded_block_counts,
@@ -73,7 +72,13 @@ from .halo import (
     verify_padded_plan,
 )
 from .lattice import omega_for_level
-from .plans import compile_forest_plan, pattern_plans
+from .plans import (
+    compile_forest_plan,
+    compile_rank_forest_plan,
+    pattern_plans,
+    rank_pattern_plans,
+    run_rank_plan_on_host,
+)
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from ..core.forest import Block, BlockForest
@@ -441,6 +446,39 @@ class ShardedEngine(StepEngine):
     def __init__(self, sim: "AMRLBM") -> None:
         super().__init__(sim)
         self.arenas = RankArenas(sim.fields, sim.cfg.nranks)
+        # (arenas version, the whole forest's compiled rank plan), used by
+        # the device-resident subclasses
+        self._rank_plan: tuple | None = None
+
+    def _rank_slots(self) -> dict[int, dict[int, dict[int, int]]]:
+        per_rank = self.arenas.per_rank
+        return {r: {l: per_rank[r].slots(l) for l in per_rank[r].levels()} for r in range(self.cfg.nranks)}
+
+    def _whole_rank_plan(self):
+        """The compiled rank plan of every level in use, cached until the
+        arenas' next adoption: the device-resident sharded engines' host
+        fill after an AMR event runs it, and their next programs cut each
+        pattern's plan from it (``lbm/plans.py``), one compile an event."""
+        version = self.arenas.version
+        if self._rank_plan is None or self._rank_plan[0] != version:
+            levels = sorted(self.sim.forest.levels_in_use())
+            plan = compile_rank_forest_plan(self.sim.forest, self.sim.fields, self._rank_slots(), levels)
+            self._rank_plan = (version, plan)
+        return self._rank_plan[1]
+
+    def _exchange_whole_plan(self) -> None:
+        """The whole forest's host fill through :meth:`_whole_rank_plan`, in
+        place on the ranks' host stacks, its payloads through the ``Comm``
+        fabric: bitwise :func:`~.halo.fill_ghost_layers_sharded`'s fill,
+        with its messages and bytes."""
+        self.sync_caches()
+        comm = self.sim.comm
+        s0 = comm.stats.summary()
+        per_rank = self.arenas.per_rank
+        bufs = {r: {l: per_rank[r].buffer(l, "pdf") for l in per_rank[r].levels()} for r in range(self.cfg.nranks)}
+        with _TR.stage("halo", cat="stage") as sp:
+            run_rank_plan_on_host(self._whole_rank_plan(), bufs, comm)
+        self.sim.data_stats["halo"].add(StageStats.delta(s0, comm.stats.summary(), sp.seconds))
 
     def _group_mask(self, level: int, ranks: tuple[int, ...]) -> torch.Tensor:
         """Device mask for a batched group of rank buffers."""
@@ -577,6 +615,13 @@ class FusedShardedEngine(ShardedEngine):
     def residencies(self) -> list:
         return [arena.device() for arena in self.arenas.per_rank]
 
+    def exchange_ghosts(self, active: set[int] | None = None) -> None:
+        """The whole forest's host fill (after an AMR event, before tracers),
+        through the compiled plan the next programs' patterns are cut from;
+        the programs fill every substep's ghosts themselves."""
+        assert active is None, "the host fills the whole forest"
+        self._exchange_whole_plan()
+
     def _programs(self) -> _RankPrograms:
         forest = self.sim.forest
         levels = tuple(sorted(forest.levels_in_use()))
@@ -606,9 +651,10 @@ class FusedShardedEngine(ShardedEngine):
         progs = _RankPrograms(levels=levels, nsub=nsub, pattern=substep_patterns(lmax), ranks=ranks,
                               rank_levels=rank_levels, rank_slots=rank_slots, factories=factories)
         backend = self.cfg.kernel_backend
+        plans = rank_pattern_plans(self._whole_rank_plan(), levels)
         for p in range(lmax + 1):
             active = {l for l in levels if l >= lmax - p}
-            plan = compile_rank_halo_plan(forest, self.sim.fields, rank_slots, fields=("pdf",), levels=active)
+            plan = plans[p]
             progs.plans[p] = plan
             progs.has_messages[p] = bool(plan.messages)
             for d in (progs.emits, progs.absorbs, progs.interiors, progs.boundaries, progs.sends, progs.recvs):
@@ -665,7 +711,10 @@ class FusedShardedEngine(ShardedEngine):
         progs = self._programs()
         comm = self.sim.comm
         res = {r: self.arenas.per_rank[r].device() for r in progs.ranks}
-        pdfs = {r: tuple(res[r].fetch(l, "pdf") for l in progs.rank_levels[r]) for r in progs.ranks}
+        # the residencies hand their stacks over: a rank's pre-step stacks
+        # are freed once its programs return their successors, so a coarse
+        # step holds two copies of the state, not three
+        pdfs = {r: tuple(res[r].take(l, "pdf") for l in progs.rank_levels[r]) for r in progs.ranks}
         s0 = comm.stats.summary()
         with _TR.stage("fused", cat="stage", coarse_steps=coarse_steps) as st:
             for _ in range(coarse_steps):
@@ -859,8 +908,9 @@ class DeviceShardedEngine(ShardedEngine):
         # flush the device steps, then run the host exchange. The device
         # interiors stay current and their ghosts are filled again at the
         # next substep 0, so the device state is kept, as fused_sharded's
+        assert active is None, "the host fills the whole forest"
         self.materialize_host()
-        super().exchange_ghosts(active)
+        self._exchange_whole_plan()
 
     # -- programs --------------------------------------------------------------
     def _programs(self) -> _DevicePrograms:
@@ -876,20 +926,20 @@ class DeviceShardedEngine(ShardedEngine):
 
     def _build_programs(self, forest: "BlockForest", levels: tuple[int, ...]) -> _DevicePrograms:
         lmax = levels[-1]
-        per_rank = self.arenas.per_rank
-        nranks = self.cfg.nranks
-        rank_slots = {r: {l: per_rank[r].slots(l) for l in per_rank[r].levels()} for r in range(nranks)}
-        counts = padded_block_counts(rank_slots, nranks)
+        rank_slots = self._rank_slots()
+        counts = padded_block_counts(rank_slots, self.cfg.nranks)
         fs = self.sim.fields.fields["pdf"]
         row_bytes = int(np.prod(fs.shape, dtype=np.int64)) * np.dtype(fs.dtype).itemsize
-        plans, schedules, messages, rounds_n, pad_bytes = {}, {}, {}, {}, {}
+        whole = self._whole_rank_plan()
+        # every pattern's plan is a cut of the whole one: no index of the
+        # whole plan may touch a padded slot
+        bad = verify_padded_plan(whole, rank_slots)
+        assert not bad, bad
+        plans = rank_pattern_plans(whole, levels)
+        schedules, messages, rounds_n, pad_bytes = {}, {}, {}, {}
         for p in range(lmax + 1):
-            active = {l for l in levels if l >= lmax - p}
-            plan = compile_rank_halo_plan(forest, self.sim.fields, rank_slots, fields=("pdf",), levels=active)
-            bad = verify_padded_plan(plan, rank_slots)
-            assert not bad, bad  # no plan index may touch a padded slot
-            sched = schedule_ppermute_rounds(plan.messages)
-            plans[p], schedules[p], messages[p] = plan, sched, plan.messages
+            sched = schedule_ppermute_rounds(plans[p].messages)
+            schedules[p], messages[p] = sched, plans[p].messages
             rounds_n[p] = len(sched)
             pad_bytes[p] = sum(rnd.pad_cells() for rnd in sched) * row_bytes
         self._ensure_device(levels, counts)
@@ -980,7 +1030,10 @@ class DeviceShardedEngine(ShardedEngine):
         comm = self.sim.comm
         s0 = comm.stats.summary()
         with _TR.stage("fused", cat="stage", coarse_steps=coarse_steps) as st:
-            pdfs = self._dev_pdfs
+            # handed over: the superstep empties the dict, and a rank's
+            # pre-step stacks are freed once their successors exist, so a
+            # coarse step holds two copies of the padded state, not three
+            pdfs, self._dev_pdfs = self._dev_pdfs, None
             for _ in range(coarse_steps):
                 with _TR.span("device_superstep", cat="substep", nsub=progs.nsub):
                     pdfs = progs.fn(pdfs)

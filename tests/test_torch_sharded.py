@@ -206,39 +206,42 @@ def test_cuda_absorb_fills_every_ghost_before_any_stencil(monkeypatch):
     plain stencil over one only in the split; and the route reads inbound
     payloads."""
     calls = []
-    _spy(monkeypatch, calls)
     for split in (False, True):
+        # the AMR event's host fill runs on the host stacks by index, as
+        # the fused engine's does: the spy watches the programs alone
         sim = _refined(overlap_split=split)
-        progs = sim.engine._programs()
-        per_program = []
+        with monkeypatch.context() as spied:
+            _spy(spied, calls)
+            progs = sim.engine._programs()
+            per_program = []
 
-        def marked(fn):
-            def call(*args):
-                calls.clear()
-                out = fn(*args)
-                per_program.append((fn, list(calls)))
-                return out
+            def marked(fn):
+                def call(*args):
+                    calls.clear()
+                    out = fn(*args)
+                    per_program.append((fn, list(calls)))
+                    return out
 
-            return call
+                return call
 
-        for table in (progs.absorbs, progs.interiors, progs.boundaries):
-            for per in table.values():
-                for r, fn in per.items():
-                    per[r] = marked(fn)
-        sim.advance(1)
-        assert per_program
-        halo_calls = with_payload = 0
-        for fn, prog in per_program:
-            assert not [c for c in prog if c[0] == "fill"], prog
-            assert sum(what == "halo" for what, _s in prog) == fn.halo_steps and fn.fill_segments == 0
-            halo_calls += fn.halo_steps
-            with_payload += bool(fn.halo_steps and fn.__name__ in ("absorb", "boundary")
-                                 and any(h.message_rows for h in fn.halo.values()))
-        assert halo_calls > 0 and with_payload > 0
-        halo_slots = [s for _fn, prog in per_program for what, s in prog if what == "halo"]
-        stencil_slots = [s for _fn, prog in per_program for what, s in prog if what == "stencil"]
-        assert halo_slots and all(halo_slots)
-        assert not any(stencil_slots) or split
+            for table in (progs.absorbs, progs.interiors, progs.boundaries):
+                for per in table.values():
+                    for r, fn in per.items():
+                        per[r] = marked(fn)
+            sim.advance(1)
+            assert per_program
+            halo_calls = with_payload = 0
+            for fn, prog in per_program:
+                assert not [c for c in prog if c[0] == "fill"], prog
+                assert sum(what == "halo" for what, _s in prog) == fn.halo_steps and fn.fill_segments == 0
+                halo_calls += fn.halo_steps
+                with_payload += bool(fn.halo_steps and fn.__name__ in ("absorb", "boundary")
+                                     and any(h.message_rows for h in fn.halo.values()))
+            assert halo_calls > 0 and with_payload > 0
+            halo_slots = [s for _fn, prog in per_program for what, s in prog if what == "halo"]
+            stencil_slots = [s for _fn, prog in per_program for what, s in prog if what == "stencil"]
+            assert halo_slots and all(halo_slots)
+            assert not any(stencil_slots) or split
 
 
 def test_factory_less_absorb_fills_every_ghost_before_any_stencil(monkeypatch):

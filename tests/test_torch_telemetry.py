@@ -181,8 +181,17 @@ def _span_counts(tel, amrlbm, config, **extra) -> Counter:
 def test_port_opens_the_reference_spans_with_equal_counts():
     """Both packages open the same spans along ``fused_sharded``'s advance,
     the AMR cycle and the plan builds; instants and seconds differ by
-    design (the port records no jit traces) and are not compared."""
+    design (the port records no jit traces) and are not compared. The rank
+    plans' spans differ by design too: the port compiles the whole forest's
+    plan once an arena version (``compile_rank_forest_plan``,
+    ``lbm/plans.py``), for its post-event host fill and every pattern's
+    program, where the reference compiles each pattern's plan at each
+    program build (1 pattern before the event, 2 after) and builds its
+    region-list plan for the host fill."""
     ours = _span_counts(telemetry, AMRLBM, LidDrivenCavityConfig, device="cpu")
     theirs = _span_counts(jax_telemetry, JaxAMRLBM, JaxConfig)
     assert ours[("substep", "interior")] > 0 and ours[("compile", "build:rank_programs")] == 2
+    assert ours.pop(("halo.plan", "compile_rank_forest_plan")) == ours[("compile", "build:rank_programs")]
+    assert theirs.pop(("halo.plan", "compile_rank_halo_plan")) == 3
+    assert theirs.pop(("halo.plan", "build_rank_halo_plan")) == 1
     assert ours == theirs
